@@ -1,0 +1,43 @@
+"""
+detex_torch: PyTorch + CUDA port of detex_tpu's overlap-save detection scan.
+
+The package mirrors detex_tpu's layout (``ops/ds.py``, ``ops/dft.py``,
+``ops/triggers.py``, ``parallel/scan.py``, ``serving.py``) so every ported
+function has an obvious namesake there. The two kernels of the fused
+overlap-save scan are hand-written CUDA C++ for Hopper (``kernels/``); each
+has a plain PyTorch twin (``ops/reference.py``) that runs when the caller
+hands CPU tensors.
+
+It imports torch, numpy and scipy only: never jax, detex_tpu or pandas.
+Every tensor is made on an explicit ``device``; there is no global default
+device and no randomness inside the package.
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+__version__ = "0.1.0"
+
+_logger = logging.getLogger("detex_torch")
+
+
+def log(name, msg):
+    """Log ``msg`` at info level under the caller's module ``name``."""
+    _logger.info("%s: %s", name, msg)
+
+
+def require_cuda():
+    """Raise unless a CUDA device of compute capability 9.0 (Hopper) is
+    present; returns its name. The hand-written kernels are built for
+    ``sm_90a`` and run nowhere else."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("detex_torch needs a CUDA device: "
+                           "torch.cuda.is_available() is False")
+    cap = torch.cuda.get_device_capability(0)
+    if tuple(cap) != (9, 0):
+        raise RuntimeError("detex_torch kernels are built for sm_90a; device "
+                           "0 (%s) has compute capability %d.%d"
+                           % (torch.cuda.get_device_name(0), cap[0], cap[1]))
+    return torch.cuda.get_device_name(0)

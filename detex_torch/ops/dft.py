@@ -1,0 +1,54 @@
+"""
+Block-transform geometry and twiddle tables for the CUDA kernels.
+
+Namesake of detex_tpu/ops/dft.py. The TPU package splits each 16384-point
+transform into two 128 x 128 matrix stages (``_split``, ``_ct_mats_half``)
+because its matrix unit is the fast path there. The CUDA kernels instead run
+a shared-memory Stockham FFT (four radix-8 passes, then one radix-2 or
+radix-4 pass) of the real signal packed as n/2 complex points
+(kernels/fft.cuh), so what they need from this module is the split (still
+the legality rule of the fused route, n1 == 128), the padded spectrum width
+``half_rp`` and one table of roots of unity, built in float64 on the host
+and cast to float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _split(n):
+    """n = n1 * n2 with both powers of two, n1 <= n2."""
+    b = int(n).bit_length() - 1
+    if (1 << b) != n:
+        raise ValueError("block transform needs a power-of-two length, "
+                         "got %d" % n)
+    n1 = 1 << (b // 2)
+    return n1, n // n1
+
+
+def half_rp(n):
+    """Padded spectrum width of one block: (n1//2 + 1) * n2 = n//2 + n2.
+    Bins 0..n//2 hold the real DFT in natural order; the port writes zeros
+    past n//2 (detex_tpu leaves mirror-frequency values there; both are
+    inert, the inverse only reads bins 0..n//2)."""
+    n1, n2 = _split(n)
+    return (n1 // 2 + 1) * n2
+
+
+_TWIDDLES = {}
+
+
+def twiddles(n, device):
+    """[n//2, 2] float32 table of exp(-2*pi*i*k/n), k < n//2, as (re, im)
+    pairs: built in float64 on the host, cast once and cached per
+    (n, device). The kernels read every root of unity from it (no
+    __sinf/__cosf)."""
+    device = torch.device(device)
+    key = (int(n), str(device))
+    if key not in _TWIDDLES:
+        k = np.arange(n // 2, dtype=np.float64)
+        ang = -2.0 * np.pi * k / n
+        tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+        _TWIDDLES[key] = torch.from_numpy(tab).to(device)
+    return _TWIDDLES[key]

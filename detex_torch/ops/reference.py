@@ -1,0 +1,132 @@
+"""
+Plain PyTorch twins of the two CUDA kernels of the fused overlap-save scan.
+
+Each twin has the signature and outputs of its kernel wrapper in
+ops/cuda_kernels.py and is built from ``torch.fft.rfft/irfft``, float64
+``cumsum`` and elementwise ops. They are what the port runs when the caller
+hands CPU tensors; on a card the main path never calls them, and
+``chip_smoke.py`` holds each kernel against its twin on the same inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from detex_torch.ops import dft as _dft
+
+
+def _prep_geometry(n_c, blk):
+    pad0 = (-(n_c - 1)) % 128
+    D0 = n_c - 1 + pad0
+    return pad0, D0, blk - D0
+
+
+def fwd_prep_fold_ref(xq, nc, n_c, blk, out_len):
+    """Twin of cuda_kernels.fwd_prep_fold.
+
+    xq [B, nc, Lp] float32: demuxed standardized chunks with ``pad0``
+    leading zeros, zeros past the data, Lp = m*W + D0. Frame f covers
+    xq[..., f*W : f*W + blk]. Returns
+
+      Fr, Fi [B*nc, m*Rp]: the real DFT of every frame, bins 0..blk//2 in
+        natural order, zeros up to Rp = dft.half_rp(blk);
+      a, power [B, m*W]: window mean and n * sample variance of the
+        multiplexed window behind output o = f*W + t (samples
+        [o + pad0, o + pad0 + n_c) of every channel), a = 0 and power = 1
+        for o >= out_len, power 0 -> inf.
+    """
+    B, nc_, Lp = xq.shape
+    if nc_ != nc:
+        raise ValueError("xq has %d channels, expected %d" % (nc_, nc))
+    pad0, D0, W = _prep_geometry(n_c, blk)
+    if (Lp - D0) % W:
+        raise ValueError("Lp = %d is not m*W + D0 (W=%d, D0=%d)"
+                         % (Lp, W, D0))
+    m = (Lp - D0) // W
+    Rp = _dft.half_rp(blk)
+    R = blk // 2 + 1
+    frames = xq.unfold(2, blk, W)                       # [B, nc, m, blk]
+    F = torch.fft.rfft(frames, dim=-1)
+    Fr = torch.zeros((B, nc, m, Rp), dtype=torch.float32, device=xq.device)
+    Fi = torch.zeros_like(Fr)
+    Fr[..., :R] = F.real
+    Fi[..., :R] = F.imag
+    x64 = xq.to(torch.float64)
+    zero = torch.zeros((B, nc, 1), dtype=torch.float64, device=xq.device)
+    c1 = torch.cat([zero, torch.cumsum(x64, dim=-1)], dim=-1)
+    c2 = torch.cat([zero, torch.cumsum(x64 * x64, dim=-1)], dim=-1)
+    o = torch.arange(m * W, device=xq.device)
+    s1 = (c1[..., o + pad0 + n_c] - c1[..., o + pad0]).sum(dim=1)
+    s2 = (c2[..., o + pad0 + n_c] - c2[..., o + pad0]).sum(dim=1)
+    n_win = float(n_c * nc)
+    a = s1 / n_win
+    var = (s2 - s1 * s1 / n_win) / (n_win - 1.0)
+    power = var.clamp(min=0.0) * n_win
+    power = torch.where(power == 0, torch.full_like(power, float("inf")),
+                        power)
+    valid = (o < out_len)[None, :]
+    a = torch.where(valid, a, torch.zeros_like(a))
+    power = torch.where(valid, power, torch.ones_like(power))
+    return (Fr.reshape(B * nc, m * Rp), Fi.reshape(B * nc, m * Rp),
+            a.to(torch.float32), power.to(torch.float32))
+
+
+def hist_floor_rule(ds, nbin):
+    """Per-row uniform [0, 1] histogram by the floor rule of the fused
+    kernels: bin floor(v * nbin) in float32, v == 1.0 in the last bin,
+    negative, > 1, -inf and NaN values dropped. ds [R, L] -> int32
+    [R, nbin]."""
+    R = ds.shape[0]
+    idx = torch.floor(ds * float(nbin))
+    idx = torch.where(ds == 1.0, torch.full_like(idx, nbin - 1.0), idx)
+    keep = (idx >= 0) & (idx < nbin)
+    rows = torch.arange(R, device=ds.device)[:, None].expand_as(ds)
+    flat = (rows * nbin + idx.clamp(0, nbin - 1).to(torch.int64))[keep]
+    return torch.bincount(flat, minlength=R * nbin).reshape(
+        R, nbin).to(torch.int32)
+
+
+def spec_ds_fold_ref(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head,
+                     blk, nbin=0, emit_ds=True):
+    """Twin of cuda_kernels.spec_ds_fold.
+
+    ur, ui [D, S, nc, Rp]: template half-spectra with the inverse weights
+    c_k/blk folded in (ds.bank_spec_pair); fr, fi [B*nc, m*Rp] block
+    spectra; a, power [B, m*W] pre-padded window stats; sum_u [D, S]
+    (masked slots 0); nv [B] valid DS lengths. Row r of every output is
+    (chunk b, template s) = divmod(r, S) in mode "net" and
+    (s, b) = divmod(r, B) in mode "sub". Returns
+
+      ds [BS, m*W] (None unless ``emit_ds``): sum_d (x_d[head:head+W] -
+        sum_u[d]*a)^2 / power per block, -inf at positions >= nv;
+      pyr [BS, m*(W//128)]: max of every 128-sample block;
+      hist [BS, nbin] int32 floor-rule counts (None when nbin == 0).
+    """
+    D, S = sum_u.shape
+    B = nv.shape[0]
+    Rp = _dft.half_rp(blk)
+    m = fr.shape[1] // Rp
+    M = blk // 2
+    dev = fr.device
+    U = torch.complex(ur, ui).reshape(D, S, nc, Rp)[..., :M + 1]
+    F = torch.complex(fr, fi).reshape(B, nc, m, Rp)[..., :M + 1]
+    # undo the folded c_k/blk weights: X[k] = Y[k] * blk / c_k
+    w = torch.full((M + 1,), blk / 2.0, dtype=torch.float32, device=dev)
+    w[0] = w[M] = float(blk)
+    acc = torch.zeros((B, S, m * W), dtype=torch.float32, device=dev)
+    for d in range(D):
+        Y = torch.einsum("sck,bcmk->bsmk", U[d], F) * w
+        x = torch.fft.irfft(Y, n=blk, dim=-1)[..., head:head + W]
+        y = x.reshape(B, S, m * W) - sum_u[d][None, :, None] * a[:, None, :]
+        acc += y * y
+    ds = acc / power[:, None, :]
+    pos = torch.arange(m * W, device=dev)
+    ds = torch.where(pos[None, None, :] < nv.to(dev)[:, None, None], ds,
+                     torch.full_like(ds, float("-inf")))
+    if mode == "sub":
+        ds = ds.transpose(0, 1)
+    elif mode != "net":
+        raise ValueError("mode must be 'net' or 'sub', got %r" % (mode,))
+    ds = ds.reshape(B * S, m * W)
+    pyr = ds.reshape(B * S, (m * W) // 128, 128).amax(dim=-1)
+    hist = hist_floor_rule(ds, nbin) if nbin else None
+    return (ds if emit_ds else None), pyr, hist

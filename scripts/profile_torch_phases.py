@@ -1,0 +1,103 @@
+"""
+Device-time breakdown of detex_torch's two chip_smoke phases on one CUDA
+card, by torch.profiler:
+
+  phase A  one summary-only scan_chunks launch at the bench subspace shape
+           (256 two-hour chunks, one 4-dim subspace of 30 s templates);
+  phase B  one serving.scan_station request (128 detectors, 8 x 3720 s).
+
+For each it prints the wall time and the device-busy time per repeat (the
+union of all device intervals) and the profiler's table of device time by
+kernel. Run from the repository root:
+
+    python3 scripts/profile_torch_phases.py
+"""
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs                                    # noqa: E402
+from detex_torch import serving                            # noqa: E402
+from detex_torch.ops import ds as tds                      # noqa: E402
+from detex_torch.parallel import scan as tscan             # noqa: E402
+
+
+def busy_us(events):
+    """Length of the union of the device intervals, in microseconds."""
+    busy, cur_s, cur_e = 0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def prof(name, fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in p.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(dev_events)
+    print("%s: wall %.3f ms/rep, device busy %.3f ms/rep (%.1f%%)"
+          % (name, wall * 1e3 / reps, busy / 1e3 / reps,
+             100 * busy / 1e6 / wall), flush=True)
+    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=12),
+          flush=True)
+
+
+def main():
+    dev = torch.device("cuda")
+    print(cs.card_line(), flush=True)
+    rng = np.random.default_rng(1)
+    bank = tds.build_bank([cs.basis(rng, 4, 9000)], cs.NC, 2160000, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((256, 2160000), generator=g, device=dev)
+    th = np.full(1, 0.5, np.float32)
+    prof("phase A scan", lambda: tscan.scan_chunks(
+        X, bank, th, cs.NC, 2000, max_trig=16, calc_triggers=False))
+    del X
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(2)
+    S = 128
+    sta = "XX.S01"
+    Us = [cs.basis(rng, 1, 9000) for _ in range(S)]
+    meta = {"stations": {sta: {"nc": cs.NC, "sr": cs.SR, "detectors": [
+        dict(name="SG%03d" % s, kind="sg", threshold=0.5, offsets=[0.0],
+             mags=[1.0], events=["e"]) for s in range(S)]}},
+        "filt": [], "decimate": 1, "version": 1}
+    arrays = {"U__%s__SG%03d" % (sta, s): Us[s].astype(np.float32)
+              for s in range(S)}
+    arrays["meta"] = np.array(json.dumps(meta))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detectors.npz")
+        np.savez(path, **arrays)
+        dep = serving.load_detectors(path, chunk_sec=3600, conBuff=120,
+                                     device=dev)
+    XB = rng.standard_normal((8, 1116000)).astype(np.float32)
+    prof("phase B request", lambda: serving.scan_station(
+        dep, sta, XB, max_trig=16), reps=2)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,196 @@
+"""detex_torch banks, routing rules and package hygiene, held against
+detex_tpu on the CPU.
+
+The JAX side builds its banks with DETEX_TPU_PALLAS=1 and
+DETEX_TPU_MATMUL_FFT=1 (the switches that make detex_tpu pick the fused
+route off the TPU) and a pinned block_fft where its block depends on them.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from detex_tpu.ops import ds as jds
+from detex_torch.kernels import build as tbuild
+from detex_torch.ops import cuda_kernels as tck
+from detex_torch.ops import ds as tds
+from detex_torch.parallel import scan as tscan
+
+NC = 3
+N = 1680                      # multiplexed template length (n_c = 560)
+LC = 3 * 35000
+BLK = 16384
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture()
+def jax_fused_env(monkeypatch):
+    monkeypatch.setenv("DETEX_TPU_PALLAS", "1")
+    monkeypatch.setenv("DETEX_TPU_MATMUL_FFT", "1")
+    yield
+
+
+def _U_list(rng, S, D, n=N):
+    out = []
+    for s in range(S):
+        d = D if s % 2 == 0 else max(1, D - 1)      # ragged -> d_mask
+        q, _ = np.linalg.qr(rng.standard_normal((d, n)).T)
+        out.append(np.ascontiguousarray(q[:, :d].T))
+    return out
+
+
+def test_bank_parity_keys_shapes_values():
+    """Same keys, shapes and statics as detex_tpu's overlap-save bank;
+    template spectra equal to float32 rounding (the port transforms in
+    float64 on the host, detex_tpu in float32)."""
+    U_list = _U_list(np.random.default_rng(1), S=3, D=4)
+    jb = jds.build_bank(U_list, NC, LC, prefer_os=True, block_fft=BLK)
+    tb = tds.build_bank(U_list, NC, LC, "cpu", block_fft=BLK)
+    assert set(jb) == set(tb)
+    for k, v in jb.items():
+        if hasattr(v, "shape"):
+            assert tuple(tb[k].shape) == tuple(v.shape), k
+        else:
+            assert tb[k] == v, k
+    np.testing.assert_allclose(tb["Ufd2"].numpy(), np.asarray(jb["Ufd2"]),
+                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(tb["sum_u"].numpy(), np.asarray(jb["sum_u"]),
+                               rtol=1e-6, atol=1e-6)
+    assert np.array_equal(tb["d_mask"].numpy(), np.asarray(jb["d_mask"]))
+
+
+def test_bank_spec_pair_parity():
+    """The weighted (real, imag) spectra pair [Dmax, S, nc, Rp] matches
+    detex_tpu's f32 pair on identical spectra (bank_from_numpy)."""
+    U_list = _U_list(np.random.default_rng(2), S=3, D=2)
+    jb = jds.build_bank(U_list, NC, LC, prefer_os=True, block_fft=BLK)
+    tb = tds.bank_from_numpy({k: np.asarray(v) if hasattr(v, "shape") else v
+                              for k, v in jb.items()}, "cpu")
+    jur, jui = jds.bank_spec_pair(jb, "f32")
+    tur, tui = tds.bank_spec_pair(tb)
+    assert tuple(tur.shape) == tuple(jur.shape)
+    np.testing.assert_allclose(tur.numpy(), np.asarray(jur), rtol=1e-6,
+                               atol=1e-9)
+    np.testing.assert_allclose(tui.numpy(), np.asarray(jui), rtol=1e-6,
+                               atol=1e-9)
+
+
+def test_bank_from_numpy_carries_weights():
+    """bank_from_numpy turns a detex_tpu bank's numpy arrays into the
+    port's bank with bit-identical spectra and the same statics."""
+    U_list = _U_list(np.random.default_rng(3), S=2, D=3)
+    jb = jds.build_bank(U_list, NC, LC, prefer_os=True, block_fft=BLK)
+    d = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+         for k, v in jb.items()}
+    tb = tds.bank_from_numpy(d, "cpu")
+    assert tb["Ufd2"].dtype == torch.complex64
+    assert np.array_equal(tb["Ufd2"].numpy(), d["Ufd2"].astype(np.complex64))
+    for k in ("n", "n_c", "Dmax", "nc", "blk_fft", "pad_len"):
+        assert tb[k] == d[k]
+    with pytest.raises(NotImplementedError, match="A9"):
+        tds.bank_from_numpy(dict(d, os=False), "cpu")
+
+
+def test_block_snap_is_unconditional(jax_fused_env):
+    """The port snaps a short template's natural block up to 16384 with no
+    environment switch, as detex_tpu does only with its fused route on."""
+    U_list = _U_list(np.random.default_rng(4), S=1, D=2)
+    tb = tds.build_bank(U_list, NC, LC, "cpu")
+    jb = jds.build_bank(U_list, NC, LC, prefer_os=True)
+    assert tb["blk_fft"] == jb["blk_fft"] == BLK
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 63, 65, 100, 129, 1000])
+def test_shape_ladders_match(k):
+    assert tds.pad_rows(k) == jds.pad_rows(k)
+    assert tds.pad_dims(k) == jds.pad_dims(k)
+
+
+def _small_bank(S=3):
+    return tds.build_bank(_U_list(np.random.default_rng(5), S=S, D=1),
+                          NC, LC, "cpu", block_fft=BLK)
+
+
+@pytest.mark.parametrize("case", ["blocked", "bins", "mesh", "fullbank",
+                                  "mux", "wide_block"])
+def test_unported_routes_raise(case):
+    """Every route detex_tpu would take outside route "fold" with the
+    fused modes raises NotImplementedError naming its ROADMAP item."""
+    X = np.zeros((2, LC), np.float32)
+    kw = dict(buff_samps=250, max_trig=4)
+    with pytest.raises(NotImplementedError) as err:
+        if case == "blocked":
+            bank = _small_bank(S=129)
+            tscan.scan_chunks(X, bank, np.ones(129), NC, **kw)
+        elif case == "bins":
+            tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
+                              bins=np.linspace(0, 1, 11), **kw)
+        elif case == "mesh":
+            tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
+                              mesh=object(), **kw)
+        elif case == "fullbank":
+            tds.build_bank(_U_list(np.random.default_rng(6), 1, 1), NC, LC,
+                           "cpu", block_fft=0)
+        elif case == "mux":
+            tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
+        else:   # W // 128 > 128: the unfused fold path
+            bank = tds.build_bank(_U_list(np.random.default_rng(7), 1, 1),
+                                  NC, LC, "cpu", block_fft=32768)
+            tscan.scan_chunks(X, bank, np.ones(1), NC, **kw)
+    assert "ROADMAP A" in str(err.value)
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    """With no nvcc anywhere the kernel build raises; nothing falls back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    monkeypatch.setattr(tbuild, "NVCC_DEFAULT", tmp_path / "no-nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tbuild.load_library(tmp_path / "build")
+    assert not (tmp_path / "build").exists()
+
+
+def test_wrappers_dispatch_on_device():
+    """CPU tensors run the twin and count no kernel launch; a tensor on a
+    device with no kernel raises instead of falling back."""
+    tck.reset_launches()
+    xq = torch.zeros((1, NC, 3 * 15744 + 640), dtype=torch.float32)
+    fr, _, a, _ = tck.fwd_prep_fold(xq, NC, 560, BLK, 40000)
+    assert fr.device.type == "cpu" and a.shape == (1, 3 * 15744)
+    assert tck.LAUNCHES == {"fwd_prep_fold": 0, "spec_ds_fold": 0}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tck.fwd_prep_fold(xq.to("meta"), NC, 560, BLK, 40000)
+
+
+def test_port_imports_without_jax_or_pandas():
+    """In a process where jax, detex_tpu and pandas cannot be imported,
+    detex_torch still imports and runs a CPU scan."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from detex_torch.ops import ds\n"
+        "from detex_torch.parallel import scan\n"
+        "import detex_torch.serving\n"
+        "rng = np.random.default_rng(0)\n"
+        "U = np.linalg.qr(rng.standard_normal((1680, 2)))[0].T\n"
+        "bank = ds.build_bank([U], 3, 3 * 35000, 'cpu')\n"
+        "X = rng.standard_normal((2, 3 * 35000)).astype(np.float32)\n"
+        "out = scan.scan_chunks(X, bank, np.ones(1), 3, 250,\n"
+        "                       calc_triggers=False)\n"
+        "assert out[0].sum() > 0 and out[1].shape == (2, 1)\n"
+        "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
+        "       if sys.modules.get(m) is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

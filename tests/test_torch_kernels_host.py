@@ -1,0 +1,134 @@
+"""The CUDA kernel sources of detex_torch, compiled for the host with g++
+against detex_torch/kernels/emulation (one thread block runs as std::threads
+with real barriers and warp exchanges), held against the kernels' PyTorch
+twins at a small geometry. This checks the kernels' arithmetic, indexing,
+shared-memory reuse and synchronisation on a machine without a GPU; speed,
+the memory model and nvcc's acceptance of the code are only checked on the
+card (tests/test_torch_cuda.py, chip_smoke.py).
+
+Tolerances as on the card: spectra atol 2e-3, a atol 1e-4, power rtol 1e-4
+/ atol 1e-3, pad values exact, ds and block maxima atol 2e-5 with -inf
+positions identical, histogram totals exact.
+"""
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from detex_torch.ops import dft
+from detex_torch.ops import ds as tds
+from detex_torch.ops import reference as ref
+
+KDIR = Path(tds.__file__).resolve().parents[1] / "kernels"
+NC = 3
+# (blk, n_c, L_c): two overlap-save blocks per chunk; 129 is the pad0 == 0
+# branch, 16300 the widest template the fused route takes at blk 32768
+GEOMS = {"560": (16384, 560, 20000), "129": (16384, 129, 20000),
+         "16300": (32768, 16300, 40000)}
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler (g++)")
+    so = tmp_path_factory.mktemp("emu") / "libemu.so"
+    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC",
+                    "-I", str(KDIR / "emulation"), "-I", str(KDIR), "-o",
+                    str(so), str(KDIR / "emulation" / "emulate.cpp"),
+                    "-lpthread"], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.emu_fwd_prep_fold.argtypes = [P] * 6 + [I, I, LL, I, I, I, I, I, LL,
+                                                I, I]
+    lib.emu_spec_ds_fold.argtypes = [P] * 12 + [I] * 11
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _prep_inputs(blk, n_c, L_c, B, seed):
+    """Chunks of noise; the last one ragged, its data ending late in frame
+    0 (where the frame's prefix sums are large) at ``cut`` samples."""
+    out_len, pad0, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+    rng = np.random.default_rng(seed)
+    xq = torch.zeros((B, NC, m * W + D0), dtype=torch.float32)
+    xq[:, :, pad0:pad0 + L_c] = torch.from_numpy(
+        rng.standard_normal((B, NC, L_c)).astype(np.float32))
+    cut = W - n_c // 2
+    xq[-1, :, pad0 + cut:] = 0.0                 # ragged chunk
+    return xq, out_len, pad0, D0, W, m, cut
+
+
+@pytest.mark.parametrize("geom", ["560", "129", "16300"])
+def test_fwd_prep_fold_source_matches_twin(emu, geom):
+    blk, n_c, L_c = GEOMS[geom]
+    B = 2
+    xq, out_len, pad0, D0, W, m, _ = _prep_inputs(blk, n_c, L_c, B, n_c)
+    Rp = dft.half_rp(blk)
+    fr = torch.empty((B * NC, m * Rp))
+    fi = torch.empty_like(fr)
+    a = torch.empty((B, m * W))
+    pw = torch.empty_like(a)
+    rc = emu.emu_fwd_prep_fold(
+        _ptr(xq), _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
+        _ptr(a), _ptr(pw), B, NC, xq.shape[2], m, W, D0, pad0, n_c, out_len,
+        Rp, blk.bit_length() - 2)
+    assert rc == 0
+    Fr, Fi, a0, p0 = ref.fwd_prep_fold_ref(xq, NC, n_c, blk, out_len)
+    R = blk // 2 + 1
+    for k, r in ((fr, Fr), (fi, Fi)):
+        k, r = k.reshape(-1, m, Rp), r.reshape(-1, m, Rp)
+        assert (k[..., :R] - r[..., :R]).abs().max().item() <= 2e-3
+        assert bool((k[..., R:] == 0).all())
+    assert torch.allclose(a[:, :out_len], a0[:, :out_len], rtol=0, atol=1e-4)
+    assert torch.allclose(pw[:, :out_len], p0[:, :out_len], rtol=1e-4,
+                          atol=1e-3)
+    assert bool((a[:, out_len:] == 0).all()) and bool(
+        (pw[:, out_len:] == 1).all())
+
+
+@pytest.mark.parametrize("geom,mode,S,D,emit_ds", [
+    ("560", "sub", 1, 2, True), ("560", "net", 2, 1, False),
+    ("16300", "sub", 1, 1, True)])
+def test_spec_ds_fold_source_matches_twin(emu, geom, mode, S, D, emit_ds):
+    blk, n_c, L_c = GEOMS[geom]
+    B = 2
+    xq, out_len, pad0, D0, W, m, cut = _prep_inputs(blk, n_c, L_c, B, 7)
+    Fr, Fi, a, pw = ref.fwd_prep_fold_ref(xq, NC, n_c, blk, out_len)
+    rng = np.random.default_rng(8)
+    U_list = [np.linalg.qr(rng.standard_normal((NC * n_c, D)))[0].T
+              for _ in range(S)]
+    bank = tds.build_bank(U_list, NC, NC * L_c, "cpu", block_fft=blk)
+    ur, ui = tds.bank_spec_pair(bank)
+    su = bank["sum_u"].T.contiguous()
+    nv = torch.tensor([0 if mode == "net" else out_len, cut - n_c + 1],
+                      dtype=torch.int32)
+    BS = B * S
+    ds = torch.empty((BS, m * W)) if emit_ds else None
+    pyr = torch.empty((BS, m * (W // 128)))
+    hist = torch.zeros((BS, 400), dtype=torch.int32)
+    rc = emu.emu_spec_ds_fold(
+        _ptr(ur), _ptr(ui), _ptr(Fr), _ptr(Fi), _ptr(a), _ptr(pw), _ptr(su),
+        _ptr(nv), _ptr(dft.twiddles(blk, "cpu")), _ptr(ds), _ptr(pyr),
+        _ptr(hist), B, S, D, NC, m, W, D0, dft.half_rp(blk), 400,
+        int(mode == "sub"), blk.bit_length() - 2)
+    assert rc == 0
+    d0, p0, h0 = ref.spec_ds_fold_ref(ur, ui, Fr, Fi, a, pw, su, nv, mode,
+                                      NC, W, D0, blk, nbin=400,
+                                      emit_ds=emit_ds)
+    assert torch.equal(torch.isfinite(pyr), torch.isfinite(p0))
+    fin = torch.isfinite(p0)
+    assert fin.any() and (pyr[fin] - p0[fin]).abs().max().item() <= 2e-5
+    assert torch.equal(hist.sum(1), h0.sum(1))
+    assert (hist - h0).abs().sum().item() <= 2
+    if emit_ds:
+        assert torch.equal(torch.isfinite(ds), torch.isfinite(d0))
+        fin = torch.isfinite(d0)
+        assert (ds[fin] - d0[fin]).abs().max().item() <= 2e-5
