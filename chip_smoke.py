@@ -5,10 +5,12 @@ Smoke run of detex_torch on one NVIDIA GPU of compute capability 9.0 (H100).
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch twin on the card (at the small test
-geometry, at blk 32768, at phase A's geometry cut to 16 chunks, at phase
-B's shape, and after the main-path run at phase A's full shape), then
-drives the port's main path through the entry points a user calls:
+kernel against its plain PyTorch twin on the card (the scan kernels at the
+small test geometry, at blk 32768, at phase A's geometry cut to 16 chunks,
+at phase B's shape and, after the main-path run, at phase A's full shape;
+the dense re-verify kernels at the small geometry, at blk 32768 and, after
+the main-path run, at phase C's re-verify shape), then drives the port's
+main paths through the entry points a user calls:
 
   phase A  the engine's summary-only scan (parallel/scan.scan_chunks with
            calc_triggers=False) of 256 two-hour three-component chunks at
@@ -17,12 +19,20 @@ drives the port's main path through the entry points a user calls:
   phase B  serving: a 128-detector artifact written in detex_tpu's
            export_detectors schema, loaded with serving.load_detectors and
            scanned with serving.scan_station (triggers on), planted events
-           found at the oracle's argmax index.
+           found at the oracle's argmax index;
+  phase C  the dense re-verify at the bench.py dense geometry: phase A's
+           scan of 256 two-hour chunks, 8 of them (3%) with an event
+           planted at DS ~ 0.6, threshold 0.3; the chunks whose maximum
+           passes the threshold go, as the engine sends them, through
+           ops/ds.run_bank_triggers_batch (STA/LTA on, 4096 triggers per
+           row), and every planted event must trigger at the float64
+           oracle's argmax with its DS within 2e-5.
 
-Data and weights are random from fixed seeds. Every phase's failure raises;
-the run exits 0 only when all pass. The last lines are the kernels' JSON
-record, the card's name and power limit from nvidia-smi, and
-{"ok": true, "device": {...}}.
+Each phase runs with the kernels' launch counts set to 0 just before it
+and read just after. Data and weights are random from fixed seeds. Every
+phase's failure raises; the run exits 0 only when all pass. The last lines
+are the kernels' JSON record, the card's name and power limit from
+nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -52,7 +62,17 @@ KERNEL_INFO = {
                       "detex_tpu/ops/pallas_kernels.py:1437"),
     "spec_ds_fold": ("detex_torch/kernels/spec_ds_fold.cu",
                      "detex_tpu/ops/pallas_kernels.py:1038"),
+    "ds_finalize_os_fold": ("detex_torch/kernels/ds_finalize_os_fold.cu",
+                            "detex_tpu/ops/pallas_kernels.py:575"),
+    "rfft_ct_fused": ("detex_torch/kernels/rfft_ct.cu",
+                      "detex_tpu/ops/pallas_kernels.py:336"),
+    "irfft_ct_fused": ("detex_torch/kernels/irfft_ct.cu",
+                       "detex_tpu/ops/pallas_kernels.py:270"),
 }
+# H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
+# the tensor cores, the rate every kernel here computes at
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def say(*args):
@@ -92,6 +112,20 @@ def cuda_ms(fn, reps=3, warm_s=0.3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` through device memory and do ``flops`` float32 operations,
+    the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def rfft_flops(n):
+    """Operations of one real FFT of n points (2.5 n log2 n)."""
+    return 2.5 * n * np.log2(n)
 
 
 def basis(rng, D, n):
@@ -210,6 +244,140 @@ def kernel_vs_twin(dev, B, Lc, n, S, D, mode, seed, timing=False,
             agg.update(ms=s["ms"], plain_ms=s["plain_ms"])
     say("  fwd_prep_fold blk %d: spectra max_abs_err %.3g, a err %.3g"
         % (blk, p["err"], p["a_err"]))
+    return res
+
+
+def dense_inputs(X, bank, lens):
+    """The dense re-verify kernels' inputs for chunk batch X [B, Lc] with
+    valid lengths ``lens``, each stage's input made by the twin of the
+    stage before: (frames [B*nc*m, blk], spec [B*S*D*m, R] complex64,
+    finalize arguments, twin F) exactly as ops/ds.os_prep_batch and
+    os_block_scan_batch build them."""
+    n_c, blk, Dmax = bank["n_c"], bank["blk_fft"], int(bank["Dmax"])
+    B, S = X.shape[0], int(bank["sum_u"].shape[0])
+    L_c = X.shape[1] // NC
+    out_len, pad0, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+    xq, _ = tds.standardize_demux(X, n_c, NC, blk)
+    frames = xq.unfold(2, blk, W).reshape(-1, blk)
+    a, power = tds.window_stats_rows(xq[:, :, pad0:pad0 + L_c], n_c,
+                                     n_c * NC)
+    F = ref.rfft_ct_fused_ref(frames, blk).reshape(B, NC, m, -1)
+    spec = sum(bank["Ufd2"][None, :, :, c, None, :] * F[:, None, None, c]
+               for c in range(NC)).reshape(-1, blk // 2 + 1)
+    cb = ref.irfft_ct_fused_ref(spec, blk)
+    su = torch.where(bank["d_mask"], bank["sum_u"],
+                     torch.zeros_like(bank["sum_u"]))
+    nv = torch.tensor([max((L - bank["n"]) // NC + 1, 0) for L in lens],
+                      dtype=torch.int32, device=X.device)
+    fin = (cb.reshape(B * S * Dmax, m, blk),
+           torch.nn.functional.pad(a, (0, m * W - out_len)),
+           torch.nn.functional.pad(power, (0, m * W - out_len), value=1.0),
+           su[None].expand(B, S, Dmax).reshape(-1).contiguous(), nv, D0,
+           Dmax, W, S)
+    return frames, spec, fin
+
+
+def compare_rfft(frames, blk, timing=False):
+    k = ck.rfft_ct_fused(frames, blk)
+    r = ref.rfft_ct_fused_ref(frames, blk)
+    torch.cuda.synchronize()
+    err = (k - r).abs().max().item()
+    need(err <= 2e-3, "rfft_ct_fused spectra err %g > 2e-3" % err)
+    out = dict(err=err)
+    if timing:
+        out["ms"] = cuda_ms(lambda: ck.rfft_ct_fused(frames, blk))
+        out["plain_ms"] = cuda_ms(lambda: ref.rfft_ct_fused_ref(frames, blk))
+        out["library_ms"] = cuda_ms(lambda: torch.fft.rfft(frames, n=blk))
+        N = frames.shape[0]
+        out["bound"] = bound(N * blk * 4 + N * (blk // 2 + 1) * 8,
+                             N * rfft_flops(blk))
+    return out
+
+
+def compare_irfft(spec, blk, timing=False):
+    k = ck.irfft_ct_fused(spec, blk)
+    r = ref.irfft_ct_fused_ref(spec, blk)
+    torch.cuda.synchronize()
+    diff = (k - r).abs()
+    # all-zero rows (an empty chunk's blocks) come out exactly 0
+    scale = r.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    rel = (diff / scale).max().item()
+    need(rel <= 2e-5, "irfft_ct_fused err %g of the row max > 2e-5" % rel)
+    out = dict(err=diff.max().item(), rel=rel)
+    if timing:
+        out["ms"] = cuda_ms(lambda: ck.irfft_ct_fused(spec, blk))
+        out["plain_ms"] = cuda_ms(lambda: ref.irfft_ct_fused_ref(spec, blk))
+        out["library_ms"] = cuda_ms(lambda: torch.fft.irfft(spec, n=blk))
+        N = spec.shape[0]
+        out["bound"] = bound(N * (blk // 2 + 1) * 8 + N * blk * 4,
+                             N * rfft_flops(blk))
+    return out
+
+
+def compare_finalize(fin, nbin, timing=False):
+    dk, pk, hk = ck.ds_finalize_os_fold(*fin, nbin=nbin)
+    dr, pr, hr = ref.ds_finalize_os_fold_ref(*fin, nbin=nbin)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in (("ds", dk, dr), ("pyr", pk, pr)):
+        need(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+             "ds_finalize_os_fold %s -inf positions differ" % name)
+        f = torch.isfinite(b)
+        if f.any():
+            err = max(err, (a[f] - b[f]).abs().max().item())
+    need(err <= 2e-5, "ds_finalize_os_fold ds/pyr err %g > 2e-5" % err)
+    moves = allowed = 0
+    if nbin:
+        need(torch.equal(hk.sum(1), hr.sum(1)), "histogram row totals differ")
+        moves = int((hk - hr).abs().sum().item())
+        allowed = int(hr.sum().item()) // 200000
+        need(moves <= allowed, "histogram moves %d > %d" % (moves, allowed))
+    out = dict(err=err, moves=moves, allowed=allowed)
+    if timing:
+        out["ms"] = cuda_ms(lambda: ck.ds_finalize_os_fold(*fin, nbin=nbin))
+        out["plain_ms"] = cuda_ms(lambda: ref.ds_finalize_os_fold_ref(
+            *fin, nbin=nbin))
+        cb, a, _, _, _, _, D, W, _ = fin
+        BS, m = cb.shape[0] // D, cb.shape[1]
+        samples = BS * m * W
+        out["bound"] = bound(
+            samples * D * 4 + 2 * a.numel() * 4 + cb.shape[0] * 4
+            + samples * 4 + samples // 128 * 4 + BS * nbin * 4,
+            samples * (3 * D + 1))
+    return out
+
+
+def dense_case(dev, B, Lc, n, S, D, seed, block_fft=None):
+    """(X, bank, lens): B random chunks, one empty and one ragged, against
+    S random D-dim bases of length n."""
+    rng = np.random.default_rng(seed)
+    bank = tds.build_bank([basis(rng, D, n) for _ in range(S)], NC, Lc, dev,
+                          block_fft=block_fft)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, Lc), generator=g, device=dev)
+    X[1] = 0.0                                       # empty chunk
+    X[2, Lc // 2:] = 0.0                             # ragged chunk
+    return X, bank, [Lc, 0, Lc // 2] + [Lc] * (B - 3)
+
+
+def dense_vs_twin(X, bank, lens, timing=False):
+    """The three dense re-verify kernels on chunk batch X, each on the
+    inputs the path gives it, ds_finalize_os_fold with nbin 0 and NBIN."""
+    blk = bank["blk_fft"]
+    frames, spec, fin = dense_inputs(X, bank, lens)
+    res = {"rfft_ct_fused": compare_rfft(frames, blk, timing),
+           "irfft_ct_fused": compare_irfft(spec, blk, timing)}
+    for nbin in (NBIN, 0):
+        f = compare_finalize(fin, nbin, timing and nbin == 0)
+        agg = res.setdefault("ds_finalize_os_fold", dict(err=0.0))
+        agg.update(f, err=max(agg["err"], f["err"]))
+        say("  ds_finalize_os_fold blk %d nbin %d: max_abs_err %.3g, hist "
+            "moves %d (allowed %d)" % (blk, nbin, f["err"], f["moves"],
+                                       f["allowed"]))
+    say("  rfft_ct_fused blk %d (%d rows): spectra max_abs_err %.3g; "
+        "irfft_ct_fused (%d rows): max_abs_err %.3g, %.3g of the row max"
+        % (blk, frames.shape[0], res["rfft_ct_fused"]["err"], spec.shape[0],
+           res["irfft_ct_fused"]["err"], res["irfft_ct_fused"]["rel"]))
     return res
 
 
@@ -339,6 +507,104 @@ def phase_b(dev, tmpdir, S=128, B=8, seed=2):
     return dict(s_per_request=best, oracle_err=max(errs))
 
 
+# ---------------------------------------------------------------------------
+# phase C: dense re-verify at the bench.py dense geometry
+# ---------------------------------------------------------------------------
+
+def phase_c(dev, rate_a, B=256, hours=2.0, seed=3, trigger_rate=0.03,
+            thr=0.3):
+    """bench.py dense (bench.py:273-399) on the port: the summary-only scan
+    of B chunks, then the dense re-verify of the chunks whose maximum
+    passes ``thr`` - 2e-5 (the engine's gate, detect.py:577-582), fed from
+    the scan's device-resident batch as the engine does."""
+    rng = np.random.default_rng(seed)
+    n = int(30 * SR * NC)
+    Lc = int(hours * 3600 * SR * NC)
+    U = basis(rng, 4, n)
+    bank = tds.build_bank([U], NC, Lc, dev)
+    amp = float(np.sqrt(n * 0.6 / 0.4))              # DS ~ 0.6 at the plant
+    k = max(1, int(round(trigger_rate * B)))
+    planted = sorted(int(b) for b in rng.choice(B, size=k, replace=False))
+    offs = [int(rng.integers(1, Lc // NC - n // NC - 1)) * NC
+            for _ in planted]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, Lc), generator=g, device=dev)
+    Ut = torch.as_tensor(U[0].astype(np.float32), device=dev)
+    for b, off in zip(planted, offs):
+        X[b, off:off + n] += amp * Ut
+    th = np.full(1, thr, np.float32)
+    say("phase C: B=%d chunks x %d samples, %d planted (DS ~ 0.6), "
+        "threshold %g, blk %d" % (B, Lc, k, thr, bank["blk_fft"]))
+
+    def step():
+        out = tscan.scan_chunks(X, bank, th, NC, int(20 * SR), max_trig=1,
+                                calc_triggers=False)
+        maxds = out[1][:, 0].cpu().numpy()
+        trig_b = [b for b in range(B) if maxds[b] > thr - 2e-5]
+        sel = X[torch.as_tensor(trig_b, device=dev)]
+        res = tds.run_bank_triggers_batch(
+            None, bank, NC, [[0]] * len(trig_b), [[thr]] * len(trig_b),
+            [SR] * len(trig_b), 5.0, 0.0, True, max_triggers=4096,
+            x_dev=sel, lens_dev=[Lc] * len(trig_b))
+        torch.cuda.synchronize()
+        return trig_b, res
+
+    times = []
+    for _ in range(4):                              # first run warms up
+        t0 = time.perf_counter()
+        trig_b, res = step()
+        times.append(time.perf_counter() - t0)
+    need(trig_b == planted, "phase C re-verified chunks %s, planted %s"
+         % (trig_b, planted))
+    errs = []
+    for b, off, r in zip(planted, offs, res):
+        idx, ds_at, sl_at = r[0]
+        ds64 = tds.ds_numpy(X[b].double().cpu().numpy(), U, NC)
+        i64 = int(np.nanargmax(ds64))
+        need(len(idx) == 1, "phase C chunk %d: %d triggers, expected the "
+             "planted event only" % (b, len(idx)))
+        need(int(idx[0]) == i64, "phase C chunk %d trigger at %d, oracle "
+             "argmax %d" % (b, idx[0], i64))
+        err = abs(float(ds_at[0]) - float(ds64[i64]))
+        errs.append(err)
+        need(err <= 2e-5, "phase C chunk %d DS err %g" % (b, err))
+        need(sl_at is not None and np.isfinite(sl_at).all() and sl_at[0] > 1,
+             "phase C chunk %d STA/LTA %s" % (b, sl_at))
+    best = min(times[1:])
+    rate = B * hours / 24.0 / best
+    say("phase C: s/batch (scan + re-verify) %s (best %.6f), dense "
+        "station-days/s %.3f = %.4f of phase A's %.3f; planted DS err vs "
+        "float64 oracle %s"
+        % ([round(t, 6) for t in times[1:]], best, rate, rate / rate_a,
+           rate_a, ["%.2e" % e for e in errs]))
+    return dict(X=X[torch.as_tensor(planted, device=dev)], bank=bank,
+                s_per_batch=best, station_days_per_s=rate,
+                oracle_err=max(errs))
+
+
+def dense_anatomy(dev, pc):
+    """The re-verify's three kernels held against their twins on phase C's
+    own re-verify inputs (the planted chunks, outside the counted run) and
+    timed beside them and beside the one PyTorch call that computes the
+    same function, where there is one."""
+    X, bank = pc.pop("X"), pc["bank"]
+    t0 = time.perf_counter()
+    tds.run_bank_triggers_batch(
+        None, bank, NC, [[0]] * X.shape[0], [[0.3]] * X.shape[0],
+        [SR] * X.shape[0], 5.0, 0.0, True, max_triggers=4096, x_dev=X,
+        lens_dev=[X.shape[1]] * X.shape[0])
+    torch.cuda.synchronize()
+    reverify_s = time.perf_counter() - t0
+    res = dense_vs_twin(X, bank, [X.shape[1]] * X.shape[0], timing=True)
+    say("phase C anatomy (re-verify of %d chunks, %.6f s host clock): %s "
+        "(SM clock %s)" % (X.shape[0], reverify_s, "; ".join(
+            "%s kernel %.3f ms, twin %.3f ms, library call %s ms"
+            % (k, v["ms"], v["plain_ms"],
+               "%.3f" % v["library_ms"] if "library_ms" in v else "-")
+            for k, v in res.items()), sm_clock()))
+    return res
+
+
 def anatomy(dev, pa):
     """Phase A's launch split into its parts at the full shape (B=256), by
     CUDA events, outside the counted main-path run: the torch glue
@@ -362,6 +628,18 @@ def anatomy(dev, pa):
                     device=dev)
     args = (ur, ui, Fr, Fi, a, power, su, nv, "sub", NC, W, D0, blk)
     out["spec_ds_fold"] = compare_spec(args, False, timing=True)
+    B, S, D = nv.shape[0], int(bank["sum_u"].shape[0]), int(bank["Dmax"])
+    m = Fr.shape[1] // dft.half_rp(blk)
+    spectra = 2 * Fr.numel() * 4
+    stats = 2 * a.numel() * 4
+    out["fwd_prep_fold"]["bound"] = bound(
+        B * NC * (m * W + D0) * 4 + spectra + stats,
+        B * NC * m * rfft_flops(blk))
+    M = blk // 2
+    out["spec_ds_fold"]["bound"] = bound(
+        2 * ur.numel() * 4 + spectra + stats + B * S * m * (W // 128) * 4
+        + B * S * NBIN * 4,
+        B * S * m * D * (NC * (M + 1) * 8 + rfft_flops(blk) + 3 * W))
     s = out["spec_ds_fold"]
     say("phase A anatomy (B=%d): glue %.3f ms; fwd_prep_fold kernel %.3f "
         "ms, twin %.3f ms, spectra max_abs_err %.3g; spec_ds_fold "
@@ -388,7 +666,8 @@ def main():
     with open(os.path.splitext(lib._name)[0] + ".log") as f:
         report = f.read().splitlines()
     for line in report:
-        if "registers" in line or "spill" in line:
+        if ("entry function" in line or "registers" in line
+                or "spill" in line):
             say("  ptxas:", line.strip())
 
     n30 = int(30 * SR * NC)                          # 30 s templates
@@ -409,6 +688,11 @@ def main():
     for k in ("fwd_prep_fold", "spec_ds_fold"):
         say("  %s at B=16: kernel %.3f ms, twin %.3f ms (SM clock %s)"
             % (k, timed[k]["ms"], timed[k]["plain_ms"], sm_clock()))
+    say("phase 2: dense re-verify kernels vs twins, small test geometry "
+        "and blk 32768")
+    checks += [dense_vs_twin(*dense_case(dev, 4, 3 * 35000, 1680, 2, 3, 21)),
+               dense_vs_twin(*dense_case(dev, 3, 3 * 200000, 3 * 16300, 1, 2,
+                                         22, block_fft=32768))]
     say("phase 2: kernels vs twins, phase-B geometry (B=8 x 3720 s, 128 "
         "detectors)")
     timed = kernel_vs_twin(dev, 8, int(3720 * SR * NC), n30, 128, 1, "net",
@@ -420,32 +704,46 @@ def main():
                            timed[k]["ms"], timed[k]["plain_ms"], sm_clock()))
     torch.cuda.empty_cache()
 
-    ck.reset_launches()
     tscan.ROUTE_COUNTS.clear()
-    pa = phase_a(dev)
-    launches_a = dict(ck.LAUNCHES)
+    launches = {}
+
+    def counted(phase, fn, *args):
+        ck.reset_launches()
+        out = fn(*args)
+        launches[phase] = dict(ck.LAUNCHES)
+        return out
+
+    pa = counted("A", phase_a, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_b(dev, tmp)
-    launches = dict(ck.LAUNCHES)
+        counted("B", phase_b, dev, tmp)
+    pc = counted("C", phase_c, dev, pa["station_days_per_s"])
     routes = dict(tscan.ROUTE_COUNTS)
-    say("main-path launches: phase A %s, A+B %s; routes %s"
-        % (launches_a, launches, routes))
-    for k in launches:
-        need(launches_a[k] > 0 and launches[k] > launches_a[k],
-             "kernel %s did not run on both phases" % k)
+    say("main-path launches by phase: %s; routes %s" % (launches, routes))
+    for phase, ks in (("A", ("fwd_prep_fold", "spec_ds_fold")),
+                      ("B", ("fwd_prep_fold", "spec_ds_fold")),
+                      ("C", tuple(KERNEL_INFO))):
+        for k in ks:
+            need(launches[phase][k] > 0,
+                 "kernel %s did not run on phase %s" % (k, phase))
     need(routes.get("fused-sub+fusedprep", 0) > 0
          and routes.get("fused-net+fusedprep", 0) > 0,
          "main path did not take the fused routes: %s" % routes)
     times = anatomy(dev, pa)
+    times.update(dense_anatomy(dev, pc))
 
-    # ms / plain_ms: kernel and twin at the main path's full phase-A shape
+    # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
+    # call computing the same function, at phase A's full shape (scan
+    # kernels) and at phase C's re-verify shape (dense kernels)
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
+        bound_ms, bound_by = times[k]["bound"]
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=replaces,
-            launches=launches[k],
-            max_abs_err=max(r[k]["err"] for r in checks + [times]),
-            ms=times[k]["ms"], plain_ms=times[k]["plain_ms"]))
+            launches=sum(launches[p][k] for p in launches),
+            max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
+            ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=times[k].get("library_ms")))
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

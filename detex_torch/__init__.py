@@ -1,12 +1,13 @@
 """
-detex_torch: PyTorch + CUDA port of detex_tpu's overlap-save detection scan.
+detex_torch: PyTorch + CUDA port of detex_tpu's overlap-save detection scan
+and of the dense re-verify of triggered chunks.
 
 The package mirrors detex_tpu's layout (``ops/ds.py``, ``ops/dft.py``,
-``ops/triggers.py``, ``parallel/scan.py``, ``serving.py``) so every ported
-function has an obvious namesake there. The two kernels of the fused
-overlap-save scan are hand-written CUDA C++ for Hopper (``kernels/``); each
-has a plain PyTorch twin (``ops/reference.py``) that runs when the caller
-hands CPU tensors.
+``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
+``parallel/scan.py``, ``serving.py``) so every ported function has an
+obvious namesake there. The kernels of both paths are hand-written CUDA
+C++ for Hopper (``kernels/``); each has a plain PyTorch twin
+(``ops/reference.py``) that runs when the caller hands CPU tensors.
 
 It imports torch, numpy and scipy only: never jax, detex_tpu or pandas.
 Every tensor is made on an explicit ``device``; there is no global default

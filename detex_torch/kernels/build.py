@@ -2,9 +2,10 @@
 Build the CUDA kernels of detex_torch at first use and bind them with ctypes.
 
 The ``.cu`` sources in this directory are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
-plain C interface, cached under ``_build/`` by a digest of the sources and
-flags. A build failure raises with nvcc's stderr; there is no fallback.
+(``-gencode arch=compute_90a,code=sm_90a``), one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, cached under ``_build/`` by a digest of the sources and flags. A
+build failure raises with nvcc's stderr; there is no fallback.
 ``torch.utils.cpp_extension`` is not used: it needs ninja, and including
 PyTorch's headers makes a build take minutes instead of seconds.
 """
@@ -19,11 +20,12 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("fwd_prep_fold.cu", "spec_ds_fold.cu")
-HEADERS = ("fft.cuh", "fwd_prep_fold.cuh", "spec_ds_fold.cuh")
+SOURCES = ("fwd_prep_fold.cu", "spec_ds_fold.cu", "rfft_ct.cu",
+           "irfft_ct.cu", "ds_finalize_os_fold.cu")
+HEADERS = ("fft.cuh", "fwd_prep_fold.cuh", "spec_ds_fold.cuh", "rfft_ct.cuh",
+           "irfft_ct.cuh", "ds_finalize_os_fold.cuh")
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the CUDA toolkit's default install location, searched after $CUDA_HOME
 # and PATH
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
@@ -39,6 +41,13 @@ _ARGTYPES = {
     # ur, ui, fr, fi, a, power, su, nv, tw, ds, pyr, hist, B, S, D, nc, m,
     # W, head, Rp, nbin, sub, log2m, stream
     "detex_spec_ds_fold": [_P] * 12 + [_I] * 11 + [_P],
+    # x, tw, out, N, log2m, stream
+    "detex_rfft_ct": [_P] * 3 + [_LL, _I, _P],
+    # spec, tw, out, N, log2m, stream
+    "detex_irfft_ct": [_P] * 3 + [_LL, _I, _P],
+    # cb, a, pw, su, nv, ds, pyr, hist, BS, D, m, blk, W, head, group,
+    # nbin, stream
+    "detex_ds_finalize_os_fold": [_P] * 8 + [_LL] + [_I] * 7 + [_P],
 }
 
 _LIBS = {}
@@ -70,29 +79,46 @@ def _digest():
     return h.hexdigest()[:16]
 
 
+def _raise_on_failure(cmd, returncode, stderr):
+    if returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d): %s\n%s"
+                           % (returncode, " ".join(cmd), stderr))
+
+
 def load_library(build_dir=None):
     """The ctypes handle of the kernel library, built on first use into
     ``build_dir`` (default ``BUILD_DIR``). nvcc's ptxas report (registers,
     shared memory, spills per kernel) is kept beside the library as
     ``<name>.log``."""
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    so = build_dir / ("libdetex_kernels_%s.so" % _digest())
-    key = str(so)
-    if key in _LIBS:
+    key = str(build_dir)
+    if key in _LIBS:          # every launch asks: no hashing after the first
         return _LIBS[key]
+    so = build_dir / ("libdetex_kernels_%s.so" % _digest())
     if not so.is_file():
         nvcc = find_nvcc()
         build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = build_dir / ("%s.%d.tmp" % (so.name, os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(KERNEL_DIR / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (exit %d): %s\n%s"
-                               % (proc.returncode, " ".join(cmd),
-                                  proc.stderr))
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        tag = "%s.%d" % (so.stem, os.getpid())
+        objs = [build_dir / ("%s.%s.o" % (tag, Path(s).stem))
+                for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(KERNEL_DIR / s)]
+                for s, o in zip(SOURCES, objs)]
+        cmds.append([nvcc, "-shared", "-o", str(build_dir / (tag + ".tmp")),
+                     *map(str, objs)])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds[:-1]]
+        outs = [p.communicate() for p in procs]
+        log = []
+        for cmd, p, (out, err) in zip(cmds, procs, outs):
+            _raise_on_failure(cmd, p.returncode, err)
+            log.append(out + err)
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        _raise_on_failure(cmds[-1], link.returncode, link.stderr)
+        so.with_suffix(".log").write_text("".join(log))
+        os.replace(build_dir / (tag + ".tmp"), so)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)

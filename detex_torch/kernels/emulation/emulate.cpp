@@ -1,5 +1,5 @@
-// Host build of the fused overlap-save kernels for checking them without a
-// GPU: g++ -std=c++20 -O2 -shared -fPIC -I<this dir> -I<kernels dir>
+// Host build of the CUDA kernels for checking them without a GPU:
+// g++ -std=c++20 -O2 -shared -fPIC -I<this dir> -I<kernels dir>
 // emulate.cpp. Entry points take host pointers and the arguments of the
 // CUDA entry points (blk = 16384 or 32768) and run every thread block of
 // the grid in turn.
@@ -17,13 +17,15 @@ namespace detex {
 alignas(16) unsigned char smem[232448];  // the H100 per-block maximum
 }
 
+#include "ds_finalize_os_fold.cuh"
 #include "fwd_prep_fold.cuh"
+#include "irfft_ct.cuh"
+#include "rfft_ct.cuh"
 #include "spec_ds_fold.cuh"
 
 namespace {
 
-void run_grid(long long nblocks, const std::function<void()>& body) {
-  const int T = detex::kThreads;
+void run_grid(long long nblocks, int T, const std::function<void()>& body) {
   blockDim = {(unsigned)T, 1, 1};
   std::barrier<> bar(T);
   emu_block_barrier = &bar;
@@ -56,7 +58,7 @@ extern "C" int emu_fwd_prep_fold(const float* xq, const float* tw, float* fr,
                                  int log2m) {
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   if (log2m != 13 && log2m != 14) return 1;
-  run_grid((long long)B * m, [=] {
+  run_grid((long long)B * m, detex::kThreads, [=] {
     if (log2m == 13) {
       detex::fwd_prep_fold_kernel<13>(xq, tw2, fr, fi, a, pw, nc, Lp, m, W,
                                       D0, pad0, n_c, out_len, Rp);
@@ -78,7 +80,7 @@ extern "C" int emu_spec_ds_fold(const float* ur, const float* ui,
                                 int log2m) {
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   if (log2m != 13 && log2m != 14) return 1;
-  run_grid((long long)B * S * m, [=] {
+  run_grid((long long)B * S * m, detex::kThreads, [=] {
     if (log2m == 13) {
       detex::spec_ds_fold_kernel<13>(ur, ui, fr, fi, a, pw, su, nv, tw2, ds,
                                      pyr, hist, B, S, D, nc, m, W, head, Rp,
@@ -88,6 +90,49 @@ extern "C" int emu_spec_ds_fold(const float* ur, const float* ui,
                                      pyr, hist, B, S, D, nc, m, W, head, Rp,
                                      nbin, sub);
     }
+  });
+  return 0;
+}
+
+extern "C" int emu_rfft_ct(const float* x, const float* tw, float* out,
+                           long long N, int log2m) {
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  float2* out2 = reinterpret_cast<float2*>(out);
+  if (log2m != 13 && log2m != 14) return 1;
+  run_grid(N, detex::kThreads, [=] {
+    if (log2m == 13) {
+      detex::rfft_ct_kernel<13>(x, tw2, out2);
+    } else {
+      detex::rfft_ct_kernel<14>(x, tw2, out2);
+    }
+  });
+  return 0;
+}
+
+extern "C" int emu_irfft_ct(const float* spec, const float* tw, float* out,
+                            long long N, int log2m) {
+  const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  if (log2m != 13 && log2m != 14) return 1;
+  run_grid(N, detex::kThreads, [=] {
+    if (log2m == 13) {
+      detex::irfft_ct_kernel<13>(spec2, tw2, out);
+    } else {
+      detex::irfft_ct_kernel<14>(spec2, tw2, out);
+    }
+  });
+  return 0;
+}
+
+extern "C" int emu_ds_finalize_os_fold(const float* cb, const float* a,
+                                       const float* pw, const float* su,
+                                       const int* nv, float* ds, float* pyr,
+                                       int* hist, long long BS, int D, int m,
+                                       int blk, int W, int head, int group,
+                                       int nbin) {
+  run_grid(BS * m, detex::kFinThreads, [=] {
+    detex::ds_finalize_os_fold_kernel(cb, a, pw, su, nv, ds, pyr, hist, D,
+                                      m, blk, W, head, group, nbin);
   });
   return 0;
 }

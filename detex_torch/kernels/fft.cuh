@@ -1,6 +1,7 @@
-// Shared device helpers of the fused overlap-save kernels: an in-place
-// mixed-radix Stockham FFT over shared memory and a block-wide exclusive
-// scan.
+// Shared device helpers of the block-transform kernels: an in-place
+// mixed-radix Stockham FFT over shared memory, the split (forward) and
+// pack (inverse) passes between a real block and its half-length complex
+// transform, and a block-wide exclusive scan.
 //
 // A real block of n = 2M samples is transformed as M complex points
 // z[j] = x[2j] + i*x[2j+1] plus a post-pass (forward) or pre-pass (inverse),
@@ -158,6 +159,41 @@ __device__ __forceinline__ void fft_smem(float2* z,
   stockham_pass<8, M, INV>(z, tw, 64);
   stockham_pass<8, M, INV>(z, tw, 512);
   stockham_pass<(LOG2M == 13 ? 2 : 4), M, INV>(z, tw, 4096);
+}
+
+// Bin k (0 <= k <= M) of the real DFT of a 2M-sample block from Z, the
+// M-point forward transform of z[j] = x[2j] + i x[2j+1] in shared memory:
+// X[k] = Xe[k] + W_N^k Xo[k], Xe = (Z[k] + conj Z[M-k]) / 2,
+// Xo = (Z[k] - conj Z[M-k]) / 2i; X[0] and X[M] come from Z[0].
+template <int M>
+__device__ __forceinline__ float2 rfft_split(const float2* z,
+                                             const float2* __restrict__ tw,
+                                             int k) {
+  if (k == 0 || k == M) {
+    const float2 z0 = z[0];
+    return make_float2(k == 0 ? z0.x + z0.y : z0.x - z0.y, 0.f);
+  }
+  const float2 p = z[k];
+  const float2 q = z[M - k];
+  const float er = 0.5f * (p.x + q.x);
+  const float ei = 0.5f * (p.y - q.y);
+  const float orr = 0.5f * (p.y + q.y);
+  const float oi = -0.5f * (p.x - q.x);
+  const float2 w = __ldg(&tw[k]);
+  return make_float2(er + w.x * orr - w.y * oi, ei + w.x * oi + w.y * orr);
+}
+
+// Pre-pass of the inverse real DFT, the converse of rfft_split: from the
+// half spectrum V (already scaled by 1/N), with a = V[k], b = V[M-k] and
+// w = tw[k] = e^{-2 pi i k/N},
+// Z'[k] = (a + conj b) + i e^{+2 pi i k/N} (a - conj b);
+// the inverse M-point FFT of Z' is z[j] = x[2j] + i x[2j+1].
+__device__ __forceinline__ float2 irfft_pack(float2 a, float2 b, float2 w) {
+  const float ar = a.x + b.x, ai = a.y - b.y;
+  const float dr = a.x - b.x, di = a.y + b.y;
+  const float er = w.x * dr + w.y * di;
+  const float ei = w.x * di - w.y * dr;
+  return make_float2(ar - ei, ai + er);
 }
 
 // Block-wide exclusive scan of one value per thread (exact for integer T).

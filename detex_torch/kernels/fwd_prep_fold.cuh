@@ -144,28 +144,13 @@ fwd_prep_fold_kernel(const float* __restrict__ xq,
     __syncthreads();                  // buf / z free
     for (int j = tid; j < M; j += kThreads) z[j] = __ldg(&src2[j]);
     fft_smem<LOG2M, false>(z, tw);
-    // split: X[k] = Xe[k] + W_N^k Xo[k], Xe = (Z[k] + conj Z[M-k]) / 2,
-    // Xo = (Z[k] - conj Z[M-k]) / 2i; X[0], X[M] from Z[0]
     float* outr = fr + (b * nc + c) * m * (long long)Rp + (long long)f * Rp;
     float* outi = fi + (b * nc + c) * m * (long long)Rp + (long long)f * Rp;
     for (int k = tid; k < Rp; k += kThreads) {
-      float xr = 0.f, xi = 0.f;
-      if (k == 0 || k == M) {
-        const float2 z0 = z[0];
-        xr = k == 0 ? z0.x + z0.y : z0.x - z0.y;
-      } else if (k < M) {
-        const float2 p = z[k];
-        const float2 q = z[M - k];
-        const float er = 0.5f * (p.x + q.x);
-        const float ei = 0.5f * (p.y - q.y);
-        const float orr = 0.5f * (p.y + q.y);
-        const float oi = -0.5f * (p.x - q.x);
-        const float2 w = __ldg(&tw[k]);
-        xr = er + w.x * orr - w.y * oi;
-        xi = ei + w.x * oi + w.y * orr;
-      }
-      outr[k] = xr;
-      outi[k] = xi;
+      const float2 v =
+          k <= M ? rfft_split<M>(z, tw, k) : make_float2(0.f, 0.f);
+      outr[k] = v.x;
+      outi[k] = v.y;
     }
   }
 }

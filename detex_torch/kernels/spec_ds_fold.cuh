@@ -26,16 +26,6 @@
 
 namespace detex {
 
-// Z'[k] = (V[k] + conj V[M-k]) + i e^{+2 pi i k/N} (V[k] - conj V[M-k]),
-// a = V[k], b = V[M-k], w = tw[k] = e^{-2 pi i k/N}
-__device__ __forceinline__ float2 irfft_pack(float2 a, float2 b, float2 w) {
-  const float ar = a.x + b.x, ai = a.y - b.y;
-  const float dr = a.x - b.x, di = a.y + b.y;
-  const float er = w.x * dr + w.y * di;
-  const float ei = w.x * di - w.y * dr;
-  return make_float2(ar - ei, ai + er);
-}
-
 template <int LOG2M>
 __global__ void __launch_bounds__(kThreads)
 spec_ds_fold_kernel(const float* __restrict__ ur, const float* __restrict__ ui,

@@ -11,8 +11,11 @@ path went through the kernels.
 
 Kernels, the TPU kernel each replaces, and sources:
 
-  fwd_prep_fold  pallas_kernels.py:1437  kernels/fwd_prep_fold.cu
-  spec_ds_fold   pallas_kernels.py:1038  kernels/spec_ds_fold.cu
+  fwd_prep_fold        pallas_kernels.py:1437  kernels/fwd_prep_fold.cu
+  spec_ds_fold         pallas_kernels.py:1038  kernels/spec_ds_fold.cu
+  ds_finalize_os_fold  pallas_kernels.py:575   kernels/ds_finalize_os_fold.cu
+  rfft_ct_fused        pallas_kernels.py:336   kernels/rfft_ct.cu
+  irfft_ct_fused       pallas_kernels.py:270   kernels/irfft_ct.cu
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from detex_torch.kernels import build as _build
 from detex_torch.ops import dft as _dft
 from detex_torch.ops import reference as _ref
 
-LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0}
+LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
+            "rfft_ct_fused": 0, "irfft_ct_fused": 0}
 
 
 def reset_launches():
@@ -62,6 +66,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def fwd_prep_fold(xq, nc, n_c, blk, out_len):
     """Fused forward prep: demuxed standardized chunks xq [B, nc, Lp]
     (``pad0`` leading zeros, Lp = m*W + D0) -> (Fr, Fi [B*nc, m*Rp],
@@ -90,10 +98,10 @@ def fwd_prep_fold(xq, nc, n_c, blk, out_len):
     tw = _dft.twiddles(blk, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.detex_fwd_prep_fold(
             _ptr(xq), _ptr(tw), _ptr(fr), _ptr(fi), _ptr(a), _ptr(power),
-            B, nc, Lp, m, W, D0, pad0, n_c, int(out_len), Rp, log2m, stream)
+            B, nc, Lp, m, W, D0, pad0, n_c, int(out_len), Rp, log2m,
+            _stream(dev))
     _build.check(lib, rc, "fwd_prep_fold")
     LAUNCHES["fwd_prep_fold"] += 1
     return fr, fi, a, power
@@ -139,12 +147,108 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
     tw = _dft.twiddles(blk, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.detex_spec_ds_fold(
             _ptr(ur), _ptr(ui), _ptr(fr), _ptr(fi), _ptr(a), _ptr(power),
             _ptr(sum_u), _ptr(nv), _ptr(tw), _ptr(ds), _ptr(pyr), _ptr(hist),
             B, S, D, nc, m, W, head, Rp, int(nbin), int(mode == "sub"),
-            log2m, stream)
+            log2m, _stream(dev))
     _build.check(lib, rc, "spec_ds_fold")
     LAUNCHES["spec_ds_fold"] += 1
+    return ds, pyr, hist
+
+
+def rfft_ct_fused(x, n):
+    """Forward real DFT of every row of x [N, n] float32 (n = 16384 or
+    32768 on the card): complex64 [N, n//2 + 1], bins 0..n/2 in natural
+    order. Semantics: reference.rfft_ct_fused_ref."""
+    if not _on_cuda(x):
+        return _ref.rfft_ct_fused_ref(x, n)
+    log2m = _log2m(n)
+    _require(x.dim() == 2 and x.shape[1] == n,
+             "x must be [N, %d], got %s" % (n, tuple(x.shape)))
+    _require(x.dtype == torch.float32 and x.is_contiguous(),
+             "x must be contiguous float32")
+    N = x.shape[0]
+    out = torch.empty((N, n // 2 + 1), dtype=torch.complex64,
+                      device=x.device)
+    if N == 0:
+        return out
+    tw = _dft.twiddles(n, x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.detex_rfft_ct(_ptr(x), _ptr(tw), _ptr(out), N, log2m,
+                               _stream(x.device))
+    _build.check(lib, rc, "rfft_ct_fused")
+    LAUNCHES["rfft_ct_fused"] += 1
+    return out
+
+
+def irfft_ct_fused(spec, n):
+    """Inverse real DFT of every half spectrum spec [N, n//2 + 1]
+    complex64 (n = 16384 or 32768 on the card): float32 [N, n] scaled by
+    1/n. Semantics: reference.irfft_ct_fused_ref."""
+    if not _on_cuda(spec):
+        return _ref.irfft_ct_fused_ref(spec, n)
+    log2m = _log2m(n)
+    _require(spec.dim() == 2 and spec.shape[1] == n // 2 + 1,
+             "spec must be [N, %d], got %s" % (n // 2 + 1, tuple(spec.shape)))
+    _require(spec.dtype == torch.complex64 and spec.is_contiguous(),
+             "spec must be contiguous complex64")
+    N = spec.shape[0]
+    out = torch.empty((N, n), dtype=torch.float32, device=spec.device)
+    if N == 0:
+        return out
+    tw = _dft.twiddles(n, spec.device)
+    lib = _build.load_library()
+    with torch.cuda.device(spec.device):
+        rc = lib.detex_irfft_ct(_ptr(spec), _ptr(tw), _ptr(out), N, log2m,
+                                _stream(spec.device))
+    _build.check(lib, rc, "irfft_ct_fused")
+    LAUNCHES["irfft_ct_fused"] += 1
+    return out
+
+
+def ds_finalize_os_fold(cb, a, power, sum_u, nv, head, D, W, group=1,
+                        nbin=0):
+    """DS finalize of raw overlap-save inverse blocks cb [BS*D, m, blk]
+    with window stats a, power [BS/group, m*W] (DS row r reads stats row
+    r // group), basis sums sum_u [BS*D] and valid lengths nv [BS/group]
+    int32: (ds [BS, m*W], pyr [BS, m*W/128], hist [BS, nbin] int32 or
+    None). Semantics: reference.ds_finalize_os_fold_ref."""
+    if not _on_cuda(cb, a, power, sum_u, nv):
+        return _ref.ds_finalize_os_fold_ref(cb, a, power, sum_u, nv, head,
+                                            D, W, group=group, nbin=nbin)
+    BSD, m, blk = cb.shape
+    _require(D >= 1 and BSD % D == 0, "cb rows %d not a multiple of D=%d"
+             % (BSD, D))
+    BS = BSD // D
+    _require(group >= 1 and BS % group == 0,
+             "%d DS rows are not groups of %d" % (BS, group))
+    G = BS // group
+    _require(W % 128 == 0 and W >= 128 and 0 <= head and head + W <= blk,
+             "geometry W=%d head=%d blk=%d not supported" % (W, head, blk))
+    _require(tuple(a.shape) == (G, m * W) and power.shape == a.shape,
+             "a / power must be [%d, %d]" % (G, m * W))
+    _require(tuple(sum_u.shape) == (BSD,), "sum_u must be [BS*D]")
+    _require(tuple(nv.shape) == (G,), "nv must be [%d]" % G)
+    for t in (cb, a, power, sum_u):
+        _require(t.dtype == torch.float32 and t.is_contiguous(),
+                 "cb, stats and sum_u must be contiguous float32")
+    _require(nv.dtype == torch.int32 and nv.is_contiguous(),
+             "nv must be contiguous int32")
+    dev = cb.device
+    ds = torch.empty((BS, m * W), dtype=torch.float32, device=dev)
+    pyr = torch.empty((BS, m * (W // 128)), dtype=torch.float32, device=dev)
+    hist = (torch.zeros((BS, nbin), dtype=torch.int32, device=dev)
+            if nbin else None)
+    if BS * m == 0:
+        return ds, pyr, hist
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.detex_ds_finalize_os_fold(
+            _ptr(cb), _ptr(a), _ptr(power), _ptr(sum_u), _ptr(nv), _ptr(ds),
+            _ptr(pyr), _ptr(hist), BS, D, m, blk, W, head, int(group),
+            int(nbin), _stream(dev))
+    _build.check(lib, rc, "ds_finalize_os_fold")
+    LAUNCHES["ds_finalize_os_fold"] += 1
     return ds, pyr, hist

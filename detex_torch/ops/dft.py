@@ -7,14 +7,17 @@ because its matrix unit is the fast path there. The CUDA kernels instead run
 a shared-memory Stockham FFT (four radix-8 passes, then one radix-2 or
 radix-4 pass) of the real signal packed as n/2 complex points
 (kernels/fft.cuh), so what they need from this module is the split (still
-the legality rule of the fused route, n1 == 128), the padded spectrum width
-``half_rp`` and one table of roots of unity, built in float64 on the host
-and cast to float32.
+the legality rule of the block kernels, n1 == 128), the padded spectrum
+width ``half_rp`` and one table of roots of unity, built in float64 on the
+host and cast to float32. ``rfft_ct`` / ``irfft_ct`` are the block
+transforms of the dense re-verify (ops/ds.py os_prep_batch,
+os_block_scan_batch).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _split(n):
@@ -52,3 +55,33 @@ def twiddles(n, device):
         tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
         _TWIDDLES[key] = torch.from_numpy(tab).to(device)
     return _TWIDDLES[key]
+
+
+def rfft_ct(x, n):
+    """== torch.fft.rfft(x, n, dim=-1): x [..., L] float32, zero-padded or
+    truncated to n, -> complex64 [..., n//2 + 1]. One rfft_ct_fused launch
+    over all rows (n = 16384 or 32768 on the card; any n on the CPU)."""
+    from detex_torch.ops import cuda_kernels as _ck
+    L = x.shape[-1]
+    if L < n:
+        x = F.pad(x, (0, n - L))
+    elif L > n:
+        x = x[..., :n]
+    lead = x.shape[:-1]
+    out = _ck.rfft_ct_fused(x.reshape(-1, n).contiguous(), n)
+    return out.reshape(lead + (n // 2 + 1,))
+
+
+def irfft_ct(spec, n):
+    """== torch.fft.irfft(spec, n, dim=-1) for a half spectrum
+    spec [..., n//2 + 1] complex64 -> float32 [..., n]. One irfft_ct_fused
+    launch over all rows (n = 16384 or 32768 on the card; any n on the
+    CPU). Unlike detex_tpu's namesake it never builds the hermitian
+    extension: the kernel packs the half spectrum itself."""
+    from detex_torch.ops import cuda_kernels as _ck
+    if spec.shape[-1] != n // 2 + 1:
+        raise ValueError("spec has %d bins, expected n//2 + 1 = %d"
+                         % (spec.shape[-1], n // 2 + 1))
+    lead = spec.shape[:-1]
+    out = _ck.irfft_ct_fused(spec.reshape(-1, n // 2 + 1).contiguous(), n)
+    return out.reshape(lead + (n,))

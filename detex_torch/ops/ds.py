@@ -2,8 +2,8 @@
 The subspace detection statistic (DS) over overlap-save banks.
 
 Namesake of detex_tpu/ops/ds.py, ported as far as the fused overlap-save
-scan needs it. Reference semantics (Detex _MPXDS detect.py:559-578): for a
-multiplexed chunk x and a basis U [D, n],
+scan and the dense re-verify need it. Reference semantics (Detex _MPXDS
+detect.py:559-578): for a multiplexed chunk x and a basis U [D, n],
 
     a     = rolling_mean(x, n)
     power = n * rolling_sample_var(x, n)
@@ -19,6 +19,16 @@ A bank is a dict of tensors with detex_tpu's keys (Ufd2, sum_u, d_mask and
 the int statics n, n_c, Dmax, nc, blk_fft, pad_len). Only the overlap-save
 form is ported; the full-length and multiplexed forms raise
 NotImplementedError (ROADMAP A9).
+
+Two batched paths run a bank over a chunk batch:
+
+  the fused scan     os_prep_batch_fused + os_scan_batch_fused (kernels
+                     fwd_prep_fold, spec_ds_fold), the engine's
+                     summary-only scan and the serving scan;
+  the dense re-verify  os_prep_batch + os_block_scan_batch (kernels
+                     rfft_ct_fused, irfft_ct_fused, ds_finalize_os_fold),
+                     which writes full DS rows: run_bank_batch,
+                     run_bank_rows_batch and run_bank_triggers_batch.
 """
 from __future__ import annotations
 
@@ -27,6 +37,12 @@ import torch
 
 from detex_torch.ops import cuda_kernels as _ck
 from detex_torch.ops import dft as _dft
+from detex_torch.ops import triggers as _triggers
+from detex_torch.ops.rolling import window_stats_rows
+
+# detex_tpu's cap on the dense re-verify's inverse blocks
+# (B * S * Dmax * m * blk float32, ds.py:970-973)
+FOLD_CB_BYTES = 2 << 30
 
 # The fused kernels need a block with the 128-row split (n1 == 128); 16384
 # is the smallest. A shorter natural block always snaps up to it when the
@@ -39,6 +55,7 @@ FUSED_BLOCK = 16384
 # kernel tile (SPEC_DS_ST); the CUDA kernel needs no tile, so "sub" takes
 # any chunk count.
 ROW_TILE = 8
+
 
 def os_min_block(n_c):
     """Smallest legal overlap-save block for per-channel template length
@@ -227,10 +244,11 @@ def spec_ds_mode(B, S, Dmax, n_c, nc, blk_fft):
 
 
 def standardize_demux(X, n_c, nc, blk_fft):
-    """The fused prep's input from a chunk batch X [B, Lc] (float32
-    tensor): per-row standardization (mean and population std, sd 0 -> 1),
-    demuxed to [B, nc, L_c] with ``pad0`` leading zeros and zeros up to
-    Lp = m*W + D0. Returns (xq [B, nc, Lp], out_len)."""
+    """The block input of both preps (fused and dense) from a chunk batch
+    X [B, Lc] (float32 tensor): per-row standardization (mean and
+    population std, sd 0 -> 1), demuxed to [B, nc, L_c] with ``pad0``
+    leading zeros and zeros up to Lp = m*W + D0. Returns
+    (xq [B, nc, Lp], out_len)."""
     B, Lc = X.shape
     L_c = Lc // nc
     out_len, pad0, D0, W, m = _os_geometry(L_c, n_c, blk_fft)
@@ -277,6 +295,228 @@ def os_scan_batch_fused(Fr, Fi, a, power, ur, ui, sum_u, d_mask, mode,
     nv = torch.as_tensor(nv, dtype=torch.int32, device=Fr.device)
     return _ck.spec_ds_fold(ur, ui, Fr, Fi, a, power, su, nv, mode, nc, W,
                             D0, blk_fft, nbin=nbin, emit_ds=emit_ds)
+
+
+def os_prep_batch(X, n_c, nc, blk_fft):
+    """Overlap-save prep of the dense re-verify: X [B, Lc] float32 ->
+    (F [B, nc, m, blk_fft//2 + 1] complex64, a, power [B, out_len]).
+
+    standardize_demux (per-row standardization, demux, padding), window
+    stats (rolling.window_stats_rows; power not yet power-safe), exactly m
+    overlapping blocks at stride W and their forward transform
+    (dft.rfft_ct: one rfft_ct_fused launch on the card)."""
+    L_c = X.shape[1] // nc
+    xq, _ = standardize_demux(X, n_c, nc, blk_fft)
+    _, pad0, _, W, _ = _os_geometry(L_c, n_c, blk_fft)
+    a, power = window_stats_rows(xq[:, :, pad0:pad0 + L_c], n_c, n_c * nc)
+    F = _dft.rfft_ct(xq.unfold(2, blk_fft, W), blk_fft)
+    return F, a, power
+
+
+def os_block_scan_batch(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft,
+                        L_c, nv, nbin=0):
+    """DS of every (chunk, template) row from os_prep_batch's output:
+    F [B, nc, m, R], a / power [B, out_len], nv [B] valid DS lengths ->
+    (ds [B, S, m*W] with -inf past nv, pyr [B, S, m*W/128],
+    hist [B, S, nbin] int32 or None).
+
+    The channel cross-spectra are a plain complex multiply-add; the
+    inverse blocks [B, S, Dmax, m, blk] come from one irfft_ct_fused
+    launch and one ds_finalize_os_fold launch finalizes them, a chunk's S
+    rows sharing its stats row."""
+    B = F.shape[0]
+    S, Dmax = sum_u.shape
+    out_len, pad0, D0, W, m = _os_geometry(L_c, n_c, blk_fft)
+    spec = sum(Ufd2[None, :, :, c, None, :] * F[:, None, None, c]
+               for c in range(F.shape[1]))                 # [B, S, D, m, R]
+    cb = _dft.irfft_ct(spec, blk_fft)
+    del spec
+    su = torch.where(d_mask, sum_u, torch.zeros_like(sum_u))
+    pad_w = m * W - out_len
+    ap = torch.nn.functional.pad(a, (0, pad_w)).contiguous()
+    pp = torch.nn.functional.pad(power, (0, pad_w), value=1.0).contiguous()
+    dev = F.device
+    suf = su[None].expand(B, S, Dmax).reshape(B * S * Dmax).contiguous()
+    nv = torch.as_tensor(nv, dtype=torch.int32, device=dev)
+    ds, pyr, hist = _ck.ds_finalize_os_fold(
+        cb.reshape(B * S * Dmax, m, blk_fft), ap, pp, suf, nv, D0, Dmax, W,
+        group=S, nbin=nbin)
+    return (ds.reshape(B, S, m * W), pyr.reshape(B, S, -1),
+            None if hist is None else hist.reshape(B, S, nbin))
+
+
+def fold_scan_supported(n_c, blk_fft):
+    """True when the dense re-verify's kernels take this geometry: a block
+    of 16384 or 32768 samples (the 128-row split of the block transforms)
+    and an advance W >= 128, as for the fused kernels. detex_tpu's
+    namesake also checks a Pallas tile budget, which the CUDA kernels do
+    not have."""
+    return _fused_geometry_ok(n_c, blk_fft)
+
+
+def _run_bank_batch_fold(X, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
+    """DS rows [B, S, m*W] of a chunk batch X [B, Lc] (-inf past nv)."""
+    F, a, power = os_prep_batch(X, n_c, nc, blk_fft)
+    ds, _, _ = os_block_scan_batch(F, a, power, Ufd2, sum_u, d_mask, n_c, nc,
+                                   blk_fft, X.shape[1] // nc, nv)
+    return ds
+
+
+def _bank_batch_program(Xd, lens, bank, nc):
+    """Run the bank over a device-resident chunk batch Xd [B, pad_len]
+    with valid lengths ``lens`` (multiplexed samples; zero-length slots
+    give all -inf rows). Returns (ds [B, S, m*W] on the bank's device,
+    lens). Raises NotImplementedError for what detex_tpu serves with its
+    per-chunk fallback (ROADMAP A9)."""
+    if not bank.get("os"):
+        raise NotImplementedError(
+            "only overlap-save banks are ported: ROADMAP A9")
+    n_c, blk = bank["n_c"], bank["blk_fft"]
+    pad_len = bank["pad_len"]
+    if tuple(Xd.shape) != (len(lens), pad_len):
+        raise ValueError("chunk batch %s does not match %d lengths x "
+                         "pad_len %d" % (tuple(Xd.shape), len(lens), pad_len))
+    Dmax = int(bank["Dmax"])
+    S = int(bank["sum_u"].shape[0])
+    _, _, _, _, m = _os_geometry(pad_len // int(nc), n_c, blk)
+    if not fold_scan_supported(n_c, blk):
+        raise NotImplementedError(
+            "geometry n_c=%d blk=%d needs the per-chunk route: ROADMAP A9"
+            % (n_c, blk))
+    if len(lens) * S * Dmax * m * blk * 4 > FOLD_CB_BYTES:
+        raise NotImplementedError(
+            "inverse blocks of %d chunks exceed %d bytes; the per-chunk "
+            "route is not ported yet: ROADMAP A9" % (len(lens), FOLD_CB_BYTES))
+    nv = [max(_n_valid(L, bank, nc), 0) for L in lens]
+    out = _run_bank_batch_fold(Xd, nv, bank["Ufd2"], bank["sum_u"],
+                               bank["d_mask"], n_c, int(nc), blk)
+    return out, list(lens)
+
+
+def _bank_batch_out(x_list, bank, nc):
+    """Stack host chunks, each cut to the bank's pad_len and zero-padded to
+    it, into one float32 batch on the bank's device and run
+    _bank_batch_program on it. No power-of-two batch padding: the port has
+    no compile classes to share."""
+    pad_len = bank["pad_len"]
+    X = np.zeros((len(x_list), pad_len), np.float32)
+    lens = []
+    for i, x in enumerate(x_list):
+        L = min(len(x), pad_len)
+        X[i, :L] = np.asarray(x[:L], np.float32)
+        lens.append(L)
+    Xd = torch.from_numpy(X).to(bank["sum_u"].device)
+    return _bank_batch_program(Xd, lens, bank, nc)
+
+
+def _n_valid(L, bank, nc):
+    return (int(L) - bank["n"]) // int(nc) + 1
+
+
+def run_bank_batch(x_list, bank, nc):
+    """Run a bank over a list of host chunks in one batch: a list of numpy
+    [S, n_valid_i] DS arrays, one per chunk."""
+    if not x_list:
+        return []
+    out, lens = _bank_batch_out(x_list, bank, nc)
+    out = out.cpu().numpy()
+    return [out[i, :, :max(_n_valid(L, bank, nc), 0)]
+            for i, L in enumerate(lens)]
+
+
+def run_bank_rows_batch(x_list, bank, nc, rows_list):
+    """The DS rows ``rows_list[i]`` of every host chunk ``x_list[i]``, from
+    one batched bank run and one device-to-host copy of the requested rows:
+    a list of {row_index: numpy float32 [n_valid_i]} dicts. A single chunk
+    takes the same batch path (detex_tpu sends it to run_bank_rows, which
+    gives the same values)."""
+    if not x_list:
+        return []
+    out, lens = _bank_batch_out(x_list, bank, nc)
+    jobs = [(i, int(si)) for i, rows in enumerate(rows_list) for si in rows]
+    got = {}
+    if jobs:
+        dev = out.device
+        sel = out[torch.as_tensor([j[0] for j in jobs], device=dev),
+                  torch.as_tensor([j[1] for j in jobs], device=dev)]
+        got = dict(zip(jobs, sel.cpu().numpy()))
+    res = []
+    for i, rows in enumerate(rows_list):
+        nv = max(_n_valid(lens[i], bank, nc), 0)
+        res.append({int(si): got[(i, int(si))][:nv] for si in rows})
+    return res
+
+
+def run_bank_triggers_batch(x_list, bank, nc, rows_list, thr_list, sr_list,
+                            lta_time, sta_time, use_stalta,
+                            max_triggers=4096, x_dev=None, lens_dev=None):
+    """The engine's dense re-verify of triggered chunks: the bank's DS
+    rows, the optional DS STA/LTA and the exact trigger extraction
+    (triggers.trigger_rows_device) all run on the bank's device; only the
+    per-trigger indices and values come back, in one device-to-host copy
+    per group of rows that share (valid length, STA window, LTA window,
+    suppression buffer).
+
+    ``rows_list[i]`` are the rows of chunk i to re-verify, ``thr_list[i]``
+    their thresholds, ``sr_list[i]`` the chunk's sampling rate (the 20 s
+    suppression buffer and the STA/LTA windows are sample counts);
+    ``lta_time`` / ``sta_time`` in seconds; ``use_stalta`` computes the
+    STA/LTA values. ``x_dev`` / ``lens_dev``: the chunks already on the
+    bank's device as a float32 [Nsel, pad_len] tensor plus their valid
+    lengths, used instead of uploading ``x_list``.
+
+    Returns one dict per chunk: {row_index: (idx int64 [count],
+    ds_at float32 [count], stalta_at float32 [count] | None)}."""
+    if not x_list and x_dev is None:
+        return []
+    if x_dev is not None:
+        if x_dev.dtype != torch.float32:
+            raise ValueError("x_dev must be float32")
+        out, lens = _bank_batch_program(x_dev, list(lens_dev), bank, nc)
+        n_chunks = x_dev.shape[0]
+    else:
+        out, lens = _bank_batch_out(x_list, bank, nc)
+        n_chunks = len(x_list)
+    res = [dict() for _ in range(n_chunks)]
+    groups = {}
+    for ci, (rows, thrs, sr) in enumerate(zip(rows_list, thr_list,
+                                              sr_list)):
+        L = _n_valid(lens[ci], bank, nc)
+        if L <= 0:
+            z = np.zeros(0, np.float32)
+            for si in rows:
+                res[ci][int(si)] = (np.zeros(0, np.int64), z,
+                                    z if use_stalta else None)
+            continue
+        buff = int(20 * sr)              # reference buff = 20 s
+        # ds_stalta's window clamps
+        sta_n = (max(int(sta_time * sr), 0) or 1) if use_stalta else 1
+        lta_n = max(int(lta_time * sr), 1) if use_stalta else 1
+        for si, thr in zip(rows, thrs):
+            groups.setdefault((L, sta_n, lta_n, buff), []).append(
+                (ci, int(si), float(thr)))
+    dev = out.device
+    for (L, sta_n, lta_n, buff), jobs in groups.items():
+        cis = torch.as_tensor([j[0] for j in jobs], device=dev)
+        sis = torch.as_tensor([j[1] for j in jobs], device=dev)
+        thr = torch.as_tensor([j[2] for j in jobs], dtype=torch.float32,
+                              device=dev)
+        idx, cnt, dsv, slv = _triggers.trigger_rows_device(
+            out[cis, sis], thr, L, sta_n, lta_n, buff, max_triggers,
+            use_stalta)
+        # one copy: counts, indices and values side by side in float64
+        # (indices < 2^53 and float32 values round-trip exactly)
+        parts = [cnt[:, None], idx, dsv] + ([slv] if use_stalta else [])
+        packed = torch.cat([p.to(torch.float64) for p in parts],
+                           dim=1).cpu().numpy()
+        k = idx.shape[1]
+        for row, (ci, si, _) in zip(packed, jobs):
+            nf = int(row[0])
+            res[ci][si] = (row[1:1 + nf].astype(np.int64),
+                           row[1 + k:1 + k + nf].astype(np.float32),
+                           row[1 + 2 * k:1 + 2 * k + nf].astype(np.float32)
+                           if use_stalta else None)
+    return res
 
 
 def ds_numpy(x, U, nc):

@@ -1,5 +1,5 @@
 """
-Plain PyTorch twins of the two CUDA kernels of the fused overlap-save scan.
+Plain PyTorch twins of the CUDA kernels.
 
 Each twin has the signature and outputs of its kernel wrapper in
 ops/cuda_kernels.py and is built from ``torch.fft.rfft/irfft``, float64
@@ -130,3 +130,45 @@ def spec_ds_fold_ref(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head,
     pyr = ds.reshape(B * S, (m * W) // 128, 128).amax(dim=-1)
     hist = hist_floor_rule(ds, nbin) if nbin else None
     return (ds if emit_ds else None), pyr, hist
+
+
+def rfft_ct_fused_ref(x, n):
+    """Twin of cuda_kernels.rfft_ct_fused: the real DFT of every row of
+    x [N, n] float32, complex64 [N, n//2 + 1]."""
+    return torch.fft.rfft(x, n=n, dim=-1)
+
+
+def irfft_ct_fused_ref(spec, n):
+    """Twin of cuda_kernels.irfft_ct_fused: the inverse real DFT of every
+    half spectrum spec [N, n//2 + 1] complex64, float32 [N, n] scaled by
+    1/n (imaginary parts of bins 0 and n/2 ignored)."""
+    return torch.fft.irfft(spec, n=n, dim=-1)
+
+
+def ds_finalize_os_fold_ref(cb, a, power, sum_u, nv, head, D, W, group=1,
+                            nbin=0):
+    """Twin of cuda_kernels.ds_finalize_os_fold.
+
+    cb [BS*D, m, blk] raw overlap-save inverse blocks, basis row d of DS
+    row r at r*D + d; a, power [BS/group, m*W] window stats (padded past
+    the valid length), row r reading stats row r // group; sum_u [BS*D]
+    (masked slots 0); nv [BS/group] int32 valid DS lengths. Returns
+
+      ds [BS, m*W]: sum_d (cb[.., head:head+W] - sum_u*a)^2 / power
+        (power 0 -> inf), -inf at positions >= nv;
+      pyr [BS, m*W/128]: max of every 128-sample block;
+      hist [BS, nbin] int32 floor-rule counts (None when nbin == 0).
+    """
+    BSD, m, _ = cb.shape
+    BS = BSD // D
+    c = torch.arange(BS, device=cb.device) // group
+    x = cb[:, :, head:head + W].reshape(BS, D, m * W)
+    y = x - sum_u.reshape(BS, D, 1) * a[c][:, None, :]
+    p = power[c]
+    ds = (y * y).sum(dim=1) / torch.where(
+        p == 0, torch.full_like(p, float("inf")), p)
+    pos = torch.arange(m * W, device=cb.device)
+    ds = torch.where(pos[None, :] < nv.to(torch.int64)[c][:, None], ds,
+                     torch.full_like(ds, float("-inf")))
+    pyr = ds.reshape(BS, (m * W) // 128, 128).amax(dim=-1)
+    return ds, pyr, (hist_floor_rule(ds, nbin) if nbin else None)

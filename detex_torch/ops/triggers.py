@@ -2,25 +2,39 @@
 Trigger extraction: iterative argmax-above-threshold with suppression,
 batched over rows.
 
-Namesake of detex_tpu/ops/triggers.py (``_pyramid_suppress_scan``,
-``extract_triggers_pyramid_pm``). The reference mutates the DS array in a
-while loop (Detex _CreateCoeffArray detect.py:390-445 and
+Namesake of detex_tpu/ops/triggers.py. The reference mutates the DS array
+in a while loop (Detex _CreateCoeffArray detect.py:390-445 and
 _downPlayArrayAroundMax :545-557); here every row of a batch steps
-together, at most ``max_triggers`` steps in one Python loop (it stops once
-no row is above its threshold), over per-block maxima
-(the pyramid the fused kernel emits) instead of the full statistic.
-Suppression mirrors the reference's three-case zeroing with the PADDED row
-length L:
+together in one Python loop, which stops once no row is above its
+threshold (a row below threshold is never changed again, so it never rises
+again). Two forms:
+
+  extract_triggers             over the full statistic, each step zeroing
+                               the suppressed interval in place (the dense
+                               re-verify: a few rows of known length);
+  extract_triggers_pyramid_pm  over per-block maxima (the pyramid the
+                               fused scan kernel emits), re-reading one
+                               block per step (the serving scan).
+
+Suppression mirrors the reference's three-case zeroing with row length L:
 
     index <  buff + 1     -> zero [0, index + buff)
     index >  L - buff     -> zero [index - buff, L)
     otherwise             -> zero [index - buff, index + buff)
 
-Ties go to the first occurrence (torch.argmax, like jnp.argmax).
+Ties go to the first occurrence (torch.max / torch.argmax, like
+jnp.argmax).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from detex_torch.ops import stalta as _stalta
+
+# capacity of extract_triggers_np / extract_triggers when none is given
+# (detex_tpu's DEFAULT_MAX_TRIGGERS)
+DEFAULT_MAX_TRIGGERS = 512
 
 
 def _suppress_bounds(i, buff_samps, L):
@@ -104,3 +118,87 @@ def extract_triggers_pyramid_pm(ceval, pyr_max, threshold, buff_samps,
     return _pyramid_suppress_scan(ceval.to(torch.float32), pyr_max,
                                   threshold, buff_samps, max_triggers,
                                   block, L)
+
+
+def extract_triggers_np(ceval, threshold, buff_samps,
+                        max_triggers=DEFAULT_MAX_TRIGGERS):
+    """Host float64 twin of extract_triggers on one row: the same
+    argmax / suppression semantics without the float32 cast. Returns int64
+    indices in emission order."""
+    c = np.array(ceval, dtype=np.float64, copy=True)
+    L = len(c)
+    out = []
+    while len(out) < max_triggers and L and np.max(c) >= threshold:
+        i = int(np.argmax(c))
+        out.append(i)
+        if i < buff_samps + 1:
+            lo, hi = 0, i + buff_samps
+        elif i > L - buff_samps:
+            lo, hi = i - buff_samps, L
+        else:
+            lo, hi = i - buff_samps, i + buff_samps
+        c[lo:hi] = 0.0
+    return np.asarray(out, np.int64)
+
+
+def extract_triggers(ceval, threshold, buff_samps,
+                     max_triggers=DEFAULT_MAX_TRIGGERS):
+    """Triggers of every row of ceval [R, L] (float32) at per-row
+    thresholds [R] (or one scalar): trigger while the row's maximum is
+    >= its threshold, at most ``max_triggers`` per row. Each step takes
+    every row's maximum and zeroes the suppressed interval of the rows
+    that triggered, so a step costs O(R*L).
+
+    Returns (idx [R, k] int64 in emission order, -1 past the row's count;
+    count [R] int64), where k <= max_triggers is the number of steps
+    taken, i.e. the largest count."""
+    c = ceval.to(torch.float32).clone()
+    R, L = c.shape
+    dev = c.device
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=dev).expand(R)
+    pos = torch.arange(L, device=dev)
+    cols = []
+    for _ in range(int(max_triggers) if L else 0):
+        mx, i = c.max(dim=1)
+        valid = mx >= thr
+        if not bool(valid.any()):
+            break
+        lo, hi = _suppress_bounds(i, buff_samps, L)
+        c.masked_fill_(valid[:, None] & (pos >= lo[:, None])
+                       & (pos < hi[:, None]), 0.0)
+        cols.append(torch.where(valid, i, torch.full_like(i, -1)))
+    idx = (torch.stack(cols, dim=1) if cols
+           else torch.zeros((R, 0), dtype=torch.int64, device=dev))
+    return idx, (idx >= 0).sum(dim=1)
+
+
+def trigger_rows_device(rows, thr, L, sta_n, lta_n, buff_samps,
+                        max_triggers, use_stalta):
+    """The engine's per-row re-verify chain (detect._materializeOne) on the
+    rows' device, in the host order:
+
+      1. truncate to the chunk's ``L`` valid windows (L >= 1);
+      2. if max(row) > 1.1, zero non-finite values (a NaN maximum leaves
+         the row as it is, as numpy's NaN-propagating max does);
+      3. optional centered STA/LTA (stalta._stalta_kernel);
+      4. extract_triggers at the per-row thresholds ``thr`` [R];
+      5. gather DS and STA/LTA values at the trigger indices.
+
+    rows [R, >= L] float32; ``sta_n`` / ``lta_n`` are the clamped window
+    lengths. Returns (idx [R, k] int64, -1 padded; count [R] int64;
+    ds_at [R, k] float32; stalta_at [R, k] float32, zeros when
+    ``use_stalta`` is False), k as in extract_triggers."""
+    r = rows[:, :L].to(torch.float32)
+    mx = r.amax(dim=1, keepdim=True)
+    r = torch.where(mx > 1.1,
+                    torch.where(torch.isfinite(r), r, torch.zeros_like(r)),
+                    r)
+    idx, cnt = extract_triggers(r, thr, buff_samps, max_triggers)
+    safe = idx.clamp(min=0)
+    dsv = torch.gather(r, 1, safe)
+    if use_stalta:
+        slv = torch.gather(_stalta._stalta_kernel(r, sta_n, lta_n), 1, safe)
+    else:
+        slv = torch.zeros_like(dsv)
+    return idx, cnt, dsv, slv

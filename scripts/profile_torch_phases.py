@@ -1,9 +1,12 @@
 """
-Device-time breakdown of detex_torch's two chip_smoke phases on one CUDA
-card, by torch.profiler:
+Device-time breakdown of detex_torch's chip_smoke phases on one CUDA card,
+by torch.profiler:
 
   phase A  one summary-only scan_chunks launch at the bench subspace shape
            (256 two-hour chunks, one 4-dim subspace of 30 s templates);
+  phase C  the dense re-verify part of a phase C batch: one
+           ds.run_bank_triggers_batch call on 8 of those chunks, each with
+           a planted event, STA/LTA on (its scan part is phase A);
   phase B  one serving.scan_station request (128 detectors, 8 x 3720 s).
 
 For each it prints the wall time and the device-busy time per repeat (the
@@ -61,7 +64,7 @@ def prof(name, fn, reps=3):
     print("%s: wall %.3f ms/rep, device busy %.3f ms/rep (%.1f%%)"
           % (name, wall * 1e3 / reps, busy / 1e3 / reps,
              100 * busy / 1e6 / wall), flush=True)
-    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=12),
+    print(p.key_averages().table(sort_by="cuda_time_total", row_limit=16),
           flush=True)
 
 
@@ -69,12 +72,23 @@ def main():
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     rng = np.random.default_rng(1)
-    bank = tds.build_bank([cs.basis(rng, 4, 9000)], cs.NC, 2160000, dev)
+    U = cs.basis(rng, 4, 9000)
+    bank = tds.build_bank([U], cs.NC, 2160000, dev)
     g = torch.Generator(device=dev).manual_seed(0)
     X = torch.randn((256, 2160000), generator=g, device=dev)
     th = np.full(1, 0.5, np.float32)
     prof("phase A scan", lambda: tscan.scan_chunks(
         X, bank, th, cs.NC, 2000, max_trig=16, calc_triggers=False))
+    X = X[:8].clone()
+    torch.cuda.empty_cache()
+    amp = float(np.sqrt(9000 * 0.6 / 0.4))
+    for b in range(8):
+        off = cs.NC * (50000 + 60000 * b)
+        X[b, off:off + 9000] += torch.as_tensor(
+            (amp * U[0]).astype(np.float32), device=dev)
+    prof("phase C re-verify (8 chunks)", lambda: tds.run_bank_triggers_batch(
+        None, bank, cs.NC, [[0]] * 8, [[0.3]] * 8, [cs.SR] * 8, 5.0, 0.0,
+        True, max_triggers=4096, x_dev=X, lens_dev=[2160000] * 8))
     del X
     torch.cuda.empty_cache()
 

@@ -161,14 +161,29 @@ def test_wrappers_dispatch_on_device():
     xq = torch.zeros((1, NC, 3 * 15744 + 640), dtype=torch.float32)
     fr, _, a, _ = tck.fwd_prep_fold(xq, NC, 560, BLK, 40000)
     assert fr.device.type == "cpu" and a.shape == (1, 3 * 15744)
-    assert tck.LAUNCHES == {"fwd_prep_fold": 0, "spec_ds_fold": 0}
+    spec = tck.rfft_ct_fused(xq[0, :, :BLK].contiguous(), BLK)
+    assert spec.dtype == torch.complex64 and spec.shape == (NC, BLK // 2 + 1)
+    cb = tck.irfft_ct_fused(spec, BLK)
+    assert cb.shape == (NC, BLK)
+    ds, pyr, _ = tck.ds_finalize_os_fold(
+        cb.reshape(NC, 1, BLK), a[:, :15744], a[:, :15744] + 1,
+        torch.zeros(NC), torch.tensor([5], dtype=torch.int32), 640, 1,
+        15744, group=NC)
+    assert ds.shape == (NC, 15744) and pyr.shape == (NC, 123)
+    assert tck.LAUNCHES == {"fwd_prep_fold": 0, "spec_ds_fold": 0,
+                            "ds_finalize_os_fold": 0, "rfft_ct_fused": 0,
+                            "irfft_ct_fused": 0}
     with pytest.raises(ValueError, match="no kernel for device"):
         tck.fwd_prep_fold(xq.to("meta"), NC, 560, BLK, 40000)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tck.rfft_ct_fused(xq[0, :, :BLK].to("meta"), BLK)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tck.irfft_ct_fused(spec.to("meta"), BLK)
 
 
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports and runs a CPU scan."""
+    detex_torch still imports and runs a CPU scan and a dense re-verify."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
@@ -184,6 +199,10 @@ def test_port_imports_without_jax_or_pandas():
         "out = scan.scan_chunks(X, bank, np.ones(1), 3, 250,\n"
         "                       calc_triggers=False)\n"
         "assert out[0].sum() > 0 and out[1].shape == (2, 1)\n"
+        "trig = ds.run_bank_triggers_batch(list(X), bank, 3, [[0], [0]],\n"
+        "                                  [[0.5], [0.5]], [100.0] * 2,\n"
+        "                                  5.0, 0.0, True)\n"
+        "assert len(trig) == 2 and len(trig[0][0][0]) == 0\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

@@ -1,14 +1,15 @@
 """The CUDA kernel sources of detex_torch, compiled for the host with g++
 against detex_torch/kernels/emulation (one thread block runs as std::threads
 with real barriers and warp exchanges), held against the kernels' PyTorch
-twins at a small geometry. This checks the kernels' arithmetic, indexing,
-shared-memory reuse and synchronisation on a machine without a GPU; speed,
-the memory model and nvcc's acceptance of the code are only checked on the
-card (tests/test_torch_cuda.py, chip_smoke.py).
+twins at small geometries (blk 16384 and 32768). This checks the kernels'
+arithmetic, indexing, shared-memory reuse and synchronisation on a machine
+without a GPU; speed, the memory model and nvcc's acceptance of the code
+are only checked on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances as on the card: spectra atol 2e-3, a atol 1e-4, power rtol 1e-4
 / atol 1e-3, pad values exact, ds and block maxima atol 2e-5 with -inf
-positions identical, histogram totals exact.
+positions identical, histogram totals exact, inverse transforms within 2e-5
+of the twin relative to the row's largest value.
 """
 import ctypes
 import shutil
@@ -46,6 +47,9 @@ def emu(tmp_path_factory):
     lib.emu_fwd_prep_fold.argtypes = [P] * 6 + [I, I, LL, I, I, I, I, I, LL,
                                                 I, I]
     lib.emu_spec_ds_fold.argtypes = [P] * 12 + [I] * 11
+    lib.emu_rfft_ct.argtypes = [P] * 3 + [LL, I]
+    lib.emu_irfft_ct.argtypes = [P] * 3 + [LL, I]
+    lib.emu_ds_finalize_os_fold.argtypes = [P] * 8 + [LL] + [I] * 7
     return lib
 
 
@@ -132,3 +136,77 @@ def test_spec_ds_fold_source_matches_twin(emu, geom, mode, S, D, emit_ds):
         assert torch.equal(torch.isfinite(ds), torch.isfinite(d0))
         fin = torch.isfinite(d0)
         assert (ds[fin] - d0[fin]).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_block_transforms_source_match_twins(emu, blk):
+    """rfft_ct (B4) and irfft_ct (B5): three rows, one of them a short
+    signal in zeros; the inverse also gets nonzero imaginary parts at bins
+    0 and n/2, which it must ignore as torch.fft.irfft does."""
+    rng = np.random.default_rng(blk)
+    x = torch.from_numpy(rng.standard_normal((3, blk)).astype(np.float32))
+    x[2, 100:] = 0.0
+    tw = dft.twiddles(blk, "cpu")
+    log2m = blk.bit_length() - 2
+    R = blk // 2 + 1
+    out = torch.empty((3, R), dtype=torch.complex64)
+    assert emu.emu_rfft_ct(_ptr(x), _ptr(tw), _ptr(out), 3, log2m) == 0
+    ref_f = ref.rfft_ct_fused_ref(x, blk)
+    assert (out - ref_f).abs().max().item() <= 2e-3
+    spec = ref_f.clone()
+    spec[:, 0] += 0.5j
+    spec[:, -1] -= 0.25j
+    back = torch.empty((3, blk))
+    assert emu.emu_irfft_ct(_ptr(spec), _ptr(tw), _ptr(back), 3,
+                            log2m) == 0
+    want = ref.irfft_ct_fused_ref(spec, blk)
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert ((back - want).abs() / scale).max().item() <= 2e-5
+    assert (back - x).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("blk,nbin,grouped", [
+    (16384, 0, True), (16384, 400, False), (32768, 400, True)])
+def test_ds_finalize_os_fold_source_matches_twin(emu, blk, nbin, grouped):
+    """ds_finalize_os_fold (B3) on random inverse blocks: stats per chunk
+    shared by S = 2 template rows (``grouped``) or one stats row per DS
+    row; chunk 0 empty (nv <= 0), chunk 1 ragged, zero power at a few
+    positions (DS 0 there)."""
+    rng = np.random.default_rng(nbin + blk)
+    B, S, D, m = 2, 2, 2, 2
+    head = 3072 if blk == 16384 else 16384
+    W = blk - head
+    BS = B * S
+    cb = torch.from_numpy(
+        rng.standard_normal((BS * D, m, blk)).astype(np.float32) * 4)
+    G = B if grouped else BS
+    a = torch.from_numpy(rng.standard_normal((G, m * W)).astype(np.float32))
+    pw = torch.from_numpy(
+        rng.uniform(20, 200, (G, m * W)).astype(np.float32))
+    pw[:, 5:9] = 0.0
+    su = torch.from_numpy(rng.standard_normal(BS * D).astype(np.float32))
+    su[1::D] = 0.0                                 # a masked basis slot
+    nv_chunk = [-5, W + 1000]
+    group = S if grouped else 1
+    nv = torch.tensor(nv_chunk if grouped else
+                      [nv_chunk[r // S] for r in range(BS)],
+                      dtype=torch.int32)
+    ds = torch.empty((BS, m * W))
+    pyr = torch.empty((BS, m * W // 128))
+    hist = torch.zeros((BS, max(nbin, 1)), dtype=torch.int32)
+    rc = emu.emu_ds_finalize_os_fold(
+        _ptr(cb), _ptr(a), _ptr(pw), _ptr(su), _ptr(nv), _ptr(ds), _ptr(pyr),
+        _ptr(hist), BS, D, m, blk, W, head, group, nbin)
+    assert rc == 0
+    d0, p0, h0 = ref.ds_finalize_os_fold_ref(cb, a, pw, su, nv, head, D, W,
+                                             group=group, nbin=nbin)
+    for k, r in ((ds, d0), (pyr, p0)):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        assert fin.any()
+        assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    assert bool((ds[S:, 5:9] == 0).all())
+    assert bool(torch.isneginf(ds[:S]).all())
+    if nbin:
+        assert torch.equal(hist.sum(1), h0.sum(1))
+        assert (hist - h0).abs().sum().item() <= 2
