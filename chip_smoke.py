@@ -9,8 +9,9 @@ kernel against its plain PyTorch twin on the card (the scan kernels at the
 small test geometry, at blk 32768, at phase A's geometry cut to 16 chunks,
 at phase B's shape and, after the main-path run, at phase A's full shape;
 the dense re-verify kernels at the small geometry, at blk 32768 and, after
-the main-path run, at phase C's re-verify shape), then drives the port's
-main paths through the entry points a user calls:
+the main-path run, at phase C's re-verify shape; the per-chunk kernels and
+rfft_ct_half at phase D's shapes, before phase D's runs), then drives the
+port's paths through the entry points a user calls:
 
   phase A  the engine's summary-only scan (parallel/scan.scan_chunks with
            calc_triggers=False) of 256 two-hour three-component chunks at
@@ -26,7 +27,25 @@ main paths through the entry points a user calls:
            passes the threshold go, as the engine sends them, through
            ops/ds.run_bank_triggers_batch (STA/LTA on, 4096 triggers per
            row), and every planted event must trigger at the float64
-           oracle's argmax with its DS within 2e-5.
+           oracle's argmax with its DS within 2e-5;
+  phase D  every overlap-save route below the fused one, at 100 Hz on
+           three channels with events planted and checked against the
+           float64 oracle (one trigger at its argmax, DS within 2e-5, no
+           trigger without an event):
+           D1  128 detectors of 60 s templates (blk 32768, W 26752) served
+               on 32 chunks of 3720 s: route "plain" with ds_finalize_os
+               and hist_uniform; then ops/ds.run_bank and run_bank_rows on
+               one chunk;
+           D2  a 128-detector artifact of 30 s templates (phase B's
+               shape) served on 64 chunks, whose DS array exceeds the fused
+               route's cap: route "plain" with
+               ds_finalize_os_scan and its histogram;
+           D3  one 4-dim subspace of 90 s templates with the block pinned
+               at 16384 (n_c > W) on 16 two-hour chunks: route "fused-sub",
+               the unfused prep with rfft_ct_half;
+           D4  small: non-uniform bins (route "plain" without the fused
+               histogram) and a blk-8192 bank (route "fold" with torch.fft
+               and ds_finalize_os_fold), each against the CPU twins.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -68,7 +87,16 @@ KERNEL_INFO = {
                       "detex_tpu/ops/pallas_kernels.py:336"),
     "irfft_ct_fused": ("detex_torch/kernels/irfft_ct.cu",
                        "detex_tpu/ops/pallas_kernels.py:270"),
+    "rfft_ct_half": ("detex_torch/kernels/rfft_ct_half.cu",
+                     "detex_tpu/ops/pallas_kernels.py:1223"),
+    "ds_finalize_os_scan": ("detex_torch/kernels/ds_finalize_os_scan.cu",
+                            "detex_tpu/ops/pallas_kernels.py:438"),
+    "ds_finalize_os": ("detex_torch/kernels/ds_finalize_os.cu",
+                       "detex_tpu/ops/pallas_kernels.py:701"),
+    "hist_uniform": ("detex_torch/kernels/hist_uniform.cu",
+                     "detex_tpu/ops/pallas_kernels.py:199"),
 }
+DENSE_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_fold")
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
 # the tensor cores, the rate every kernel here computes at
 HBM_BYTES_PER_S = 3.35e12
@@ -446,10 +474,17 @@ def phase_a(dev, B=256, hours=2.0, seed=1):
 # phase B: serving
 # ---------------------------------------------------------------------------
 
-def phase_b(dev, tmpdir, S=128, B=8, seed=2):
+SERVE_STA = "XX.S01"
+
+
+def serving_setup(dev, tmpdir, tag, S, B, seconds, seed, amp=None):
+    """A station of S single-template detectors of ``seconds`` s written in
+    detex_tpu's export_detectors schema and loaded with
+    serving.load_detectors (3600 s chunks, 120 s buffer), plus B 3720 s
+    chunks with four events planted (amplitude ``amp``, default 150)."""
     rng = np.random.default_rng(seed)
-    n = int(30 * SR * NC)
-    sta = "XX.S01"
+    n = int(seconds * SR * NC)
+    sta = SERVE_STA
     Us = [basis(rng, 1, n) for _ in range(S)]
     meta = {"stations": {sta: {"nc": NC, "sr": SR, "detectors": [
         dict(name="SG%03d" % s, kind="sg", threshold=0.5, offsets=[0.0],
@@ -458,7 +493,7 @@ def phase_b(dev, tmpdir, S=128, B=8, seed=2):
     arrays = {"U__%s__SG%03d" % (sta, s): Us[s].astype(np.float32)
               for s in range(S)}
     arrays["meta"] = np.array(json.dumps(meta))
-    path = os.path.join(tmpdir, "detectors.npz")
+    path = os.path.join(tmpdir, "detectors_%s.npz" % tag)
     np.savez(path, **arrays)
     dep = serving.load_detectors(path, chunk_sec=3600, conBuff=120,
                                  device=dev)
@@ -467,44 +502,62 @@ def phase_b(dev, tmpdir, S=128, B=8, seed=2):
     # (chunk, detector, channel-aligned offset)
     planted = [(0, 3 % S, Lc // 24 * 3), (2 % B, 77 % S, Lc // 6 * 3),
                (5 % B, 127 % S, Lc * 3 // 10 * 3), (B - 1, 40 % S, 33)]
+    amp = 150.0 if amp is None else amp
     for b, s, off in planted:
-        X[b, off:off + n] += 150.0 * Us[s][0].astype(np.float32)
-    say("phase B: %d detectors, B=%d chunks x %d samples, blk %d"
-        % (S, B, Lc, dep[sta]["banks"][0]["blk_fft"]))
+        X[b, off:off + n] += amp * Us[s][0].astype(np.float32)
+    return dict(dep=dep, X=X, Us=Us, planted=planted, n=n,
+                bank=dep[sta]["banks"][0])
+
+
+def serve_and_check(tag, su, max_trig=16):
+    """serving.scan_station on the setup's chunks, three times (the first
+    warms up); every planted event triggers at the float64 oracle's argmax
+    with its DS within 2e-5, and no other row triggers."""
+    X, Us, planted, n = su["X"], su["Us"], su["planted"], su["n"]
+    B, Lc = X.shape
+    S = len(Us)
+    say("phase %s: %d detectors, B=%d chunks x %d samples, blk %d"
+        % (tag, S, B, Lc, su["bank"]["blk_fft"]))
     times = []
     for _ in range(3):                              # first run warms up
         t0 = time.perf_counter()
-        res = serving.scan_station(dep, sta, X, max_trig=16)
+        res = serving.scan_station(su["dep"], SERVE_STA, X,
+                                   max_trig=max_trig)
         times.append(time.perf_counter() - t0)
     r = res[0]
     need(r["maxds"].shape == (B, S) and np.isfinite(r["maxds"]).all(),
-         "phase B maxds not finite [B, S]")
+         "phase %s maxds not finite [B, S]" % tag)
     nv = (Lc - n) // NC + 1
     need(np.array_equal(r["hist"].sum(axis=1), np.full(S, B * nv)),
-         "phase B histogram totals off")
+         "phase %s histogram totals off" % tag)
     errs = []
     for b, s, off in planted:
         ds64 = tds.ds_numpy(X[b].astype(np.float64), Us[s], NC)
         i64 = int(np.nanargmax(ds64))
-        need(r["trig_count"][b, s] >= 1, "phase B event (%d, %d) missed"
-             % (b, s))
+        need(r["trig_count"][b, s] >= 1, "phase %s event (%d, %d) missed"
+             % (tag, b, s))
         need(int(r["trig_idx"][b, s, 0]) == i64,
-             "phase B event (%d, %d) at %d, oracle argmax %d"
-             % (b, s, r["trig_idx"][b, s, 0], i64))
+             "phase %s event (%d, %d) at %d, oracle argmax %d"
+             % (tag, b, s, r["trig_idx"][b, s, 0], i64))
         err = abs(float(r["trig_val"][b, s, 0]) - float(ds64[i64]))
         errs.append(err)
-        need(err <= 2e-5, "phase B event DS err %g" % err)
+        need(err <= 2e-5, "phase %s event DS err %g" % (tag, err))
     hits = {(b, s) for b, s, _ in planted}
     extra = [(b, s) for b in range(B) for s in range(S)
              if r["trig_count"][b, s] and (b, s) not in hits]
-    need(not extra, "phase B rows without a planted event triggered: %s"
-         % extra[:8])
+    need(not extra, "phase %s rows without a planted event triggered: %s"
+         % (tag, extra[:8]))
     best = min(times[1:])
-    say("phase B: s/request %s (best %.6f), planted DS err vs float64 "
+    say("phase %s: s/request %s (best %.6f), planted DS err vs float64 "
         "oracle %s, other triggered rows %d"
-        % ([round(t, 6) for t in times[1:]], best,
+        % (tag, [round(t, 6) for t in times[1:]], best,
            ["%.2e" % e for e in errs], len(extra)))
     return dict(s_per_request=best, oracle_err=max(errs))
+
+
+def phase_b(dev, tmpdir, S=128, B=8, seed=2):
+    return serve_and_check("B", serving_setup(dev, tmpdir, "b", S, B, 30.0,
+                                              seed))
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +656,294 @@ def dense_anatomy(dev, pc):
                "%.3f" % v["library_ms"] if "library_ms" in v else "-")
             for k, v in res.items()), sm_clock()))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase D: the per-chunk routes and the fused scan's unfused prep
+# ---------------------------------------------------------------------------
+
+def chunk_finalize_inputs(bank, x):
+    """One chunk's per-chunk finalize inputs, made as ops/ds._os_block
+    makes them (on the card's transform kernels): (cb [S*D, m, blk],
+    a, power [m*W] padded and power-safe, sum_u [S*D], D0, D, W,
+    out_len)."""
+    n_c, blk, D = bank["n_c"], bank["blk_fft"], int(bank["Dmax"])
+    L_c = x.shape[0] // NC
+    out_len, _, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+    F, a, power = tds.os_prep(x, n_c, NC, blk)
+    spec = sum(bank["Ufd2"][:, :, c, None, :] * F[c][None, None]
+               for c in range(NC))
+    cb = dft.irfft_ct(spec, blk).reshape(-1, m, blk)
+    del spec
+    ap, pp = tds._pad_stats(a, power, out_len, m * W)
+    su = torch.where(bank["d_mask"], bank["sum_u"],
+                     torch.zeros_like(bank["sum_u"])).reshape(-1)
+    return cb, ap, pp, su.contiguous(), D0, D, W, out_len
+
+
+def finalize_bound(fin, maxima, nbin):
+    """bound() of a per-chunk finalize: read D*W floats of cb, the two
+    stats rows and sum_u, write the DS rows (and the block maxima and
+    counts); 3D + 1 operations a sample."""
+    cb, a, _, su, _, D, W, _ = fin
+    S, m = cb.shape[0] // D, cb.shape[1]
+    samples = S * m * W
+    return bound(samples * D * 4 + 2 * a.numel() * 4 + su.numel() * 4
+                 + samples * 4 + (samples // 128 * 4 if maxima else 0)
+                 + S * nbin * 4, samples * (3 * D + 1))
+
+
+def compare_half(frames, blk):
+    k = ck.rfft_ct_half(frames, blk)
+    r = ref.rfft_ct_half_ref(frames, blk)
+    torch.cuda.synchronize()
+    R = blk // 2 + 1
+    err = max((a[:, :R] - b[:, :R]).abs().max().item()
+              for a, b in zip(k, r))
+    need(all(bool((a[:, R:] == 0).all()) for a in k),
+         "rfft_ct_half spectra past blk/2 not zero")
+    need(err <= 2e-3, "rfft_ct_half spectra err %g > 2e-3" % err)
+    del k, r
+    N = frames.shape[0]
+    return dict(
+        err=err, ms=cuda_ms(lambda: ck.rfft_ct_half(frames, blk)),
+        plain_ms=cuda_ms(lambda: ref.rfft_ct_half_ref(frames, blk)),
+        library_ms=cuda_ms(lambda: torch.fft.rfft(frames, n=blk)),
+        bound=bound(N * blk * 4 + 2 * N * dft.half_rp(blk) * 4,
+                    N * rfft_flops(blk)))
+
+
+def compare_os_scan(fin, nv, nbin):
+    args = fin[:4] + (nv,) + fin[4:7]
+    dk, pk, hk = ck.ds_finalize_os_scan(*args, nbin=nbin)
+    dr, pr, hr = ref.ds_finalize_os_scan_ref(*args, nbin=nbin)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in (("ds", dk, dr), ("pyr", pk, pr)):
+        need(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+             "ds_finalize_os_scan %s -inf positions differ" % name)
+        f = torch.isfinite(b)
+        if f.any():
+            err = max(err, (a[f] - b[f]).abs().max().item())
+    need(err <= 2e-5, "ds_finalize_os_scan ds/pyr err %g > 2e-5" % err)
+    moves = allowed = 0
+    if nbin:
+        need(torch.equal(hk.sum(1), hr.sum(1)), "histogram row totals differ")
+        moves = int((hk - hr).abs().sum().item())
+        allowed = max(int(hr.sum().item()) // 200000, 2)
+        need(moves <= allowed, "histogram moves %d > %d" % (moves, allowed))
+    del dk, pk, hk, dr, pr, hr
+    return dict(
+        err=err, moves=moves, allowed=allowed,
+        ms=cuda_ms(lambda: ck.ds_finalize_os_scan(*args, nbin=nbin)),
+        plain_ms=cuda_ms(lambda: ref.ds_finalize_os_scan_ref(
+            *args, nbin=nbin)),
+        bound=finalize_bound(fin, True, nbin))
+
+
+def compare_os(fin):
+    args = fin[:4] + fin[4:7]
+    dk = ck.ds_finalize_os(*args)
+    dr = ref.ds_finalize_os_ref(*args)
+    torch.cuda.synchronize()
+    need(bool(torch.isfinite(dk).all()), "ds_finalize_os not finite")
+    err = (dk - dr).abs().max().item()
+    need(err <= 2e-5, "ds_finalize_os err %g > 2e-5" % err)
+    del dk
+    out = dict(err=err, ms=cuda_ms(lambda: ck.ds_finalize_os(*args)),
+               plain_ms=cuda_ms(lambda: ref.ds_finalize_os_ref(*args)),
+               bound=finalize_bound(fin, False, 0))
+    return out, dr
+
+
+def compare_hist(v, nbin):
+    hk = ck.hist_uniform(v, nbin)
+    hr = ref.hist_uniform_ref(v, nbin)
+    torch.cuda.synchronize()
+    need(torch.equal(hk, hr), "hist_uniform counts differ from the twin")
+    S, L = v.shape
+    return dict(err=float((hk - hr).abs().max().item()),
+                ms=cuda_ms(lambda: ck.hist_uniform(v, nbin)),
+                plain_ms=cuda_ms(lambda: ref.hist_uniform_ref(v, nbin)),
+                bound=bound(S * L * 4 + S * nbin * 4, S * L * 4))
+
+
+def phase_d3_setup(dev, B=16, hours=2.0, seed=6):
+    """One 4-dim subspace of 90 s templates (n_c 9000) with the block
+    pinned at 16384 (W 7296 < n_c: the fused prep refuses, the fused scan
+    kernel takes it behind the unfused prep), B two-hour chunks with three
+    events planted at DS ~ 0.9."""
+    rng = np.random.default_rng(seed)
+    n = int(90 * SR * NC)
+    Lc = int(hours * 3600 * SR * NC)
+    U = basis(rng, 4, n)
+    bank = tds.build_bank([U], NC, Lc, dev, block_fft=16384)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, Lc), generator=g, device=dev)
+    Ut = torch.as_tensor(U.astype(np.float32), device=dev)
+    planted = [(1, Lc // 30 * 3, 0), (B // 2, Lc // 6 * 3, 1),
+               (B - 3, Lc * 3 // 10 * 3, 3)]
+    for b, off, d in planted:
+        X[b, off:off + n] += 3.0 * np.sqrt(n) * Ut[d]
+    return dict(X=X, bank=bank, U=U, planted=planted)
+
+
+def phase_d_kernels(dev, d1, d2, d3):
+    """B6-B9 held against their twins at phase D's shapes, outside the
+    counted runs, and timed: rfft_ct_half on D3's frames, ds_finalize_os_scan
+    (nbin NBIN and 0) on one D2 chunk, ds_finalize_os on one D1 chunk and
+    hist_uniform on its DS rows (-inf past the valid length, as
+    os_block_scan masks them)."""
+    res = {}
+    X3, bank3 = d3["X"], d3["bank"]
+    n_c, blk = bank3["n_c"], bank3["blk_fft"]
+    _, _, _, W, _ = tds._os_geometry(X3.shape[1] // NC, n_c, blk)
+    xq, _ = tds.standardize_demux(X3, n_c, NC, blk)
+    frames = xq.unfold(2, blk, W).reshape(-1, blk).contiguous()
+    del xq
+    res["rfft_ct_half"] = compare_half(frames, blk)
+    say("  rfft_ct_half blk %d (%d rows, D3): spectra max_abs_err %.3g"
+        % (blk, frames.shape[0], res["rfft_ct_half"]["err"]))
+    del frames
+    fin = chunk_finalize_inputs(d2["bank"], torch.as_tensor(d2["X"][0],
+                                                            device=dev))
+    nv = torch.tensor([fin[-1]], dtype=torch.int32, device=dev)
+    for nbin in (0, NBIN):
+        r = compare_os_scan(fin, nv, nbin)
+        say("  ds_finalize_os_scan cb %s nbin %d (D2): max_abs_err %.3g, "
+            "hist moves %d (allowed %d)" % (tuple(fin[0].shape), nbin,
+                                            r["err"], r["moves"],
+                                            r["allowed"]))
+        agg = res.setdefault("ds_finalize_os_scan", dict(err=0.0))
+        agg.update(r, err=max(agg["err"], r["err"]))
+    fin = chunk_finalize_inputs(d1["bank"], torch.as_tensor(d1["X"][0],
+                                                            device=dev))
+    res["ds_finalize_os"], dr = compare_os(fin)
+    pos = torch.arange(dr.shape[1], device=dev)
+    v = torch.where(pos[None, :] < fin[-1], dr,
+                    torch.full_like(dr, float("-inf")))
+    cb_shape = tuple(fin[0].shape)
+    del fin, dr
+    res["hist_uniform"] = compare_hist(v, NBIN)
+    say("  ds_finalize_os cb %s (D1): max_abs_err %.3g; hist_uniform %s: "
+        "counts equal to the twin's" % (cb_shape, res["ds_finalize_os"]["err"],
+                                        tuple(v.shape)))
+    for k, r in res.items():
+        say("  %s at phase-D shape: kernel %.3f ms, twin %.3f ms, library "
+            "call %s ms, bound %.3f ms (%s) (SM clock %s)"
+            % (k, r["ms"], r["plain_ms"],
+               "%.3f" % r["library_ms"] if "library_ms" in r else "-",
+               r["bound"][0], r["bound"][1], sm_clock()))
+    return res
+
+
+def phase_d1(dev, su):
+    """D1: 128 detectors of 60 s templates served on 32 chunks (route
+    "plain", ds_finalize_os + hist_uniform), then ops/ds.run_bank and
+    run_bank_rows on the first chunk against the float64 oracle."""
+    out = serve_and_check("D1", su)
+    X, Us, bank = su["X"], su["Us"], su["bank"]
+    (b, s, _), (_, s2, _) = su["planted"][:2]
+    t0 = time.perf_counter()
+    full = tds.run_bank(X[b], bank, NC)
+    t_bank = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = tds.run_bank_rows(X[b], bank, NC, [s, s2])
+    t_rows = time.perf_counter() - t0
+    errs = []
+    for r in (s, s2):
+        ds64 = tds.ds_numpy(X[b].astype(np.float64), Us[r], NC)
+        need(full.shape == (len(Us), len(ds64)), "run_bank shape %s"
+             % (full.shape,))
+        need(np.array_equal(rows[r], full[r]),
+             "run_bank_rows row %d differs from run_bank's" % r)
+        errs.append(float(np.abs(full[r] - ds64).max()))
+        need(errs[-1] <= 2e-5, "run_bank row %d err %g vs float64 oracle"
+             % (r, errs[-1]))
+    need(int(np.argmax(full[s])) == int(np.nanargmax(
+        tds.ds_numpy(X[b].astype(np.float64), Us[s], NC))),
+        "run_bank planted argmax off")
+    say("phase D1: run_bank %.6f s, run_bank_rows (2 rows) %.6f s (host "
+        "clock); max err vs float64 oracle %s"
+        % (t_bank, t_rows, ["%.2e" % e for e in errs]))
+    out.update(run_bank_s=t_bank, oracle_err=max([out["oracle_err"]] + errs))
+    return out
+
+
+def phase_d3(dev, d3):
+    """D3: scan_chunks of the 90 s subspace on 16 two-hour chunks (route
+    "fused-sub": os_prep_batch_pair with rfft_ct_half, then spec_ds_fold),
+    triggers on."""
+    X, bank, U, planted = d3["X"], d3["bank"], d3["U"], d3["planted"]
+    B = X.shape[0]
+    th = np.full(1, 0.5, np.float32)
+    say("phase D3: B=%d chunks x %d samples, 4-dim subspace n_c %d, blk %d"
+        % (B, X.shape[1], bank["n_c"], bank["blk_fft"]))
+    times = []
+    for _ in range(3):                              # first run warms up
+        t0 = time.perf_counter()
+        out = tscan.scan_chunks(X, bank, th, NC, int(20 * SR), max_trig=8)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    maxds, tidx, tval, tcnt = (t.cpu().numpy() for t in out[1:])
+    errs = []
+    for b, off, d in planted:
+        ds64 = tds.ds_numpy(X[b].double().cpu().numpy(), U, NC)
+        i64 = int(np.nanargmax(ds64))
+        need(tcnt[b, 0] == 1 and int(tidx[b, 0, 0]) == i64,
+             "phase D3 chunk %d: %d triggers, first at %d, oracle argmax %d"
+             % (b, tcnt[b, 0], tidx[b, 0, 0], i64))
+        errs += [abs(float(tval[b, 0, 0]) - float(ds64[i64])),
+                 abs(float(maxds[b, 0]) - float(np.nanmax(ds64)))]
+        need(max(errs[-2:]) <= 2e-5, "phase D3 chunk %d DS err %g"
+             % (b, max(errs[-2:])))
+    quiet = [b for b in range(B) if b not in {p[0] for p in planted}]
+    need(not tcnt[quiet].any(), "phase D3 quiet chunks triggered")
+    best = min(times[1:])
+    say("phase D3: s/launch %s (best %.6f), station-days/s %.3f, planted DS "
+        "err vs float64 oracle %s"
+        % ([round(t, 6) for t in times[1:]], best,
+           B * X.shape[1] / (SR * NC * 86400.0) / best,
+           ["%.2e" % e for e in errs]))
+    return dict(s_per_launch=best, oracle_err=max(errs))
+
+
+def phase_d4(dev, seed=7):
+    """D4, small: non-uniform bins (route "plain": ds_finalize_os_scan
+    without its histogram, then the sort-and-search counts) and a
+    blk-8192 bank of short chunks (route "fold": torch.fft transforms, then
+    ds_finalize_os_fold), each scanned on the card and on the CPU twins."""
+    rng = np.random.default_rng(seed)
+    n = 1680                                        # 5.6 s templates
+    Us = [basis(rng, 2, n) for _ in range(3)]
+    errs = []
+    for tag, L_c, blk, bins in (("bins", 120000, 16384,
+                                 np.linspace(0, 1, 11) ** 2),
+                                ("fold", 24000, 8192, None)):
+        X = rng.standard_normal((4, NC * L_c)).astype(np.float32)
+        X[1, NC * 9000:NC * 9000 + n] += 150.0 * Us[0][0].astype(np.float32)
+        th = np.full(3, 0.6, np.float32)
+        outs = []
+        for d in (dev, "cpu"):
+            bank = tds.build_bank(Us, NC, NC * L_c, d, block_fft=blk)
+            outs.append([t.cpu() for t in tscan.scan_chunks(
+                X, bank, th, NC, int(20 * SR), bins=bins, max_trig=8)])
+        g, c = outs
+        need(torch.equal(g[0].sum(1), c[0].sum(1)),
+             "phase D4 %s histogram totals differ from the CPU's" % tag)
+        moves = int((g[0] - c[0]).abs().sum().item())
+        need(moves <= max(int(c[0].sum().item()) // 200000, 2),
+             "phase D4 %s histogram moves %d" % (tag, moves))
+        errs.append((g[1] - c[1]).abs().max().item())
+        need(errs[-1] <= 2e-5, "phase D4 %s maxds err %g" % (tag, errs[-1]))
+        need(torch.equal(g[2], c[2]) and torch.equal(g[4], c[4]),
+             "phase D4 %s triggers differ from the CPU's" % tag)
+        ds64 = tds.ds_numpy(X[1].astype(np.float64), Us[0], NC)
+        need(int(g[4][1, 0]) == 1 and int(g[2][1, 0, 0]) ==
+             int(np.nanargmax(ds64)), "phase D4 %s planted trigger" % tag)
+        say("phase D4 %s (L_c %d, blk %d): maxds err vs CPU %.2e, hist "
+            "moves %d" % (tag, L_c, blk, errs[-1], moves))
+    return dict(err=max(errs))
 
 
 def anatomy(dev, pa):
@@ -704,36 +1045,73 @@ def main():
                            timed[k]["ms"], timed[k]["plain_ms"], sm_clock()))
     torch.cuda.empty_cache()
 
-    tscan.ROUTE_COUNTS.clear()
-    launches = {}
+    launches, routes = {}, {}
 
     def counted(phase, fn, *args):
         ck.reset_launches()
+        tscan.ROUTE_COUNTS.clear()
         out = fn(*args)
         launches[phase] = dict(ck.LAUNCHES)
+        routes[phase] = dict(tscan.ROUTE_COUNTS)
         return out
 
+    def check_phases(want):
+        for phase, ks, rs in want:
+            say("phase %s launches %s; routes %s" % (
+                phase, {k: v for k, v in launches[phase].items() if v},
+                routes[phase]))
+            for k in ks:
+                need(launches[phase][k] > 0,
+                     "kernel %s did not run on phase %s" % (k, phase))
+            for r in rs:
+                need(routes[phase].get(r, 0) > 0,
+                     "phase %s did not take route %s: %s"
+                     % (phase, r, routes[phase]))
+
+    tmp = tempfile.TemporaryDirectory()
     pa = counted("A", phase_a, dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        counted("B", phase_b, dev, tmp)
+    counted("B", phase_b, dev, tmp.name)
     pc = counted("C", phase_c, dev, pa["station_days_per_s"])
-    routes = dict(tscan.ROUTE_COUNTS)
-    say("main-path launches by phase: %s; routes %s" % (launches, routes))
-    for phase, ks in (("A", ("fwd_prep_fold", "spec_ds_fold")),
-                      ("B", ("fwd_prep_fold", "spec_ds_fold")),
-                      ("C", tuple(KERNEL_INFO))):
-        for k in ks:
-            need(launches[phase][k] > 0,
-                 "kernel %s did not run on phase %s" % (k, phase))
-    need(routes.get("fused-sub+fusedprep", 0) > 0
-         and routes.get("fused-net+fusedprep", 0) > 0,
-         "main path did not take the fused routes: %s" % routes)
+    fused = ("fwd_prep_fold", "spec_ds_fold")
+    check_phases((("A", fused, ("fused-sub+fusedprep",)),
+                  ("B", fused, ("fused-net+fusedprep",)),
+                  ("C", fused + DENSE_KERNELS, ("fused-sub+fusedprep",))))
     times = anatomy(dev, pa)
     times.update(dense_anatomy(dev, pc))
+    del pa, pc
+    torch.cuda.empty_cache()
+
+    say("phase D: per-chunk routes and the unfused prep; B6-B9 vs twins at "
+        "phase D's shapes")
+    d1 = serving_setup(dev, tmp.name, "d1", 128, 32, 60.0, 8,
+                       amp=3.0 * np.sqrt(60 * SR * NC))
+    d2 = serving_setup(dev, tmp.name, "d2", 128, 64, 30.0, 9)
+    d3 = phase_d3_setup(dev)
+    res_d = phase_d_kernels(dev, d1, d2, d3)
+    checks.append(res_d)
+    times.update(res_d)
+    torch.cuda.empty_cache()
+    counted("D1", phase_d1, dev, d1)
+    del d1
+    counted("D2", serve_and_check, "D2", d2)
+    del d2
+    counted("D3", phase_d3, dev, d3)
+    del d3
+    counted("D4", phase_d4, dev)
+    tmp.cleanup()
+    check_phases((
+        ("D1", ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os",
+                "hist_uniform"), ("plain",)),
+        ("D2", ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_scan"),
+         ("plain",)),
+        ("D3", ("rfft_ct_half", "spec_ds_fold"), ("fused-sub",)),
+        ("D4", ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_scan",
+                "ds_finalize_os_fold"), ("plain", "fold"))))
 
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
-    # kernels) and at phase C's re-verify shape (dense kernels)
+    # kernels), at phase C's re-verify shape (dense kernels) and at phase
+    # D's shapes (per-chunk kernels and rfft_ct_half)
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]

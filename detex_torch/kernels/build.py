@@ -21,9 +21,13 @@ from pathlib import Path
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("fwd_prep_fold.cu", "spec_ds_fold.cu", "rfft_ct.cu",
-           "irfft_ct.cu", "ds_finalize_os_fold.cu")
+           "irfft_ct.cu", "ds_finalize_os_fold.cu", "rfft_ct_half.cu",
+           "ds_finalize_os_scan.cu", "ds_finalize_os.cu", "hist_uniform.cu")
 HEADERS = ("fft.cuh", "fwd_prep_fold.cuh", "spec_ds_fold.cuh", "rfft_ct.cuh",
-           "irfft_ct.cuh", "ds_finalize_os_fold.cuh")
+           "irfft_ct.cuh", "finalize_os.cuh", "ds_finalize_os_fold.cuh",
+           "rfft_ct_half.cuh",
+           "ds_finalize_os_scan.cuh", "ds_finalize_os.cuh",
+           "hist_uniform.cuh")
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the CUDA toolkit's default install location, searched after $CUDA_HOME
@@ -48,6 +52,14 @@ _ARGTYPES = {
     # cb, a, pw, su, nv, ds, pyr, hist, BS, D, m, blk, W, head, group,
     # nbin, stream
     "detex_ds_finalize_os_fold": [_P] * 8 + [_LL] + [_I] * 7 + [_P],
+    # x, tw, fr, fi, N, Rp, log2m, stream
+    "detex_rfft_ct_half": [_P] * 4 + [_LL, _I, _I, _P],
+    # cb, a, pw, su, nv, ds, pyr, hist, S, D, m, blk, W, head, nbin, stream
+    "detex_ds_finalize_os_scan": [_P] * 8 + [_LL] + [_I] * 6 + [_P],
+    # cb, a, pw, su, ds, S, D, m, blk, W, head, stream
+    "detex_ds_finalize_os": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
+    # ds, hist, S, L, nbin, stream
+    "detex_hist_uniform": [_P] * 2 + [_LL, _LL, _I, _P],
 }
 
 _LIBS = {}

@@ -1,38 +1,20 @@
-// ds_finalize_os_fold: DS finalize of raw overlap-save inverse blocks, pad
-// mask, 128-sample block maxima and uniform histogram; one thread block per
-// (row, OS block).
+// ds_finalize_os_fold: DS finalize of a chunk batch's raw overlap-save
+// inverse blocks, pad mask, 128-sample block maxima and uniform histogram;
+// one thread block per (row, OS block).
 //
 // Replaces detex_tpu/ops/pallas_kernels.py ds_finalize_os_fold (:575,
-// kernel body :499-550). Row r (a (chunk, template) pair) has D basis rows
-// r*D + d of cb [BS*D, m, blk]; block i of row r covers DS positions
-// p = i*W + t, t < W:
+// kernel body :499-550). Row r is a (chunk, template) pair; the arithmetic
+// is finalize_os.cuh's scan form, with stats row c = r / group of a,
+// power [BS/group, m*W] and valid length nv[c] [BS/group]: group = 1 gives
+// every row its own stats, group = S lets a chunk's S template rows share
+// one.
 //
-//   ds[r, p] = sum_d (cb[r*D + d, i, head + t] - su[r*D + d] * a[c, p])^2
-//              / power[c, p]      (power 0 -> inf, so the quotient is 0)
-//   ds[r, p] = -inf where p >= nv[c]
-//
-// with c = r / group the stats row (a, power [BS/group, m*W]) and valid
-// length nv [BS/group] the row uses: group = 1 gives every row its own
-// stats, group = S lets a chunk's S template rows share one. Then pyr holds
-// the maximum of every 128-sample block and, for nbin > 0, hist [BS, nbin]
-// (zeroed by the caller) gains the floor-rule counts: bin floor(v * nbin)
-// in float32, v == 1.0 in the last bin, values outside [0, 1] and -inf
-// dropped. The row's m blocks run as separate thread blocks; counts go to
-// shared memory and then to the row's global counts with integer atomics
-// (exact, order-free).
-//
-// Bound on the card: device-memory traffic (read D*W floats of cb and the
-// two stats rows, write W DS values per block; ~3D + 2 flops a sample).
-// Design: a warp takes 128-sample groups, each lane four samples 32 apart,
-// so every load and store is coalesced and the group maximum is one warp
-// reduction; no shared memory beyond the histogram.
+// Bound on the card and design: as finalize_os.cuh.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "finalize_os.cuh"
 
 namespace detex {
-
-constexpr int kFinThreads = 256;
 
 __global__ void __launch_bounds__(kFinThreads)
 ds_finalize_os_fold_kernel(const float* __restrict__ cb,
@@ -43,57 +25,10 @@ ds_finalize_os_fold_kernel(const float* __restrict__ cb,
                            float* __restrict__ ds, float* __restrict__ pyr,
                            int* __restrict__ hist, int D, int m, int blk,
                            int W, int head, int group, int nbin) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* hs = reinterpret_cast<int*>(smem);
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
   const long long r = blockIdx.x / m;
-  const int i = blockIdx.x % m;
   const long long c = r / group;
-  const long long nvc = nv[c];
-  for (int k = tid; k < nbin; k += nthr) hs[k] = 0;
-  __syncthreads();
-  const long long mW = (long long)m * W;
-  const float* arow = a + c * mW + (long long)i * W;
-  const float* prow = pw + c * mW + (long long)i * W;
-  const float* cbr = cb + (r * D * m + i) * (long long)blk + head;
-  const long long dstride = (long long)m * blk;   // basis row d -> d + 1
-  float* drow = ds + r * mW + (long long)i * W;
-  const int nb = W / 128;
-  const int lane = tid & 31;
-  for (int g = tid >> 5; g < nb; g += nthr >> 5) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int t = g * 128 + q * 32 + lane;
-      const float av = arow[t];
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float y = cbr[d * dstride + t] - su[r * D + d] * av;
-        acc += y * y;
-      }
-      const float p = prow[t];
-      float v = acc / (p == 0.f ? INFINITY : p);
-      if ((long long)i * W + t >= nvc) v = -INFINITY;
-      drow[t] = v;
-      if (nbin) {
-        float bin = floorf(v * (float)nbin);
-        if (v == 1.0f) bin = (float)(nbin - 1);
-        if (bin >= 0.f && bin < (float)nbin) atomicAdd(&hs[(int)bin], 1);
-      }
-      mx = fmaxf(mx, v);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    }
-    if (lane == 0) pyr[r * m * (long long)nb + (long long)i * nb + g] = mx;
-  }
-  if (nbin) {
-    __syncthreads();
-    for (int k = tid; k < nbin; k += nthr) {
-      if (hs[k]) atomicAdd(&hist[r * nbin + k], hs[k]);
-    }
-  }
+  finalize_os_block<true>(cb, a, pw, su, nv[c], ds, pyr, hist, r, c,
+                          blockIdx.x % m, D, m, blk, W, head, nbin);
 }
 
 }  // namespace detex

@@ -17,10 +17,14 @@ namespace detex {
 alignas(16) unsigned char smem[232448];  // the H100 per-block maximum
 }
 
+#include "ds_finalize_os.cuh"
 #include "ds_finalize_os_fold.cuh"
+#include "ds_finalize_os_scan.cuh"
 #include "fwd_prep_fold.cuh"
+#include "hist_uniform.cuh"
 #include "irfft_ct.cuh"
 #include "rfft_ct.cuh"
+#include "rfft_ct_half.cuh"
 #include "spec_ds_fold.cuh"
 
 namespace {
@@ -133,6 +137,51 @@ extern "C" int emu_ds_finalize_os_fold(const float* cb, const float* a,
   run_grid(BS * m, detex::kFinThreads, [=] {
     detex::ds_finalize_os_fold_kernel(cb, a, pw, su, nv, ds, pyr, hist, D,
                                       m, blk, W, head, group, nbin);
+  });
+  return 0;
+}
+
+extern "C" int emu_ds_finalize_os_scan(const float* cb, const float* a,
+                                       const float* pw, const float* su,
+                                       const int* nv, float* ds, float* pyr,
+                                       int* hist, long long S, int D, int m,
+                                       int blk, int W, int head, int nbin) {
+  run_grid(S * m, detex::kFinThreads, [=] {
+    detex::ds_finalize_os_scan_kernel(cb, a, pw, su, nv, ds, pyr, hist, D,
+                                      m, blk, W, head, nbin);
+  });
+  return 0;
+}
+
+extern "C" int emu_ds_finalize_os(const float* cb, const float* a,
+                                  const float* pw, const float* su, float* ds,
+                                  long long S, int D, int m, int blk, int W,
+                                  int head) {
+  run_grid(S * m, detex::kFinThreads, [=] {
+    detex::ds_finalize_os_kernel(cb, a, pw, su, ds, D, m, blk, W, head);
+  });
+  return 0;
+}
+
+extern "C" int emu_hist_uniform(const float* ds, int* hist, long long S,
+                                long long L, int nbin) {
+  const int tiles = (int)((L + detex::kHistTile - 1) / detex::kHistTile);
+  run_grid(S * tiles, detex::kHistThreads, [=] {
+    detex::hist_uniform_kernel(ds, hist, L, tiles, nbin);
+  });
+  return 0;
+}
+
+extern "C" int emu_rfft_ct_half(const float* x, const float* tw, float* fr,
+                                float* fi, long long N, int Rp, int log2m) {
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  if (log2m != 13 && log2m != 14) return 1;
+  run_grid(N, detex::kThreads, [=] {
+    if (log2m == 13) {
+      detex::rfft_ct_half_kernel<13>(x, tw2, fr, fi, Rp);
+    } else {
+      detex::rfft_ct_half_kernel<14>(x, tw2, fr, fi, Rp);
+    }
   });
   return 0;
 }

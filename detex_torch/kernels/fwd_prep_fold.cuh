@@ -14,9 +14,13 @@
 // of the FFT passes. Design: the stats need only the channel sums
 // sum_c x_c and sum_c x_c^2 per sample, accumulated in registers while
 // each channel streams through shared memory. Each sum gets a two-level
-// prefix (window_sum below), and every window sum is written once. The
-// same 64 KiB buffer then holds each channel's M = blk/2 point complex FFT
-// (four Stockham passes, fft.cuh).
+// prefix (window_sum below), and every window sum is written once. A window
+// whose samples are all equal (a zero-filled gap, a constant after the
+// standardization) gets power 0 (inf, DS 0) by an exact integer count of
+// sample-to-sample changes, as rolling.window_stats_rows does: the float
+// sums would leave rounding in its variance. The same 64 KiB buffer then
+// holds each channel's M = blk/2 point complex FFT (four Stockham passes,
+// fft.cuh).
 #pragma once
 
 #include "fft.cuh"
@@ -69,6 +73,25 @@ __device__ __forceinline__ double window_sum(const float* buf,
          lh;
 }
 
+// Exact test that a window's multiplexed samples are all equal, from one
+// int prefix count per sample p of a frame: e[p] = 1 where two channels
+// differ at p or channel 0 changes from p - 1 to p. Window (pl, ph] is
+// constant when no e falls in (pl + 1, ph] and the channels agree at pl + 1
+// (that bit is kept in bit 30 of the sample's local count).
+struct ChangeCount {
+  static constexpr int kW = 1 << 30;
+  const int* loc;             // each run's inclusive count | w << 30
+  const long long* offs;      // exclusive prefix of the run totals
+  int E;
+  __device__ long long at(int p) const {  // inclusive count through p
+    return offs[p / E] + (loc[p + (p >> 5)] & (kW - 1));
+  }
+  __device__ bool constant(int pl, int ph) const {
+    const int q = pl + 1;
+    return !(loc[q + (q >> 5)] & kW) && at(ph) == at(q);
+  }
+};
+
 template <int LOG2M>
 __global__ void __launch_bounds__(kThreads)
 fwd_prep_fold_kernel(const float* __restrict__ xq,
@@ -80,6 +103,7 @@ fwd_prep_fold_kernel(const float* __restrict__ xq,
   constexpr int M = 1 << LOG2M;
   constexpr int N = 2 * M;            // block length blk
   constexpr int E = N / kThreads;     // contiguous samples per thread
+  static_assert(E <= 32, "one change bit per sample of a thread");
   extern __shared__ __align__(16) unsigned char smem[];
   float* buf = reinterpret_cast<float*>(smem);     // N + N/32 floats
   float2* z = reinterpret_cast<float2*>(smem);     // M complex values
@@ -92,12 +116,19 @@ fwd_prep_fold_kernel(const float* __restrict__ xq,
   const int p0 = tid * E;
 
   // ---- window stats from the channel sums of x and x^2 ----
+  // wbits bit k: channels c - 1 and c differ at sample tid + k * kThreads
+  // (seen while loading); xbits bit e: channel 0 changes at p0 + e
   float xs[E], x2[E];
+  unsigned wbits = 0u, xbits = 0u;
 #pragma unroll
   for (int e = 0; e < E; ++e) xs[e] = x2[e] = 0.f;
   for (int c = 0; c < nc; ++c) {
     const float* src = xq + (b * nc + c) * Lp + (long long)f * W;
-    for (int e = tid; e < N; e += kThreads) buf[e + (e >> 5)] = src[e];
+    for (int k = 0, e = tid; e < N; ++k, e += kThreads) {
+      const float v = src[e];
+      if (c > 0 && v != buf[e + (e >> 5)]) wbits |= 1u << k;
+      buf[e + (e >> 5)] = v;
+    }
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -105,10 +136,39 @@ fwd_prep_fold_kernel(const float* __restrict__ xq,
       const float v = buf[p + (p >> 5)];
       xs[e] += v;
       x2[e] += v * v;
+      if (c == 0 && p > 0 && v != buf[p - 1 + ((p - 1) >> 5)]) {
+        xbits |= 1u << e;
+      }
     }
     __syncthreads();
   }
-  // window of output t: samples (pad0 - 1 + t, D0 + t]
+  // window of output t: samples (pad0 - 1 + t, D0 + t]; cst bit q: output
+  // tid + q * kThreads has all its samples equal
+  int* ibuf = reinterpret_cast<int*>(smem);
+  for (int k = 0, e = tid; e < N; ++k, e += kThreads) {
+    ibuf[e + (e >> 5)] = (wbits >> k) & 1u;
+  }
+  __syncthreads();
+  int run = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int p = p0 + e;
+    const int w = ibuf[p + (p >> 5)];
+    run += w | ((xbits >> e) & 1u);
+    ibuf[p + (p >> 5)] = run | (w ? ChangeCount::kW : 0);
+  }
+  long long qrun = run;
+  block_exclusive_scan(qrun, sh);
+  offs[tid] = qrun;
+  __syncthreads();
+  const ChangeCount chg{ibuf, offs, E};
+  unsigned cst = 0u;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int t = tid + q * kThreads;
+    if (t < W && chg.constant(pad0 - 1 + t, D0 + t)) cst |= 1u << q;
+  }
+  __syncthreads();
   stage_prefix<E>(xs, buf, offs, sh);
   float s1[E];
 #pragma unroll
@@ -134,7 +194,8 @@ fwd_prep_fold_kernel(const float* __restrict__ xq,
     const double pv = fmax(var, 0.0) * n_win;
     const bool valid = (long long)f * W + t < out_len;
     arow[t] = valid ? (float)(s / n_win) : 0.f;
-    prow[t] = valid ? (pv == 0.0 ? INFINITY : (float)pv) : 1.f;
+    prow[t] = valid ? (pv == 0.0 || ((cst >> q) & 1u) ? INFINITY : (float)pv)
+                    : 1.f;
   }
 
   // ---- forward transform of each channel: z[j] = x[2j] + i x[2j+1] ----

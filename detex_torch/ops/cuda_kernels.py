@@ -16,6 +16,10 @@ Kernels, the TPU kernel each replaces, and sources:
   ds_finalize_os_fold  pallas_kernels.py:575   kernels/ds_finalize_os_fold.cu
   rfft_ct_fused        pallas_kernels.py:336   kernels/rfft_ct.cu
   irfft_ct_fused       pallas_kernels.py:270   kernels/irfft_ct.cu
+  rfft_ct_half         pallas_kernels.py:1223  kernels/rfft_ct_half.cu
+  ds_finalize_os_scan  pallas_kernels.py:438   kernels/ds_finalize_os_scan.cu
+  ds_finalize_os       pallas_kernels.py:701   kernels/ds_finalize_os.cu
+  hist_uniform         pallas_kernels.py:199   kernels/hist_uniform.cu
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ from detex_torch.ops import dft as _dft
 from detex_torch.ops import reference as _ref
 
 LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
-            "rfft_ct_fused": 0, "irfft_ct_fused": 0}
+            "rfft_ct_fused": 0, "irfft_ct_fused": 0, "rfft_ct_half": 0,
+            "ds_finalize_os_scan": 0, "ds_finalize_os": 0,
+            "hist_uniform": 0}
 
 
 def reset_launches():
@@ -252,3 +258,121 @@ def ds_finalize_os_fold(cb, a, power, sum_u, nv, head, D, W, group=1,
     _build.check(lib, rc, "ds_finalize_os_fold")
     LAUNCHES["ds_finalize_os_fold"] += 1
     return ds, pyr, hist
+
+
+def rfft_ct_half(x, n):
+    """Forward real DFT of every row of x [N, n] float32 (n = 16384 or
+    32768 on the card) as the padded half-spectrum pair (fr, fi)
+    [N, dft.half_rp(n)] float32, zeros past n//2. Semantics:
+    reference.rfft_ct_half_ref."""
+    if not _on_cuda(x):
+        return _ref.rfft_ct_half_ref(x, n)
+    log2m = _log2m(n)
+    _require(x.dim() == 2 and x.shape[1] == n,
+             "x must be [N, %d], got %s" % (n, tuple(x.shape)))
+    _require(x.dtype == torch.float32 and x.is_contiguous(),
+             "x must be contiguous float32")
+    N = x.shape[0]
+    Rp = _dft.half_rp(n)
+    fr = torch.empty((N, Rp), dtype=torch.float32, device=x.device)
+    fi = torch.empty_like(fr)
+    if N == 0:
+        return fr, fi
+    tw = _dft.twiddles(n, x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.detex_rfft_ct_half(_ptr(x), _ptr(tw), _ptr(fr), _ptr(fi), N,
+                                    Rp, log2m, _stream(x.device))
+    _build.check(lib, rc, "rfft_ct_half")
+    LAUNCHES["rfft_ct_half"] += 1
+    return fr, fi
+
+
+def _check_os_block(cb, a, power, sum_u, D, W, head):
+    """Shared checks of the per-chunk finalize kernels; returns (S, m)."""
+    SD, m, blk = cb.shape
+    _require(D >= 1 and SD % D == 0, "cb rows %d not a multiple of D=%d"
+             % (SD, D))
+    _require(W % 128 == 0 and W >= 128 and 0 <= head and head + W <= blk,
+             "geometry W=%d head=%d blk=%d not supported" % (W, head, blk))
+    _require(tuple(a.shape) == (m * W,) and power.shape == a.shape,
+             "a / power must be [%d]" % (m * W))
+    _require(tuple(sum_u.shape) == (SD,), "sum_u must be [S*D]")
+    for t in (cb, a, power, sum_u):
+        _require(t.dtype == torch.float32 and t.is_contiguous(),
+                 "cb, stats and sum_u must be contiguous float32")
+    return SD // D, m
+
+
+def ds_finalize_os_scan(cb, a, power, sum_u, nv, head, D, W, nbin=0):
+    """Per-chunk DS finalize of raw overlap-save inverse blocks
+    cb [S*D, m, blk] with the chunk's window stats a, power [m*W], basis
+    sums sum_u [S*D] and valid length nv (one int32 on the device):
+    (ds [S, m*W], pyr [S, m*W/128], hist [S, nbin] int32 or None).
+    Semantics: reference.ds_finalize_os_scan_ref."""
+    if not _on_cuda(cb, a, power, sum_u, nv):
+        return _ref.ds_finalize_os_scan_ref(cb, a, power, sum_u, nv, head,
+                                            D, W, nbin=nbin)
+    S, m = _check_os_block(cb, a, power, sum_u, D, W, head)
+    _require(nv.numel() == 1 and nv.dtype == torch.int32
+             and nv.is_contiguous(), "nv must be one contiguous int32")
+    dev = cb.device
+    ds = torch.empty((S, m * W), dtype=torch.float32, device=dev)
+    pyr = torch.empty((S, m * (W // 128)), dtype=torch.float32, device=dev)
+    hist = (torch.zeros((S, nbin), dtype=torch.int32, device=dev)
+            if nbin else None)
+    if S * m == 0:
+        return ds, pyr, hist
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.detex_ds_finalize_os_scan(
+            _ptr(cb), _ptr(a), _ptr(power), _ptr(sum_u), _ptr(nv), _ptr(ds),
+            _ptr(pyr), _ptr(hist), S, D, m, cb.shape[2], W, head, int(nbin),
+            _stream(dev))
+    _build.check(lib, rc, "ds_finalize_os_scan")
+    LAUNCHES["ds_finalize_os_scan"] += 1
+    return ds, pyr, hist
+
+
+def ds_finalize_os(cb, a, power, sum_u, head, D, W):
+    """Per-chunk DS finalize without mask, maxima or histogram: ds
+    [S, m*W] from cb [S*D, m, blk], a, power [m*W] (a = 0, power = 1 past
+    the valid length) and sum_u [S*D]. Semantics:
+    reference.ds_finalize_os_ref."""
+    if not _on_cuda(cb, a, power, sum_u):
+        return _ref.ds_finalize_os_ref(cb, a, power, sum_u, head, D, W)
+    S, m = _check_os_block(cb, a, power, sum_u, D, W, head)
+    dev = cb.device
+    ds = torch.empty((S, m * W), dtype=torch.float32, device=dev)
+    if S * m == 0:
+        return ds
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.detex_ds_finalize_os(
+            _ptr(cb), _ptr(a), _ptr(power), _ptr(sum_u), _ptr(ds), S, D, m,
+            cb.shape[2], W, head, _stream(dev))
+    _build.check(lib, rc, "ds_finalize_os")
+    LAUNCHES["ds_finalize_os"] += 1
+    return ds
+
+
+def hist_uniform(ds, nbin):
+    """Per-row floor-rule histogram of ds [S, L] float32 over [0, 1] in
+    ``nbin`` uniform bins: int32 [S, nbin]. Semantics:
+    reference.hist_uniform_ref."""
+    if not _on_cuda(ds):
+        return _ref.hist_uniform_ref(ds, nbin)
+    _require(ds.dim() == 2 and ds.dtype == torch.float32
+             and ds.is_contiguous(), "ds must be contiguous float32 [S, L]")
+    _require(nbin >= 1, "nbin must be positive, got %d" % nbin)
+    S, L = ds.shape
+    hist = torch.zeros((S, nbin), dtype=torch.int32, device=ds.device)
+    if S * L == 0:
+        return hist
+    lib = _build.load_library()
+    with torch.cuda.device(ds.device):
+        rc = lib.detex_hist_uniform(_ptr(ds), _ptr(hist), S, L, int(nbin),
+                                    _stream(ds.device))
+    _build.check(lib, rc, "hist_uniform")
+    LAUNCHES["hist_uniform"] += 1
+    return hist

@@ -10,8 +10,12 @@ radix-4 pass) of the real signal packed as n/2 complex points
 the legality rule of the block kernels, n1 == 128), the padded spectrum
 width ``half_rp`` and one table of roots of unity, built in float64 on the
 host and cast to float32. ``rfft_ct`` / ``irfft_ct`` are the block
-transforms of the dense re-verify (ops/ds.py os_prep_batch,
-os_block_scan_batch).
+transforms of the dense re-verify and the per-chunk route (ops/ds.py
+os_prep_batch, os_block_scan_batch, _os_block), ``rfft_pair`` the forward
+transform of the fused scan's unfused prep (ds.os_prep_batch_pair). Blocks
+of 16384 and 32768 samples go to the kernels; any other block length to
+``torch.fft`` (where detex_tpu runs its XLA matrix DFT, not a Pallas
+kernel).
 """
 from __future__ import annotations
 
@@ -39,6 +43,13 @@ def half_rp(n):
     return (n1 // 2 + 1) * n2
 
 
+def kernel_block(n):
+    """True for the block lengths the transform kernels take: a power of
+    two with the 128-row split (n1 == 128), i.e. 16384 or 32768."""
+    b = int(n).bit_length() - 1
+    return (1 << b) == n and (1 << (b // 2)) == 128
+
+
 _TWIDDLES = {}
 
 
@@ -60,8 +71,10 @@ def twiddles(n, device):
 def rfft_ct(x, n):
     """== torch.fft.rfft(x, n, dim=-1): x [..., L] float32, zero-padded or
     truncated to n, -> complex64 [..., n//2 + 1]. One rfft_ct_fused launch
-    over all rows (n = 16384 or 32768 on the card; any n on the CPU)."""
+    over all rows when kernel_block(n), else torch.fft.rfft."""
     from detex_torch.ops import cuda_kernels as _ck
+    if not kernel_block(n):
+        return torch.fft.rfft(x, n=n, dim=-1)
     L = x.shape[-1]
     if L < n:
         x = F.pad(x, (0, n - L))
@@ -75,13 +88,32 @@ def rfft_ct(x, n):
 def irfft_ct(spec, n):
     """== torch.fft.irfft(spec, n, dim=-1) for a half spectrum
     spec [..., n//2 + 1] complex64 -> float32 [..., n]. One irfft_ct_fused
-    launch over all rows (n = 16384 or 32768 on the card; any n on the
-    CPU). Unlike detex_tpu's namesake it never builds the hermitian
-    extension: the kernel packs the half spectrum itself."""
+    launch over all rows when kernel_block(n), else torch.fft.irfft.
+    Unlike detex_tpu's namesake it never builds the hermitian extension:
+    the kernel packs the half spectrum itself."""
     from detex_torch.ops import cuda_kernels as _ck
     if spec.shape[-1] != n // 2 + 1:
         raise ValueError("spec has %d bins, expected n//2 + 1 = %d"
                          % (spec.shape[-1], n // 2 + 1))
+    if not kernel_block(n):
+        return torch.fft.irfft(spec, n=n, dim=-1)
     lead = spec.shape[:-1]
     out = _ck.irfft_ct_fused(spec.reshape(-1, n // 2 + 1).contiguous(), n)
     return out.reshape(lead + (n,))
+
+
+def rfft_pair(x, n, rp):
+    """Forward transform of real x [N, n] float32 as a (real, imag) pair
+    [N, rp], bins 0..n//2 in natural order and zeros past them (detex_tpu
+    leaves mirror values there; both are inert, the fused scan reads bins
+    0..n//2 only). One rfft_ct_half launch when kernel_block(n) and
+    rp == half_rp(n), else torch.fft.rfft."""
+    from detex_torch.ops import cuda_kernels as _ck
+    if not n // 2 + 1 <= rp <= n:
+        raise ValueError("rp = %d outside [n//2 + 1, n] for n = %d"
+                         % (rp, n))
+    if kernel_block(n) and rp == half_rp(n):
+        return _ck.rfft_ct_half(x.contiguous(), n)
+    f = torch.fft.rfft(x, n=n, dim=-1)
+    pad = rp - f.shape[-1]
+    return F.pad(f.real, (0, pad)), F.pad(f.imag, (0, pad))

@@ -20,15 +20,24 @@ the int statics n, n_c, Dmax, nc, blk_fft, pad_len). Only the overlap-save
 form is ported; the full-length and multiplexed forms raise
 NotImplementedError (ROADMAP A9).
 
-Two batched paths run a bank over a chunk batch:
+Three ways run a bank over chunks:
 
-  the fused scan     os_prep_batch_fused + os_scan_batch_fused (kernels
-                     fwd_prep_fold, spec_ds_fold), the engine's
-                     summary-only scan and the serving scan;
-  the dense re-verify  os_prep_batch + os_block_scan_batch (kernels
-                     rfft_ct_fused, irfft_ct_fused, ds_finalize_os_fold),
-                     which writes full DS rows: run_bank_batch,
-                     run_bank_rows_batch and run_bank_triggers_batch.
+  the fused scan     os_prep_batch_fused (kernel fwd_prep_fold) or
+                     os_prep_batch_pair (rfft_ct_half) + os_scan_batch_fused
+                     (spec_ds_fold): the engine's summary-only scan and the
+                     serving scan;
+  the unfused batch  os_prep_batch + os_block_scan_batch (rfft_ct_fused,
+                     irfft_ct_fused, ds_finalize_os_fold), which writes full
+                     DS rows: the scan's "fold" route and the dense
+                     re-verify (run_bank_batch, run_bank_rows_batch,
+                     run_bank_triggers_batch);
+  one chunk at a time  os_prep + _os_block (rfft_ct_fused, irfft_ct_fused,
+                     then ds_finalize_os_scan or ds_finalize_os): the scan's
+                     "plain" route, run_bank, run_bank_rows and the dense
+                     re-verify beyond its caps.
+
+Blocks of 16384 and 32768 samples transform in the kernels, other blocks
+with torch.fft (ops/dft.py).
 """
 from __future__ import annotations
 
@@ -40,8 +49,11 @@ from detex_torch.ops import dft as _dft
 from detex_torch.ops import triggers as _triggers
 from detex_torch.ops.rolling import window_stats_rows
 
-# detex_tpu's cap on the dense re-verify's inverse blocks
-# (B * S * Dmax * m * blk float32, ds.py:970-973)
+# detex_tpu's caps, kept here for every caller: the fused scan's DS array
+# (B * S * m * W float32, scan.py:368) and the unfused batch's inverse
+# blocks (B * S * Dmax * m * blk float32, scan.py:371, ds.py:970-973).
+# Above them the scan and the dense re-verify go one chunk at a time.
+FUSED_DS_BYTES = 6 << 30
 FOLD_CB_BYTES = 2 << 30
 
 # The fused kernels need a block with the 128-row split (n1 == 128); 16384
@@ -214,8 +226,7 @@ def bank_spec_pair(bank):
 def _fused_geometry_ok(n_c, blk_fft):
     """Geometric legality shared by both fused kernels: power-of-two blk
     with the 128-row split and a 128-aligned advance W."""
-    b = int(blk_fft).bit_length() - 1
-    if (1 << b) != blk_fft or (1 << (b // 2)) != 128:
+    if not _dft.kernel_block(blk_fft):
         return False
     pad0 = (-(n_c - 1)) % 128
     W = blk_fft - (n_c - 1 + pad0)
@@ -274,6 +285,33 @@ def os_prep_batch_fused(X, n_c, nc, blk_fft):
     return _ck.fwd_prep_fold(xq, nc, n_c, blk_fft, out_len)
 
 
+def os_prep_batch_pair(X, n_c, nc, blk_fft):
+    """The fused scan's prep where fwd_prep_fold refuses the geometry
+    (n_c > W): X [B, Lc] -> (Fr, Fi [B*nc, m*Rp], a, power [B, out_len]).
+    standardize_demux, window stats (rolling.window_stats_rows, not yet
+    padded or power-safe), exactly m frames at stride W and their forward
+    transform as a (real, imag) pair (dft.rfft_pair: one rfft_ct_half
+    launch on the card)."""
+    B = X.shape[0]
+    L_c = X.shape[1] // nc
+    xq, _ = standardize_demux(X, n_c, nc, blk_fft)
+    _, pad0, _, W, m = _os_geometry(L_c, n_c, blk_fft)
+    a, power = window_stats_rows(xq[:, :, pad0:pad0 + L_c], n_c, n_c * nc)
+    Rp = _dft.half_rp(blk_fft)
+    fr, fi = _dft.rfft_pair(
+        xq.unfold(2, blk_fft, W).reshape(B * nc * m, blk_fft), blk_fft, Rp)
+    return fr.reshape(B * nc, m * Rp), fi.reshape(B * nc, m * Rp), a, power
+
+
+def _pad_stats(a, power, out_len, width):
+    """Window stats [..., out_len] padded to ``width`` (a = 0, power = 1
+    past out_len) with power made safe (0 -> inf): the finalize's input."""
+    pad_w = width - out_len
+    pp = torch.where(power == 0, torch.full_like(power, float("inf")), power)
+    return (torch.nn.functional.pad(a, (0, pad_w)).contiguous(),
+            torch.nn.functional.pad(pp, (0, pad_w), value=1.0).contiguous())
+
+
 def os_scan_batch_fused(Fr, Fi, a, power, ur, ui, sum_u, d_mask, mode,
                         n_c, nc, blk_fft, L_c, nv, nbin=0, emit_ds=True):
     """One spec_ds_fold launch over the prepped batch: channel FMA, inverse
@@ -283,14 +321,17 @@ def os_scan_batch_fused(Fr, Fi, a, power, ur, ui, sum_u, d_mask, mode,
     "net" and (template, chunk) in mode "sub". ``emit_ds=False`` (the
     engine's summary-only scan) never writes the DS array.
 
-    ur, ui: bank_spec_pair output [Dmax, S, nc, Rp]; a / power from
-    os_prep_batch_fused (pre-padded)."""
-    _, _, D0, W, _ = _os_geometry(L_c, n_c, blk_fft)
+    ur, ui: bank_spec_pair output [Dmax, S, nc, Rp]; a / power either
+    pre-padded and power-safe from os_prep_batch_fused or [B, out_len]
+    from os_prep_batch_pair, padded here (detex_tpu ds.py:695-700)."""
+    out_len, _, D0, W, _ = _os_geometry(L_c, n_c, blk_fft)
     Rp = _dft.half_rp(blk_fft)
-    if a.shape[1] != (Fr.shape[1] // Rp) * W:
-        raise ValueError("a / power must come pre-padded from "
-                         "os_prep_batch_fused: width %d, expected %d"
-                         % (a.shape[1], (Fr.shape[1] // Rp) * W))
+    width = (Fr.shape[1] // Rp) * W
+    if a.shape[1] == out_len:
+        a, power = _pad_stats(a, power, out_len, width)
+    elif a.shape[1] != width:
+        raise ValueError("a / power width %d is neither out_len %d nor "
+                         "the padded %d" % (a.shape[1], out_len, width))
     su = torch.where(d_mask, sum_u, torch.zeros_like(sum_u)).T.contiguous()
     nv = torch.as_tensor(nv, dtype=torch.int32, device=Fr.device)
     return _ck.spec_ds_fold(ur, ui, Fr, Fi, a, power, su, nv, mode, nc, W,
@@ -298,7 +339,7 @@ def os_scan_batch_fused(Fr, Fi, a, power, ur, ui, sum_u, d_mask, mode,
 
 
 def os_prep_batch(X, n_c, nc, blk_fft):
-    """Overlap-save prep of the dense re-verify: X [B, Lc] float32 ->
+    """Overlap-save prep of the unfused batch: X [B, Lc] float32 ->
     (F [B, nc, m, blk_fft//2 + 1] complex64, a, power [B, out_len]).
 
     standardize_demux (per-row standardization, demux, padding), window
@@ -332,9 +373,7 @@ def os_block_scan_batch(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft,
     cb = _dft.irfft_ct(spec, blk_fft)
     del spec
     su = torch.where(d_mask, sum_u, torch.zeros_like(sum_u))
-    pad_w = m * W - out_len
-    ap = torch.nn.functional.pad(a, (0, pad_w)).contiguous()
-    pp = torch.nn.functional.pad(power, (0, pad_w), value=1.0).contiguous()
+    ap, pp = _pad_stats(a, power, out_len, m * W)
     dev = F.device
     suf = su[None].expand(B, S, Dmax).reshape(B * S * Dmax).contiguous()
     nv = torch.as_tensor(nv, dtype=torch.int32, device=dev)
@@ -346,12 +385,81 @@ def os_block_scan_batch(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft,
 
 
 def fold_scan_supported(n_c, blk_fft):
-    """True when the dense re-verify's kernels take this geometry: a block
-    of 16384 or 32768 samples (the 128-row split of the block transforms)
-    and an advance W >= 128, as for the fused kernels. detex_tpu's
-    namesake also checks a Pallas tile budget, which the CUDA kernels do
-    not have."""
-    return _fused_geometry_ok(n_c, blk_fft)
+    """True when the unfused batch takes this geometry: a 128-aligned
+    advance W >= 128 with W // 128 <= 128, detex_tpu's predicate (ds.py
+    718-729) without its Pallas tile budget, which the CUDA kernels do not
+    have. Any block length: the transforms run in the kernels at 16384 and
+    32768 and with torch.fft otherwise."""
+    pad0 = (-(n_c - 1)) % 128
+    W = blk_fft - (n_c - 1 + pad0)
+    return W >= 128 and W % 128 == 0 and W // 128 <= 128
+
+
+def os_prep(x, n_c, nc, blk_fft):
+    """Prep of one chunk for the per-chunk route: x [Lc] float32 tensor ->
+    (F [nc, m, blk_fft//2 + 1] complex64, a, power [out_len]), i.e.
+    os_prep_batch of a batch of one (standardization, window stats with
+    the exact zero-power rule, exactly m frames at stride W, dft.rfft_ct)."""
+    F, a, power = os_prep_batch(x[None], n_c, nc, blk_fft)
+    return F[0], a[0], power[0]
+
+
+def _os_block(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft, L_c,
+              nv=None, nbin=0):
+    """DS of every template of one chunk from os_prep's output. The channel
+    cross-spectra are a plain complex multiply-add, the inverse blocks
+    [S, Dmax, m, blk] come from dft.irfft_ct, and the finalize is detex_tpu's
+    dispatch (ds.py:392-396): with ``nv`` (the valid length, one int32 on
+    the device) and W // 128 <= 128, ds_finalize_os_scan, returning
+    (ds [S, m*W] with -inf past nv, pyr [S, m*W/128], hist [S, nbin] int32
+    or None); otherwise ds_finalize_os, returning the unmasked ds [S, m*W]
+    with ``nv`` and ds[:, :out_len] without."""
+    out_len, _, D0, W, m = _os_geometry(L_c, n_c, blk_fft)
+    S, Dmax = sum_u.shape
+    spec = sum(Ufd2[:, :, c, None, :] * F[c][None, None]
+               for c in range(F.shape[0]))                 # [S, D, m, R]
+    cb = _dft.irfft_ct(spec, blk_fft).reshape(S * Dmax, m, blk_fft)
+    del spec
+    su = torch.where(d_mask, sum_u, torch.zeros_like(sum_u)).reshape(-1)
+    ap, pp = _pad_stats(a, power, out_len, m * W)
+    if nv is not None and W // 128 <= 128:
+        return _ck.ds_finalize_os_scan(cb, ap, pp, su, nv, D0, Dmax, W,
+                                       nbin=nbin)
+    ds = _ck.ds_finalize_os(cb, ap, pp, su, D0, Dmax, W)
+    return ds if nv is not None else ds[:, :out_len]
+
+
+def os_block_scan(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft, L_c,
+                  nv, nbin=0):
+    """The per-chunk route's DS of one chunk: (ds [S, m*W] with -inf at
+    positions >= nv, pyr [S, m*W/128] block maxima, hist [S, nbin] int32
+    or None). The histogram comes from ds_finalize_os_scan when ``nbin``
+    and W // 128 <= 128; past that width the mask and maxima are plain
+    torch (detex_tpu ds.py:421-425) and hist is None."""
+    nv = torch.as_tensor(nv, dtype=torch.int32, device=F.device).reshape(1)
+    out = _os_block(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft, L_c,
+                    nv=nv, nbin=nbin)
+    if isinstance(out, tuple):
+        return out
+    pos = torch.arange(out.shape[1], device=out.device)
+    ds = torch.where(pos[None, :] < nv, out,
+                     torch.full_like(out, float("-inf")))
+    return ds, ds.reshape(ds.shape[0], -1, 128).amax(dim=-1), None
+
+
+def ds_bank_demux_os(x, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
+    """Overlap-save DS of one multiplexed chunk x [Lc] (float32 tensor on
+    the bank's device): [S, Lc//nc - n_c + 1]."""
+    F, a, power = os_prep(x, n_c, nc, blk_fft)
+    return _os_block(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft,
+                     x.shape[0] // nc)
+
+
+def ds_bank_demux_os_scan(x, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
+    """os_prep + os_block_scan of one chunk x [Lc] with valid length nv."""
+    F, a, power = os_prep(x, n_c, nc, blk_fft)
+    return os_block_scan(F, a, power, Ufd2, sum_u, d_mask, n_c, nc,
+                         blk_fft, x.shape[0] // nc, nv)
 
 
 def _run_bank_batch_fold(X, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
@@ -362,15 +470,21 @@ def _run_bank_batch_fold(X, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
     return ds
 
 
-def _bank_batch_program(Xd, lens, bank, nc):
-    """Run the bank over a device-resident chunk batch Xd [B, pad_len]
-    with valid lengths ``lens`` (multiplexed samples; zero-length slots
-    give all -inf rows). Returns (ds [B, S, m*W] on the bank's device,
-    lens). Raises NotImplementedError for what detex_tpu serves with its
-    per-chunk fallback (ROADMAP A9)."""
+def _require_os(bank):
     if not bank.get("os"):
         raise NotImplementedError(
             "only overlap-save banks are ported: ROADMAP A9")
+
+
+def _bank_batch_program(Xd, lens, bank, nc):
+    """Run the bank over a device-resident chunk batch Xd [B, pad_len]
+    with valid lengths ``lens`` (multiplexed samples). Returns (ds on the
+    bank's device, lens): [B, S, m*W] with -inf past each valid length from
+    the unfused batch, or, beyond fold_scan_supported or the inverse-block
+    cap, [B, S, out_len] unmasked from a loop of ds_bank_demux_os over the
+    chunks (detex_tpu's _ds_map_demux_os). Callers read each row up to its
+    valid length."""
+    _require_os(bank)
     n_c, blk = bank["n_c"], bank["blk_fft"]
     pad_len = bank["pad_len"]
     if tuple(Xd.shape) != (len(lens), pad_len):
@@ -379,18 +493,56 @@ def _bank_batch_program(Xd, lens, bank, nc):
     Dmax = int(bank["Dmax"])
     S = int(bank["sum_u"].shape[0])
     _, _, _, _, m = _os_geometry(pad_len // int(nc), n_c, blk)
-    if not fold_scan_supported(n_c, blk):
-        raise NotImplementedError(
-            "geometry n_c=%d blk=%d needs the per-chunk route: ROADMAP A9"
-            % (n_c, blk))
-    if len(lens) * S * Dmax * m * blk * 4 > FOLD_CB_BYTES:
-        raise NotImplementedError(
-            "inverse blocks of %d chunks exceed %d bytes; the per-chunk "
-            "route is not ported yet: ROADMAP A9" % (len(lens), FOLD_CB_BYTES))
-    nv = [max(_n_valid(L, bank, nc), 0) for L in lens]
-    out = _run_bank_batch_fold(Xd, nv, bank["Ufd2"], bank["sum_u"],
-                               bank["d_mask"], n_c, int(nc), blk)
+    arrs = (bank["Ufd2"], bank["sum_u"], bank["d_mask"])
+    if (fold_scan_supported(n_c, blk)
+            and len(lens) * S * Dmax * m * blk * 4 <= FOLD_CB_BYTES):
+        nv = [max(_n_valid(L, bank, nc), 0) for L in lens]
+        out = _run_bank_batch_fold(Xd, nv, *arrs, n_c, int(nc), blk)
+    else:
+        out = torch.stack([ds_bank_demux_os(x, *arrs, n_c, int(nc), blk)
+                           for x in Xd])
     return out, list(lens)
+
+
+def _pad_chunk(x_np, bank, nc, pad_len=None):
+    """One host chunk cut to ``pad_len`` (default the bank's) and
+    zero-padded to it, as a float32 tensor on the bank's device, plus its
+    valid length."""
+    x_np = np.asarray(x_np)
+    Lc = len(x_np)
+    if pad_len is None:
+        pad_len = bank.get("pad_len", Lc + ((-Lc) % nc))
+    Lc = min(Lc, pad_len)
+    xp = np.zeros(pad_len, np.float32)
+    xp[:Lc] = x_np[:Lc]
+    return torch.from_numpy(xp).to(bank["sum_u"].device), Lc
+
+
+def run_bank(x_np, bank, nc, pad_len=None):
+    """Run a bank over one host chunk, zero-padded to ``pad_len`` (default
+    the bank's): a numpy [S, n_valid] DS array over the windows fully
+    inside the real data (one ds_bank_demux_os, one device-to-host copy)."""
+    _require_os(bank)
+    xp, Lc = _pad_chunk(x_np, bank, nc, pad_len)
+    out = ds_bank_demux_os(xp, bank["Ufd2"], bank["sum_u"], bank["d_mask"],
+                           bank["n_c"], int(nc), bank["blk_fft"])
+    return out[:, :max(_n_valid(Lc, bank, nc), 0)].cpu().numpy()
+
+
+def run_bank_rows(x_np, bank, nc, rows):
+    """The DS rows ``rows`` of one host chunk from one bank run and one
+    device-to-host copy of just those rows: {row_index: numpy float32
+    [n_valid]}."""
+    rows = [int(si) for si in rows]
+    if not rows:
+        return {}
+    _require_os(bank)
+    xp, Lc = _pad_chunk(x_np, bank, nc)
+    out = ds_bank_demux_os(xp, bank["Ufd2"], bank["sum_u"], bank["d_mask"],
+                           bank["n_c"], int(nc), bank["blk_fft"])
+    nv = max(_n_valid(Lc, bank, nc), 0)
+    sel = out[torch.as_tensor(rows, device=out.device), :nv].cpu().numpy()
+    return dict(zip(rows, sel))
 
 
 def _bank_batch_out(x_list, bank, nc):
@@ -428,10 +580,11 @@ def run_bank_rows_batch(x_list, bank, nc, rows_list):
     """The DS rows ``rows_list[i]`` of every host chunk ``x_list[i]``, from
     one batched bank run and one device-to-host copy of the requested rows:
     a list of {row_index: numpy float32 [n_valid_i]} dicts. A single chunk
-    takes the same batch path (detex_tpu sends it to run_bank_rows, which
-    gives the same values)."""
+    goes to run_bank_rows, as in detex_tpu."""
     if not x_list:
         return []
+    if len(x_list) == 1:
+        return [run_bank_rows(x_list[0], bank, nc, rows_list[0])]
     out, lens = _bank_batch_out(x_list, bank, nc)
     jobs = [(i, int(si)) for i, rows in enumerate(rows_list) for si in rows]
     got = {}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from detex_torch.ops import dft as _dft
+from detex_torch.ops.rolling import prefix_sum
 
 
 def _prep_geometry(n_c, blk):
@@ -32,7 +33,9 @@ def fwd_prep_fold_ref(xq, nc, n_c, blk, out_len):
       a, power [B, m*W]: window mean and n * sample variance of the
         multiplexed window behind output o = f*W + t (samples
         [o + pad0, o + pad0 + n_c) of every channel), a = 0 and power = 1
-        for o >= out_len, power 0 -> inf.
+        for o >= out_len, power 0 -> inf. A window whose samples are all
+        equal has power 0 (then inf), by the exact change count of
+        rolling.window_stats_rows.
     """
     B, nc_, Lp = xq.shape
     if nc_ != nc:
@@ -61,8 +64,13 @@ def fwd_prep_fold_ref(xq, nc, n_c, blk, out_len):
     a = s1 / n_win
     var = (s2 - s1 * s1 / n_win) / (n_win - 1.0)
     power = var.clamp(min=0.0) * n_win
-    power = torch.where(power == 0, torch.full_like(power, float("inf")),
-                        power)
+    mux = xq.transpose(1, 2).reshape(B, Lp * nc)
+    steps = prefix_sum(mux[:, 1:] != mux[:, :-1], torch.int32)
+    steps = torch.cat([torch.zeros_like(steps[:, :1]), steps], dim=1)
+    j0 = (o + pad0) * nc
+    const = steps[:, j0 + n_c * nc - 1] == steps[:, j0]
+    power = torch.where((power == 0) | const,
+                        torch.full_like(power, float("inf")), power)
     valid = (o < out_len)[None, :]
     a = torch.where(valid, a, torch.zeros_like(a))
     power = torch.where(valid, power, torch.ones_like(power))
@@ -143,6 +151,49 @@ def irfft_ct_fused_ref(spec, n):
     half spectrum spec [N, n//2 + 1] complex64, float32 [N, n] scaled by
     1/n (imaginary parts of bins 0 and n/2 ignored)."""
     return torch.fft.irfft(spec, n=n, dim=-1)
+
+
+def rfft_ct_half_ref(x, n):
+    """Twin of cuda_kernels.rfft_ct_half: the real DFT of every row of
+    x [N, n] float32 as a float32 pair (fr, fi) [N, dft.half_rp(n)], bins
+    0..n//2 in natural order and zeros past them."""
+    f = torch.fft.rfft(x, n=n, dim=-1)
+    pad = _dft.half_rp(n) - f.shape[-1]
+    return (torch.nn.functional.pad(f.real, (0, pad)),
+            torch.nn.functional.pad(f.imag, (0, pad)))
+
+
+def ds_finalize_os_ref(cb, a, power, sum_u, head, D, W):
+    """Twin of cuda_kernels.ds_finalize_os.
+
+    cb [S*D, m, blk] raw overlap-save inverse blocks of one chunk, basis
+    row d of DS row r at r*D + d; a, power [m*W] the chunk's window stats
+    (a = 0, power = 1 past the valid length); sum_u [S*D] (masked slots
+    0). Returns ds [S, m*W] = sum_d (cb[.., head:head+W] - sum_u*a)^2 /
+    power (power 0 -> inf), no mask."""
+    SD, m, _ = cb.shape
+    S = SD // D
+    y = (cb[:, :, head:head + W].reshape(S, D, m * W)
+         - sum_u.reshape(S, D, 1) * a[None, None, :])
+    return (y * y).sum(dim=1) / torch.where(
+        power == 0, torch.full_like(power, float("inf")), power)
+
+
+def ds_finalize_os_scan_ref(cb, a, power, sum_u, nv, head, D, W, nbin=0):
+    """Twin of cuda_kernels.ds_finalize_os_scan: ds_finalize_os_ref with
+    -inf at positions >= nv (a one-element int32 tensor), the block maxima
+    pyr [S, m*W/128] and, for nbin > 0, floor-rule counts hist [S, nbin]
+    int32 summed over the chunk's blocks."""
+    S = cb.shape[0] // D
+    return ds_finalize_os_fold_ref(cb, a[None], power[None], sum_u,
+                                   nv.reshape(1), head, D, W, group=S,
+                                   nbin=nbin)
+
+
+def hist_uniform_ref(ds, nbin):
+    """Twin of cuda_kernels.hist_uniform: per-row floor-rule counts
+    int32 [S, nbin] of ds [S, L] (hist_floor_rule)."""
+    return hist_floor_rule(ds, nbin)
 
 
 def ds_finalize_os_fold_ref(cb, a, power, sum_u, nv, head, D, W, group=1,

@@ -7,7 +7,12 @@ by torch.profiler:
   phase C  the dense re-verify part of a phase C batch: one
            ds.run_bank_triggers_batch call on 8 of those chunks, each with
            a planted event, STA/LTA on (its scan part is phase A);
-  phase B  one serving.scan_station request (128 detectors, 8 x 3720 s).
+  phase B  one serving.scan_station request (128 detectors, 8 x 3720 s);
+  phase D1 one request of 128 detectors of 60 s templates on 32 chunks
+           (route "plain", blk 32768);
+  phase D2 one request of phase B's shape on 64 chunks (route "plain");
+  phase D3 one scan_chunks launch of a 90 s subspace with the block
+           pinned at 16384 on 16 two-hour chunks (route "fused-sub").
 
 For each it prints the wall time and the device-busy time per repeat (the
 union of all device intervals) and the profiler's table of device time by
@@ -111,6 +116,21 @@ def main():
     XB = rng.standard_normal((8, 1116000)).astype(np.float32)
     prof("phase B request", lambda: serving.scan_station(
         dep, sta, XB, max_trig=16), reps=2)
+    del dep, XB
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, secs, B, amp in (("D1", 60.0, 32, 3.0 * np.sqrt(18000)),
+                                  ("D2", 30.0, 64, None)):
+            su = cs.serving_setup(dev, tmp, tag, 128, B, secs, 8, amp=amp)
+            prof("phase %s request" % tag, lambda: serving.scan_station(
+                su["dep"], cs.SERVE_STA, su["X"], max_trig=16), reps=2)
+            del su
+            torch.cuda.empty_cache()
+    d3 = cs.phase_d3_setup(dev)
+    prof("phase D3 launch", lambda: tscan.scan_chunks(
+        d3["X"], d3["bank"], np.full(1, 0.5, np.float32), cs.NC, 2000,
+        max_trig=8))
 
 
 if __name__ == "__main__":

@@ -115,32 +115,25 @@ def _small_bank(S=3):
                           NC, LC, "cpu", block_fft=BLK)
 
 
-@pytest.mark.parametrize("case", ["blocked", "bins", "mesh", "fullbank",
-                                  "mux", "wide_block"])
+@pytest.mark.parametrize("case", ["blocked", "mesh", "fullbank", "mux"])
 def test_unported_routes_raise(case):
-    """Every route detex_tpu would take outside route "fold" with the
-    fused modes raises NotImplementedError naming its ROADMAP item."""
+    """Every route detex_tpu would take that the port has not ported yet
+    (template-blocked, multi-device, full-length and multiplexed banks)
+    raises NotImplementedError naming its ROADMAP item."""
     X = np.zeros((2, LC), np.float32)
     kw = dict(buff_samps=250, max_trig=4)
     with pytest.raises(NotImplementedError) as err:
         if case == "blocked":
             bank = _small_bank(S=129)
             tscan.scan_chunks(X, bank, np.ones(129), NC, **kw)
-        elif case == "bins":
-            tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
-                              bins=np.linspace(0, 1, 11), **kw)
         elif case == "mesh":
             tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
                               mesh=object(), **kw)
         elif case == "fullbank":
             tds.build_bank(_U_list(np.random.default_rng(6), 1, 1), NC, LC,
                            "cpu", block_fft=0)
-        elif case == "mux":
+        else:
             tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
-        else:   # W // 128 > 128: the unfused fold path
-            bank = tds.build_bank(_U_list(np.random.default_rng(7), 1, 1),
-                                  NC, LC, "cpu", block_fft=32768)
-            tscan.scan_chunks(X, bank, np.ones(1), NC, **kw)
     assert "ROADMAP A" in str(err.value)
 
 
@@ -170,20 +163,47 @@ def test_wrappers_dispatch_on_device():
         torch.zeros(NC), torch.tensor([5], dtype=torch.int32), 640, 1,
         15744, group=NC)
     assert ds.shape == (NC, 15744) and pyr.shape == (NC, 123)
-    assert tck.LAUNCHES == {"fwd_prep_fold": 0, "spec_ds_fold": 0,
-                            "ds_finalize_os_fold": 0, "rfft_ct_fused": 0,
-                            "irfft_ct_fused": 0}
-    with pytest.raises(ValueError, match="no kernel for device"):
-        tck.fwd_prep_fold(xq.to("meta"), NC, 560, BLK, 40000)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        tck.rfft_ct_fused(xq[0, :, :BLK].to("meta"), BLK)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        tck.irfft_ct_fused(spec.to("meta"), BLK)
+    fr, fi = tck.rfft_ct_half(xq[0, :, :BLK].contiguous(), BLK)
+    assert fr.shape == fi.shape == (NC, 8320)
+    stats = (a[0, :15744].contiguous(), a[0, :15744] + 1)
+    su = torch.zeros(NC)
+    nv = torch.tensor([5], dtype=torch.int32)
+    ds, pyr, hist = tck.ds_finalize_os_scan(cb.reshape(NC, 1, BLK), *stats,
+                                            su, nv, 640, 1, 15744, nbin=400)
+    assert ds.shape == (NC, 15744) and pyr.shape == (NC, 123)
+    assert hist.shape == (NC, 400) and hist.dtype == torch.int32
+    ds = tck.ds_finalize_os(cb.reshape(NC, 1, BLK), *stats, su, 640, 1,
+                            15744)
+    assert ds.shape == (NC, 15744)
+    hist = tck.hist_uniform(ds, 400)
+    assert hist.shape == (NC, 400) and hist.dtype == torch.int32
+    assert set(tck.LAUNCHES) == {
+        "fwd_prep_fold", "spec_ds_fold", "ds_finalize_os_fold",
+        "rfft_ct_fused", "irfft_ct_fused", "rfft_ct_half",
+        "ds_finalize_os_scan", "ds_finalize_os", "hist_uniform"}
+    assert not any(tck.LAUNCHES.values())
+    meta = [lambda: tck.fwd_prep_fold(xq.to("meta"), NC, 560, BLK, 40000),
+            lambda: tck.rfft_ct_fused(xq[0, :, :BLK].to("meta"), BLK),
+            lambda: tck.irfft_ct_fused(spec.to("meta"), BLK),
+            lambda: tck.rfft_ct_half(xq[0, :, :BLK].to("meta"), BLK),
+            lambda: tck.ds_finalize_os_scan(
+                cb.reshape(NC, 1, BLK).to("meta"), *(t.to("meta") for t in
+                                                     stats),
+                su.to("meta"), nv.to("meta"), 640, 1, 15744),
+            lambda: tck.ds_finalize_os(
+                cb.reshape(NC, 1, BLK).to("meta"), *(t.to("meta") for t in
+                                                     stats),
+                su.to("meta"), 640, 1, 15744),
+            lambda: tck.hist_uniform(ds.to("meta"), 400)]
+    for call in meta:
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
 
 
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports and runs a CPU scan and a dense re-verify."""
+    detex_torch still imports and runs a CPU scan, a dense re-verify, a
+    per-chunk ("plain") scan and run_bank."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
@@ -203,6 +223,12 @@ def test_port_imports_without_jax_or_pandas():
         "                                  [[0.5], [0.5]], [100.0] * 2,\n"
         "                                  5.0, 0.0, True)\n"
         "assert len(trig) == 2 and len(trig[0][0][0]) == 0\n"
+        "scan.ROUTE_COUNTS.clear()\n"
+        "out = scan.scan_chunks(X, bank, np.ones(1), 3, 250,\n"
+        "                       bins=np.linspace(0, 1, 11) ** 2)\n"
+        "assert dict(scan.ROUTE_COUNTS) == {'plain': 1}\n"
+        "assert out[0].sum() == 2 * (35000 - 560 + 1)\n"
+        "assert ds.run_bank(X[0], bank, 3).shape == (1, 35000 - 560 + 1)\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

@@ -31,6 +31,7 @@ BLK = 16384
 # 16300, the widest template the fused route takes at blk 32768
 GEOMS = {"560": (BLK, 560, LC // NC), "129": (BLK, 129, LC // NC),
          "16300": (32768, 16300, 200000)}
+_NONE = dict.fromkeys(ck.LAUNCHES, 0)
 
 
 @pytest.fixture()
@@ -136,9 +137,7 @@ def test_scan_runs_the_kernels(cuda, geom):
         out[str(dev)] = [t.cpu() for t in tscan.scan_chunks(
             X, bank, th, NC, 250, max_trig=8)]
         launched = dict(ck.LAUNCHES)
-    assert launched == {"fwd_prep_fold": 1, "spec_ds_fold": 1,
-                        "ds_finalize_os_fold": 0, "rfft_ct_fused": 0,
-                        "irfft_ct_fused": 0}
+    assert launched == dict(_NONE, fwd_prep_fold=1, spec_ds_fold=1)
     c, g = out["cpu"], out[str(cuda)]
     assert torch.equal(c[0].sum(1), g[0].sum(1))
     assert (c[1] - g[1]).abs().max().item() <= 2e-5
@@ -220,9 +219,8 @@ def test_dense_reverify_runs_the_kernels(cuda):
         out[str(dev)] = tds.run_bank_triggers_batch(
             xs, bank, NC, rows, thrs, [100.0] * 3, 5.0, 0.0, True)
         launched = dict(ck.LAUNCHES)
-    assert launched == {"fwd_prep_fold": 0, "spec_ds_fold": 0,
-                        "ds_finalize_os_fold": 1, "rfft_ct_fused": 1,
-                        "irfft_ct_fused": 1}
+    assert launched == dict(_NONE, ds_finalize_os_fold=1, rfft_ct_fused=1,
+                            irfft_ct_fused=1)
     c, g = out["cpu"], out[str(cuda)]
     assert len(c[0][0][0]) == 1 and len(c[2][1][0]) == 1
     for ci in range(3):
@@ -232,3 +230,189 @@ def test_dense_reverify_runs_the_kernels(cuda):
                                        atol=2e-5)
             np.testing.assert_allclose(g[ci][si][2], c[ci][si][2],
                                        rtol=1e-4)
+
+
+def test_fwd_prep_kernel_zero_power_rule(cuda):
+    """fwd_prep_fold's exact zero-power rule on the card: zero-filled gaps
+    longer than the template (one across a frame boundary) and a stretch
+    where every channel holds one constant give power inf where the twin
+    does; a stretch of per-channel constants keeps a finite power."""
+    blk, n_c, L_c = GEOMS["560"]
+    xq, out_len = _xq(np.random.default_rng(5), 2, blk, n_c, L_c, cuda)
+    _, pad0, _, W, _ = tds._os_geometry(L_c, n_c, blk)
+    g = 2 * n_c + 50
+    x0 = xq[0, :, pad0:]
+    x0[:, 40:40 + g] = 0.0
+    x0[:, W - n_c:W + n_c + 7] = 0.0
+    x0[:, 3000:3000 + g] = 0.7
+    x0[0, 2999] = 0.7
+    x0[:, 6000:6000 + g] = torch.tensor([[0.1], [0.2], [0.3]], device=cuda)
+    k = ck.fwd_prep_fold(xq, NC, n_c, blk, out_len)[3][:, :out_len]
+    r = ref.fwd_prep_fold_ref(xq, NC, n_c, blk, out_len)[3][:, :out_len]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(k), torch.isinf(r))
+    assert int(torch.isinf(r[0]).sum()) == 2 * (g - n_c + 1) + n_c + 8
+    fin = torch.isfinite(r)
+    assert torch.allclose(k[fin], r[fin], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_rfft_ct_half_kernel_matches_twin(cuda, blk):
+    rng = np.random.default_rng(blk + 2)
+    x = torch.as_tensor(rng.standard_normal((40, blk)).astype(np.float32),
+                        device=cuda)
+    k = ck.rfft_ct_half(x, blk)
+    r = ref.rfft_ct_half_ref(x, blk)
+    torch.cuda.synchronize()
+    R = blk // 2 + 1
+    for a, b in zip(k, r):
+        assert (a[:, :R] - b[:, :R]).abs().max().item() <= 2e-3
+        assert bool((a[:, R:] == 0).all())
+
+
+def _os_block_args(cuda, blk, n_c, L_c, S, D, seed):
+    """One chunk's per-chunk finalize inputs, made as ds._os_block makes
+    them (twin transforms): (cb [S*D, m, blk], a, power [m*W], su, D0, W,
+    out_len)."""
+    rng = np.random.default_rng(seed)
+    bank = tds.build_bank(_U_list(rng, S, D, NC * n_c), NC, NC * L_c, cuda,
+                          block_fft=blk)
+    x = torch.as_tensor(rng.standard_normal(NC * L_c).astype(np.float32),
+                        device=cuda)
+    out_len, _, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+    xq, _ = tds.standardize_demux(x[None], n_c, NC, blk)
+    F = ref.rfft_ct_fused_ref(xq[0].unfold(1, blk, W), blk)
+    a, power = tds.window_stats_rows(
+        xq[:, :, (-(n_c - 1)) % 128:][:, :, :L_c], n_c, n_c * NC)
+    spec = sum(bank["Ufd2"][:, :, c, None, :] * F[c][None, None]
+               for c in range(NC))
+    cb = ref.irfft_ct_fused_ref(spec.reshape(-1, blk // 2 + 1), blk)
+    ap, pp = tds._pad_stats(a[0], power[0], out_len, m * W)
+    su = torch.where(bank["d_mask"], bank["sum_u"],
+                     torch.zeros_like(bank["sum_u"])).reshape(-1)
+    return cb.reshape(S * D, m, blk), ap, pp, su.contiguous(), D0, W, out_len
+
+
+@pytest.mark.parametrize("nbin,ragged", [(0, False), (400, True),
+                                         (400, False)])
+def test_ds_finalize_os_scan_kernel_matches_twin(cuda, nbin, ragged):
+    S, D = 5, 3
+    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, BLK, 560, 60000, S,
+                                                  D, nbin + ragged)
+    nv = torch.tensor([out_len - 20000 if ragged else out_len],
+                      dtype=torch.int32, device=cuda)
+    args = (cb, a, p, su, nv, D0, D, W)
+    dk, pk, hk = ck.ds_finalize_os_scan(*args, nbin=nbin)
+    dr, pr, hr = ref.ds_finalize_os_scan_ref(*args, nbin=nbin)
+    torch.cuda.synchronize()
+    for k, r in ((dk, dr), (pk, pr)):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    if nbin:
+        assert torch.equal(hk.sum(1), hr.sum(1))
+        assert (hk - hr).abs().sum().item() <= max(hr.sum().item() // 200000,
+                                                   2)
+    else:
+        assert hk is None and hr is None
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_ds_finalize_os_and_hist_kernels_match_twins(cuda, blk):
+    """ds_finalize_os on one chunk's inverse blocks, then hist_uniform on
+    its DS rows with a ragged -inf tail and exact 1.0 values (counts
+    equal to the twin's: the same float32 floor rule)."""
+    S, D = 4, 2
+    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, blk, 560, 60000, S,
+                                                  D, blk)
+    dk = ck.ds_finalize_os(cb, a, p, su, D0, D, W)
+    dr = ref.ds_finalize_os_ref(cb, a, p, su, D0, D, W)
+    torch.cuda.synchronize()
+    assert (dk - dr).abs().max().item() <= 2e-5
+    v = dr.clone()
+    v[:, out_len - 5000:] = float("-inf")
+    v[0, :64] = 1.0
+    hk = ck.hist_uniform(v, 400)
+    hr = ref.hist_uniform_ref(v, 400)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hr) and int(hk[0, -1]) >= 64
+
+
+@pytest.mark.parametrize("case", ["plain-w15744", "plain-w32128", "bins",
+                                  "fused-sub-pair"])
+def test_chunk_routes_run_the_kernels(cuda, monkeypatch, case):
+    """scan_chunks on the per-chunk route (both finalize forms, and
+    non-uniform bins) and on the fused route behind the unfused prep: the
+    route's kernels launch, and the outputs agree with the same scan on the
+    CPU twins (hist totals exact, maxds within 2e-5, triggers exact)."""
+    blk, n_c, bins = {"plain-w15744": (BLK, 560, None),
+                      "plain-w32128": (32768, 560, None),
+                      "bins": (BLK, 560, np.linspace(0, 1, 11) ** 2),
+                      "fused-sub-pair": (BLK, 9000, None)}[case]
+    if case == "plain-w15744":
+        monkeypatch.setattr(tds, "FUSED_DS_BYTES", 0)
+        monkeypatch.setattr(tds, "FOLD_CB_BYTES", 0)
+    L_c, n = 60000, NC * n_c
+    rng = np.random.default_rng(12)
+    U_list = _U_list(rng, 3, 2, n)
+    X = rng.standard_normal((4, NC * L_c)).astype(np.float32)
+    X[1, 3 * 9000:3 * 9000 + n] += 3.0 * np.sqrt(n) * U_list[0][0]
+    lens = [NC * L_c, NC * L_c, NC * (L_c - 9000), 0]
+    th = np.full(3, 0.6, np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        bank = tds.build_bank(U_list, NC, NC * L_c, dev, block_fft=blk)
+        ck.reset_launches()
+        out[str(dev)] = [t.cpu() for t in tscan.scan_chunks(
+            X, bank, th, NC, 250, bins=bins, max_trig=8, valid_lens=lens)]
+        launched = dict(ck.LAUNCHES)
+    want = {"plain-w15744": dict(rfft_ct_fused=4, irfft_ct_fused=4,
+                                 ds_finalize_os_scan=4),
+            "plain-w32128": dict(rfft_ct_fused=4, irfft_ct_fused=4,
+                                 ds_finalize_os=4, hist_uniform=4),
+            "bins": dict(rfft_ct_fused=4, irfft_ct_fused=4,
+                         ds_finalize_os_scan=4),
+            "fused-sub-pair": dict(rfft_ct_half=1, spec_ds_fold=1)}[case]
+    assert launched == dict(_NONE, **want)
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.equal(c[0].sum(1), g[0].sum(1))
+    assert (c[0] - g[0]).abs().sum().item() <= 40
+    fin = torch.isfinite(c[1])
+    assert torch.equal(fin, torch.isfinite(g[1]))
+    assert (c[1][fin] - g[1][fin]).abs().max().item() <= 2e-5
+    assert torch.equal(c[2], g[2]) and torch.equal(c[4], g[4])
+    assert int(g[4][1, 0]) >= 1
+
+
+def test_zero_gap_routes_agree_on_the_card(cuda, monkeypatch):
+    """A zero-filled gap longer than the template: the fused route
+    (fwd_prep_fold + spec_ds_fold) and the per-chunk route
+    (ds_finalize_os_scan) both give DS exactly 0 where the float64 oracle
+    has no power, and agree with it within 2e-5 elsewhere."""
+    blk, n_c, L_c = GEOMS["560"]
+    n = NC * n_c
+    rng = np.random.default_rng(31)
+    U_list = _U_list(rng, 2, 2, n)
+    bank = tds.build_bank(U_list, NC, NC * L_c, cuda, block_fft=blk)
+    X = rng.standard_normal((2, NC * L_c)).astype(np.float32)
+    X[0, NC * 10000:NC * 12000] = 0.0
+    Xt = torch.as_tensor(X, device=cuda)
+    out_len = L_c - n_c + 1
+    nv = np.full(2, out_len, np.int32)
+    Fr, Fi, a, power = tds.os_prep_batch_fused(Xt, n_c, NC, blk)
+    ur, ui = tds.bank_spec_pair(bank)
+    fused, _, _ = tds.os_scan_batch_fused(
+        Fr, Fi, a, power, ur, ui, bank["sum_u"], bank["d_mask"], "sub", n_c,
+        NC, blk, L_c, nv)
+    plain, _, _ = tds.ds_bank_demux_os_scan(
+        Xt[0], out_len, bank["Ufd2"], bank["sum_u"], bank["d_mask"], n_c,
+        NC, blk)
+    fused = fused.reshape(2, 2, -1)[:, 0, :out_len].cpu().numpy()
+    plain = plain[:, :out_len].cpu().numpy()
+    for s in range(2):
+        o = tds.ds_numpy(X[0], U_list[s], NC)
+        gap = ~np.isfinite(o)
+        assert gap.sum() == 2000 - n_c + 1
+        for ds in (fused[s], plain[s]):
+            assert np.all(ds[gap] == 0.0)
+            assert np.abs(ds[~gap] - o[~gap]).max() <= 2e-5

@@ -333,15 +333,25 @@ def test_trigger_rows_device_matches_jax_and_host_chain(use_stalta, sta_n):
 
 
 def test_dense_path_raises_on_unported_forms(monkeypatch):
-    """Geometries and batch sizes detex_tpu serves with its per-chunk
-    fallback raise NotImplementedError naming ROADMAP A9."""
+    """The bank forms the port has not ported (full-length and
+    multiplexed, ROADMAP A9) raise NotImplementedError naming A9 on every
+    dense entry. Geometries and batch sizes detex_tpu serves with its
+    per-chunk fallback now run (tests/test_torch_chunk.py); the batch above
+    the inverse-block cap goes one chunk at a time without raising."""
     rng = np.random.default_rng(8)
     U_list = _U_list(rng, S=1, D=1)
     x = [rng.standard_normal(LC).astype(np.float32)]
-    small = tds.build_bank(U_list, NC, LC, "cpu", block_fft=8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tds.run_bank_batch(x, small, NC)
     _, tb = _banks(U_list)
+    full = dict(tb, os=False)
+    for call in (lambda: tds.run_bank_batch(x, full, NC),
+                 lambda: tds.run_bank_rows_batch(x * 2, full, NC,
+                                                 [[0], [0]]),
+                 lambda: tds.run_bank(x[0], full, NC),
+                 lambda: tds.run_bank_rows(x[0], full, NC, [0])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            call()
+    want = tds.run_bank_rows_batch(x * 2, tb, NC, [[0], [0]])
     monkeypatch.setattr(tds, "FOLD_CB_BYTES", 2 * BLK * 4 - 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tds.run_bank_rows_batch(x, tb, NC, [[0]])
+    got = tds.run_bank_rows_batch(x * 2, tb, NC, [[0], [0]])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0], w[0], rtol=0, atol=2e-5)

@@ -50,6 +50,10 @@ def emu(tmp_path_factory):
     lib.emu_rfft_ct.argtypes = [P] * 3 + [LL, I]
     lib.emu_irfft_ct.argtypes = [P] * 3 + [LL, I]
     lib.emu_ds_finalize_os_fold.argtypes = [P] * 8 + [LL] + [I] * 7
+    lib.emu_ds_finalize_os_scan.argtypes = [P] * 8 + [LL] + [I] * 6
+    lib.emu_ds_finalize_os.argtypes = [P] * 5 + [LL] + [I] * 5
+    lib.emu_hist_uniform.argtypes = [P] * 2 + [LL, LL, I]
+    lib.emu_rfft_ct_half.argtypes = [P] * 4 + [LL, I, I]
     return lib
 
 
@@ -96,6 +100,45 @@ def test_fwd_prep_fold_source_matches_twin(emu, geom):
                           atol=1e-3)
     assert bool((a[:, out_len:] == 0).all()) and bool(
         (pw[:, out_len:] == 1).all())
+
+
+@pytest.mark.parametrize("blk,L_c", [(16384, 20000), (32768, 40000)])
+def test_fwd_prep_fold_source_zero_power_rule(emu, blk, L_c):
+    """The exact zero-power rule (n_c = 560): a window whose multiplexed
+    samples are all equal (inside a zero-filled gap longer than the
+    template, one crossing the frame boundary, or a stretch where every
+    channel holds one constant) has power inf, as in the twin; a stretch
+    where each channel is constant at its own value, and the window that
+    adds one sample where only channel 0 has that constant, keep a finite
+    power.
+    Chunk 1 is ragged (a zero tail)."""
+    n_c = 560
+    xq, out_len, pad0, D0, W, m, _ = _prep_inputs(blk, n_c, L_c, 2, 3)
+    g = 2 * n_c + 50
+    x0 = xq[0, :, pad0:]
+    x0[:, 40:40 + g] = 0.0                          # gap inside frame 0
+    x0[:, W - n_c:W + n_c + 7] = 0.0                # gap across frames
+    x0[:, 3000:3000 + g] = 0.7                      # channels equal
+    x0[0, 2999] = 0.7                               # ... but one sample
+    x0[:, 6000:6000 + g] = torch.tensor([[0.1], [0.2], [0.3]])
+    Rp = dft.half_rp(blk)
+    fr = torch.empty((2 * NC, m * Rp))
+    fi = torch.empty_like(fr)
+    a = torch.empty((2, m * W))
+    pw = torch.empty_like(a)
+    rc = emu.emu_fwd_prep_fold(
+        _ptr(xq), _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
+        _ptr(a), _ptr(pw), 2, NC, xq.shape[2], m, W, D0, pad0, n_c, out_len,
+        Rp, blk.bit_length() - 2)
+    assert rc == 0
+    _, _, a0, p0 = ref.fwd_prep_fold_ref(xq, NC, n_c, blk, out_len)
+    k, r = pw[:, :out_len], p0[:, :out_len]
+    assert torch.equal(torch.isinf(k), torch.isinf(r))
+    assert int(torch.isinf(r[0]).sum()) == 2 * (g - n_c + 1) + n_c + 8
+    assert bool(torch.isinf(r[1, -100:]).all())     # the ragged tail
+    fin = torch.isfinite(r)
+    assert torch.allclose(k[fin], r[fin], rtol=1e-4, atol=1e-3)
+    assert torch.allclose(a[:, :out_len], a0[:, :out_len], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("geom,mode,S,D,emit_ds", [
@@ -210,3 +253,126 @@ def test_ds_finalize_os_fold_source_matches_twin(emu, blk, nbin, grouped):
     if nbin:
         assert torch.equal(hist.sum(1), h0.sum(1))
         assert (hist - h0).abs().sum().item() <= 2
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_rfft_ct_half_source_matches_twin(emu, blk):
+    """rfft_ct_half (B6): three rows, one a short signal in zeros; bins
+    0..blk/2 against the twin, zeros past them in the padded width."""
+    rng = np.random.default_rng(blk + 1)
+    x = torch.from_numpy(rng.standard_normal((3, blk)).astype(np.float32))
+    x[1, 300:] = 0.0
+    Rp = dft.half_rp(blk)
+    fr = torch.full((3, Rp), float("nan"))
+    fi = torch.full((3, Rp), float("nan"))
+    assert emu.emu_rfft_ct_half(_ptr(x), _ptr(dft.twiddles(blk, "cpu")),
+                                _ptr(fr), _ptr(fi), 3, Rp,
+                                blk.bit_length() - 2) == 0
+    r_re, r_im = ref.rfft_ct_half_ref(x, blk)
+    R = blk // 2 + 1
+    for k, r in ((fr, r_re), (fi, r_im)):
+        assert (k[:, :R] - r[:, :R]).abs().max().item() <= 2e-3
+        assert bool((k[:, R:] == 0).all()) and bool((r[:, R:] == 0).all())
+
+
+def _os_block_inputs(blk, S, D, m, seed):
+    """Random inverse blocks cb [S*D, m, blk] and one chunk's stats row
+    a, power [m*W] with zero power at a few positions, a masked basis
+    slot, and positions planted to give DS exactly 1.0 (a = 0, power 1,
+    the row's basis rows 1 and 0) and exactly 9.0 (> 1)."""
+    rng = np.random.default_rng(seed)
+    head = 3072 if blk == 16384 else 16384
+    W = blk - head
+    cb = torch.from_numpy(
+        rng.standard_normal((S * D, m, blk)).astype(np.float32) * 4)
+    a = torch.from_numpy(rng.standard_normal(m * W).astype(np.float32))
+    pw = torch.from_numpy(rng.uniform(20, 200, m * W).astype(np.float32))
+    pw[5:9] = 0.0
+    su = torch.from_numpy(rng.standard_normal(S * D).astype(np.float32))
+    su[1::D] = 0.0
+    for t, v in ((130, 1.0), (W + 7, 1.0), (300, 3.0)):
+        i, tt = divmod(t, W)
+        a[t], pw[t] = 0.0, 1.0
+        cb[:, i, head + tt] = 0.0
+        cb[0::D, i, head + tt] = v
+    return cb, a, pw, su, head, W
+
+
+@pytest.mark.parametrize("blk,nbin,nv", [
+    (16384, 0, 20000), (16384, 400, -3), (16384, 400, 20000),
+    (32768, 400, 20000)])
+def test_ds_finalize_os_scan_source_matches_twin(emu, blk, nbin, nv):
+    """ds_finalize_os_scan (B7): one chunk's S = 3 rows sharing its stats,
+    valid length nv (<= 0: every position -inf; else ragged inside block
+    1), DS 0 at zero power, v == 1.0 in the last bin, v > 1 dropped."""
+    S, D, m = 3, 2, 2
+    cb, a, pw, su, head, W = _os_block_inputs(blk, S, D, m, nbin + blk)
+    if nv > 0:
+        nv = W + 1000
+    nvt = torch.tensor([nv], dtype=torch.int32)
+    ds = torch.empty((S, m * W))
+    pyr = torch.empty((S, m * W // 128))
+    hist = torch.zeros((S, max(nbin, 1)), dtype=torch.int32)
+    rc = emu.emu_ds_finalize_os_scan(
+        _ptr(cb), _ptr(a), _ptr(pw), _ptr(su), _ptr(nvt), _ptr(ds),
+        _ptr(pyr), _ptr(hist), S, D, m, blk, W, head, nbin)
+    assert rc == 0
+    d0, p0, h0 = ref.ds_finalize_os_scan_ref(cb, a, pw, su, nvt, head, D, W,
+                                             nbin=nbin)
+    for k, r in ((ds, d0), (pyr, p0)):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        if fin.any():
+            assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    if nv <= 0:
+        assert bool(torch.isneginf(ds).all()) and bool(
+            torch.isneginf(pyr).all())
+    else:
+        assert bool((ds[:, 5:9] == 0).all())
+        assert bool((ds[0, [130, W + 7]] == 1.0).all())
+        assert float(ds[0, 300]) == 9.0
+        assert bool(torch.isneginf(ds[:, nv:]).all())
+    if nbin:
+        assert torch.equal(hist.sum(1), h0.sum(1))
+        assert (hist - h0).abs().sum().item() <= 2
+        if nv > 0:
+            assert int(hist[0, -1]) >= 2 and int(h0[0, -1]) >= 2
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_ds_finalize_os_source_matches_twin(emu, blk):
+    """ds_finalize_os (B8): no mask, no maxima; DS 0 at zero power, the
+    planted exact values, the twin within 2e-5 everywhere."""
+    S, D, m = 2, 2, 3
+    cb, a, pw, su, head, W = _os_block_inputs(blk, S, D, m, blk + 5)
+    ds = torch.full((S, m * W), float("nan"))
+    rc = emu.emu_ds_finalize_os(_ptr(cb), _ptr(a), _ptr(pw), _ptr(su),
+                                _ptr(ds), S, D, m, blk, W, head)
+    assert rc == 0
+    d0 = ref.ds_finalize_os_ref(cb, a, pw, su, head, D, W)
+    assert bool(torch.isfinite(ds).all())
+    assert (ds - d0).abs().max().item() <= 2e-5
+    assert bool((ds[:, 5:9] == 0).all()) and float(ds[0, 300]) == 9.0
+
+
+@pytest.mark.parametrize("nbin,L", [(400, 20000), (100, 8192), (1, 3000)])
+def test_hist_uniform_source_matches_twin(emu, nbin, L):
+    """hist_uniform (B9): counts equal to the twin's exactly (the same
+    float32 floor rule); 1.0 in the last bin; negative, > 1, -inf and NaN
+    values dropped; a row of only dropped values counts nothing."""
+    rng = np.random.default_rng(nbin + L)
+    ds = torch.from_numpy(rng.uniform(-0.1, 1.1, (3, L)).astype(np.float32))
+    ds[0, :10] = 1.0
+    ds[0, 10:20] = 0.0
+    ds[1, ::7] = float("-inf")
+    ds[1, 3::11] = float("nan")
+    ds[1, 5::13] = float(np.nextafter(np.float32(1), np.float32(2)))
+    ds[2] = float("-inf")
+    hist = torch.zeros((3, nbin), dtype=torch.int32)
+    assert emu.emu_hist_uniform(_ptr(ds), _ptr(hist), 3, L, nbin) == 0
+    h0 = ref.hist_uniform_ref(ds, nbin)
+    assert torch.equal(hist, h0)
+    assert int(hist[0, -1]) >= 10 and int(hist[2].sum()) == 0
+    v = ds.numpy()
+    keep = (v >= 0) & (v <= 1)
+    assert np.array_equal(hist.sum(1).numpy(), keep.sum(1))

@@ -262,3 +262,48 @@ def test_serving_matches_jax(jax_fused_env, tmp_path):
                     [rj[k] for k in ("hist", "maxds", "trig_idx",
                                      "trig_val", "trig_count")], True)
         assert rt["trig_count"][1, 2] >= 1
+
+
+def test_zero_gap_fused_and_plain_routes_agree_with_oracle(monkeypatch):
+    """A chunk with a zero-filled gap longer than the template: the fused
+    route (fwd_prep_fold's exact zero-power rule) and the per-chunk
+    "plain" route (rolling.window_stats_rows) give DS exactly 0 at every
+    window the float64 oracle finds without power (the gap), and agree
+    with the oracle within 2e-5 elsewhere; their scans agree too."""
+    rng = np.random.default_rng(31)
+    U_list = _U_list(rng, S=2, D=2)
+    tb = tds.build_bank(U_list, NC, LC, "cpu", block_fft=BLK)
+    B = 2
+    X = rng.standard_normal((B, LC)).astype(np.float32)
+    X[0, NC * 10000:NC * 12000] = 0.0                     # the gap
+    X[0, NC * 20000:NC * 20000 + N] += 150.0 * U_list[1][0]
+    n_c, L_c = N // NC, LC // NC
+    out_len = L_c - n_c + 1
+    nv = np.full(B, out_len, np.int32)
+    Xt = torch.from_numpy(X)
+    Fr, Fi, a, power = tds.os_prep_batch_fused(Xt, n_c, NC, BLK)
+    ur, ui = tds.bank_spec_pair(tb)
+    fused, _, _ = tds.os_scan_batch_fused(
+        Fr, Fi, a, power, ur, ui, tb["sum_u"], tb["d_mask"], "sub", n_c, NC,
+        BLK, L_c, nv)
+    fused = fused.reshape(2, B, -1)[:, 0, :out_len].numpy()
+    plain, _, _ = tds.ds_bank_demux_os_scan(
+        Xt[0], out_len, tb["Ufd2"], tb["sum_u"], tb["d_mask"], n_c, NC, BLK)
+    plain = plain[:, :out_len].numpy()
+    for s in range(2):
+        o = tds.ds_numpy(X[0], U_list[s], NC)
+        gap = ~np.isfinite(o)
+        assert gap.sum() == 2000 - n_c + 1 and gap[10000:12000 - n_c + 1].all()
+        for ds in (fused[s], plain[s]):
+            assert np.all(ds[gap] == 0.0)
+            assert np.abs(ds[~gap] - o[~gap]).max() <= 2e-5
+    th = np.full(2, 0.6, np.float32)
+    tscan.ROUTE_COUNTS.clear()
+    out_f = tscan.scan_chunks(X, tb, th, NC, 250, max_trig=8)
+    monkeypatch.setattr(tds, "FUSED_DS_BYTES", 0)
+    monkeypatch.setattr(tds, "FOLD_CB_BYTES", 0)
+    out_p = tscan.scan_chunks(X, tb, th, NC, 250, max_trig=8)
+    assert dict(tscan.ROUTE_COUNTS) == {"fused-sub+fusedprep": 1,
+                                        "plain": 1}
+    _check_scan(out_p, out_f, True)
+    assert int(out_p[4][0, 1]) == 1 and int(out_p[2][0, 1, 0]) == 20000
