@@ -45,7 +45,26 @@ port's paths through the entry points a user calls:
                the unfused prep with rfft_ct_half;
            D4  small: non-uniform bins (route "plain" without the fused
                histogram) and a blk-8192 bank (route "fold" with torch.fft
-               and ds_finalize_os_fold), each against the CPU twins.
+               and ds_finalize_os_fold), each against the CPU twins;
+  phase E  the device prep and the full-length and multiplexed banks, at
+           published widths (3 channels, raw 100 Hz, hour chunks of 3720 s),
+           planted events checked against the float64 oracle (prep_numpy,
+           then ds_numpy) as in phase D:
+           E1  devicePrep serving: a 128-detector artifact of 30 s
+               templates at 50 Hz with filt [1, 10, 2, true] and decimate
+               2, serving.scan_station_raw on raw [8, 3, 372000] chunks:
+               route "fused-net+fusedprep+devicePrep";
+           E2  a full-length demuxed bank of 16 x 4 (the ladders' rungs)
+               of 30 s at 100 Hz from build_bank(prefer_os=False) on 8
+               chunks: route "plain" with ds_finalize and hist_uniform,
+               then run_bank, run_bank_rows and run_bank_batch;
+           E3  E2's bank shape at 50 Hz, scan_chunks_raw on raw
+               [8, 3, 372000] chunks at decimate 2, one ragged: route
+               "raw-demux+devicePrep" with ds_finalize; then run_bank_raw;
+           E4  small: a multiplexed bank (run_bank, scan_chunks) and the
+               raw path with the complex filter response at decimate 2,
+               each against the CPU twins; ds_finalize against its twin at
+               E2's shape before the counted runs.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -69,6 +88,7 @@ from detex_torch.kernels import build
 from detex_torch.ops import cuda_kernels as ck
 from detex_torch.ops import dft
 from detex_torch.ops import ds as tds
+from detex_torch.ops import prep as tprep
 from detex_torch.ops import reference as ref
 from detex_torch.parallel import scan as tscan
 from detex_torch import serving
@@ -95,6 +115,8 @@ KERNEL_INFO = {
                        "detex_tpu/ops/pallas_kernels.py:701"),
     "hist_uniform": ("detex_torch/kernels/hist_uniform.cu",
                      "detex_tpu/ops/pallas_kernels.py:199"),
+    "ds_finalize": ("detex_torch/kernels/ds_finalize.cu",
+                    "detex_tpu/ops/pallas_kernels.py:104"),
 }
 DENSE_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_fold")
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
@@ -946,6 +968,370 @@ def phase_d4(dev, seed=7):
     return dict(err=max(errs))
 
 
+# ---------------------------------------------------------------------------
+# phase E: device prep, full-length and multiplexed banks
+# ---------------------------------------------------------------------------
+
+RAW_SR = 100.0                                      # raw rate of E1, E3
+DEC = 2
+FILT = [1.0, 10.0, 2, True]
+
+
+def raw_chunks(rng, B, L_raw, events):
+    """B raw three-channel chunks [B, 3, L_raw] float32 of noise, an offset
+    and a trend, with an 8 s band-limited event (independent per channel,
+    ~8x the noise) at each raw sample ``p`` of (chunk, p) ``events``."""
+    X = rng.standard_normal((B, NC, L_raw)) + 3.0
+    X += np.linspace(0.0, 20.0, L_raw)[None, None, :]
+    for b, p in events:
+        w = np.stack([np.convolve(rng.standard_normal(800), np.hanning(10),
+                                  "same") for _ in range(NC)])
+        w *= np.hanning(800) / w.std()
+        X[b, :, p:p + 800] += 8.0 * w
+    return X.astype(np.float32)
+
+
+def oracle_templates(X, lens, events, H, nfftp, n):
+    """One unit template of n multiplexed samples per (chunk, raw sample)
+    event, cut from the float64 oracle's prepped chunk (prep.prep_numpy)
+    4 s before the event, and the prepped chunks by chunk index."""
+    Hn = H.cpu().numpy()
+    prepped, Us = {}, []
+    for b, p in events:
+        if b not in prepped:
+            prepped[b] = tprep.prep_numpy(X[b], lens[b], Hn, nfftp, DEC, NC)
+        off = NC * (p // DEC - int(4 * RAW_SR / DEC))
+        u = prepped[b][off:off + n]
+        need(len(u) == n, "event at raw sample %d too late for a template"
+             % p)
+        Us.append((u / np.linalg.norm(u))[None, :])
+    return Us, prepped
+
+
+def check_triggers(tag, planted, oracle, maxds, tidx, tval, tcnt, S_real):
+    """Every planted (chunk, detector) triggers once at the float64
+    oracle's argmax with its DS (and the row maximum) within 2e-5; no
+    other row triggers (rows from S_real on are padding). ``oracle(b, s)``
+    is the oracle's DS row. Returns the largest DS error."""
+    errs = []
+    for b, s in planted:
+        ds64 = oracle(b, s)
+        i64 = int(np.nanargmax(ds64))
+        need(tcnt[b, s] == 1 and int(tidx[b, s, 0]) == i64,
+             "phase %s (%d, %d): %d triggers, first at %d, oracle argmax %d"
+             % (tag, b, s, tcnt[b, s], tidx[b, s, 0], i64))
+        errs += [abs(float(tval[b, s, 0]) - float(ds64[i64])),
+                 abs(float(maxds[b, s]) - float(np.nanmax(ds64)))]
+        need(max(errs[-2:]) <= 2e-5, "phase %s (%d, %d) DS err %g"
+             % (tag, b, s, max(errs[-2:])))
+    extra = [(b, s) for b in range(tcnt.shape[0]) for s in range(S_real)
+             if tcnt[b, s] and (b, s) not in set(planted)]
+    need(not extra and not tcnt[:, S_real:].any(),
+         "phase %s rows without a planted event triggered: %s"
+         % (tag, extra[:8]))
+    return max(errs)
+
+
+def timed_runs(fn, n=3):
+    """(last result, host seconds of runs 2..n): the first run warms up."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times[1:]
+
+
+def phase_e1_setup(dev, tmpdir, S=128, B=8, seconds=3720.0, seed=41):
+    """E1: an artifact of S detectors of 30 s single-basis templates at
+    50 Hz (n_c 1500) with filt [1, 10, 2, true] and decimate 2, raw
+    [B, 3, seconds * 100] chunks at 100 Hz with four events; the planted
+    detectors' templates come from the oracle's prepped chunks."""
+    rng = np.random.default_rng(seed)
+    sr = RAW_SR / DEC
+    n = int(30 * sr * NC)
+    L_raw = int(seconds * RAW_SR)
+    nfftp = tds.required_fft_len(int(seconds * sr), n // NC)
+    H = tprep.butter_response(FILT, RAW_SR, DEC * nfftp, device=dev)
+    # (chunk, detector, raw sample of the event)
+    planted = [(b % B, s % S, int(f * L_raw)) for b, s, f in (
+        (0, 3, 0.11), (2, 77, 0.4), (5, 127, 0.7), (B - 1, 40, 0.9))]
+    X = raw_chunks(rng, B, L_raw, [(b, p) for b, _, p in planted])
+    Up, prepped = oracle_templates(X, [L_raw] * B,
+                                   [(b, p) for b, _, p in planted], H, nfftp,
+                                   n)
+    Us = [basis(rng, 1, n) for _ in range(S)]
+    for (_, s, _), u in zip(planted, Up):
+        Us[s] = u
+    meta = {"stations": {SERVE_STA: {"nc": NC, "sr": sr, "detectors": [
+        dict(name="SG%03d" % s, kind="sg", threshold=0.5, offsets=[0.0],
+             mags=[1.0], events=["ev%03d" % s]) for s in range(S)]}},
+        "filt": FILT, "decimate": DEC, "version": 1}
+    arrays = {"U__%s__SG%03d" % (SERVE_STA, s): Us[s].astype(np.float32)
+              for s in range(S)}
+    arrays["meta"] = np.array(json.dumps(meta))
+    path = os.path.join(tmpdir, "detectors_e1.npz")
+    np.savez(path, **arrays)
+    dep = serving.load_detectors(path, chunk_sec=seconds - 120, conBuff=120,
+                                 device=dev)
+    return dict(dep=dep, X=X, Us=Us, prepped=prepped, n=n,
+                planted=[(b, s) for b, s, _ in planted])
+
+
+def phase_e1(su):
+    """E1: serving.scan_station_raw on the raw chunks (route
+    "fused-net+fusedprep+devicePrep": prep_multiplex_batch, fwd_prep_fold,
+    spec_ds_fold)."""
+    X, Us, n = su["X"], su["Us"], su["n"]
+    B, S = X.shape[0], len(Us)
+    bank = su["dep"][SERVE_STA]["banks"][0]
+    say("phase E1: %d detectors, raw B=%d x %s at %g Hz, decimate %d, blk %d"
+        % (S, B, X.shape[1:], RAW_SR, DEC, bank["blk_fft"]))
+    res, times = timed_runs(lambda: serving.scan_station_raw(
+        su["dep"], SERVE_STA, X, max_trig=8))
+    r = res[0]
+    nv = ((X.shape[2] // DEC) * NC - n) // NC + 1
+    need(np.array_equal(r["hist"].sum(axis=1), np.full(S, B * nv)),
+         "phase E1 histogram totals off")
+    err = check_triggers(
+        "E1", su["planted"],
+        lambda b, s: tds.ds_numpy(su["prepped"][b], Us[s], NC), r["maxds"],
+        r["trig_idx"], r["trig_val"], r["trig_count"], S)
+    best = min(times)
+    say("phase E1: s/request %s (best %.6f), planted DS err vs float64 "
+        "oracle %.2e" % ([round(t, 6) for t in times], best, err))
+    return dict(s_per_request=best, oracle_err=err)
+
+
+def phase_e2_setup(dev, B=8, seconds=3720.0, seed=42):
+    """E2: 14 detectors (1-3 basis dims) of 30 s at 100 Hz padded to the
+    ladders' 16 x 4 by build_bank(prefer_os=False, pad_S, min_dmax): the
+    full-length demuxed form by detex_tpu's budget rule (at 3720 s,
+    16*4*3*(2^19/2+1) complex spectra <= 2^26); B chunks with four
+    events."""
+    rng = np.random.default_rng(seed)
+    n = int(30 * SR * NC)
+    Lc = int(seconds * SR * NC)
+    Us = [basis(rng, 1 + s % 3, n) for s in range(14)]
+    bank = tds.build_bank(Us, NC, Lc, dev, prefer_os=False,
+                          pad_S=tds.pad_rows(14), min_dmax=tds.pad_dims(3))
+    need(tds.bank_kind(bank) == "demux"
+         and tuple(bank["sum_u"].shape) == (16, 4),
+         "phase E2 bank is not the full-length 16 x 4 form")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, Lc), generator=g, device=dev)
+    # (chunk, detector, channel-aligned offset, basis dim)
+    planted = [(0, 2, Lc // 24 // 3 * 3, 2), (3, 7, Lc // 6 // 3 * 3, 0),
+               (3, 13, Lc // 2 // 3 * 3, 0), (B - 1, 5, Lc // 10 * 3, 1)]
+    for b, s, off, d in planted:
+        X[b, off:off + n] += 3.0 * np.sqrt(n) * torch.as_tensor(
+            Us[s][d].astype(np.float32), device=dev)
+    return dict(X=X, bank=bank, Us=Us,
+                planted=[(b, s) for b, s, _, _ in planted])
+
+
+def phase_e2(dev, e2):
+    """E2: scan_chunks with triggers on (route "plain": ds_bank_demux with
+    ds_finalize, hist_uniform, the 512-block pyramid), then run_bank,
+    run_bank_rows and run_bank_batch over the same chunks."""
+    X, bank, Us = e2["X"], e2["bank"], e2["Us"]
+    B, Lc = X.shape
+    th = np.full(16, 0.5, np.float32)
+    say("phase E2: 16 x 4 full-length bank (nfft2 %d), B=%d chunks x %d"
+        % (bank["nfft2"], B, Lc))
+    out, times = timed_runs(lambda: tscan.scan_chunks(
+        X, bank, th, NC, int(20 * SR), max_trig=8))
+    hist, maxds, tidx, tval, tcnt = (t.cpu().numpy() for t in out)
+    nv = Lc // NC - bank["n_c"] + 1
+    need(np.array_equal(hist.sum(axis=1), np.full(16, B * nv)),
+         "phase E2 histogram totals off")
+    xs = [X[b].cpu().numpy() for b in range(B)]
+
+    def oracle(b, s):
+        return tds.ds_numpy(xs[b].astype(np.float64), Us[s], NC)
+
+    err = check_triggers("E2", e2["planted"], oracle, maxds, tidx, tval,
+                         tcnt, 14)
+    best = min(times)
+    rate = B * 3720.0 / 86400.0 / best
+    (b0, s0), (b1, s1) = e2["planted"][:2]
+    t0 = time.perf_counter()
+    full = tds.run_bank(xs[b0], bank, NC)
+    t_bank = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = tds.run_bank_rows(xs[b1], bank, NC, [s0, s1])
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = tds.run_bank_batch(xs, bank, NC)
+    t_batch = time.perf_counter() - t0
+    need(full.shape == (16, nv) and np.array_equal(full, batch[b0]),
+         "phase E2 run_bank differs from run_bank_batch")
+    for s in (s0, s1):
+        need(np.array_equal(rows[s], batch[b1][s]),
+             "phase E2 run_bank_rows row %d differs" % s)
+    for b, s in e2["planted"]:
+        e = float(np.abs(batch[b][s] - oracle(b, s)).max())
+        need(e <= 2e-5, "phase E2 run_bank_batch (%d, %d) err %g" % (b, s, e))
+        err = max(err, e)
+    say("phase E2: s/launch %s (best %.6f), station-days/s %.3f; run_bank "
+        "%.6f s, run_bank_rows (2 rows) %.6f s, run_bank_batch (%d chunks) "
+        "%.6f s (host clock); planted DS err vs float64 oracle %.2e"
+        % ([round(t, 6) for t in times], best, rate, t_bank, t_rows, B,
+           t_batch, err))
+    return dict(s_per_launch=best, station_days_per_s=rate, oracle_err=err)
+
+
+def phase_e3_setup(dev, B=8, seconds=3720.0, seed=43):
+    """E3: E2's bank shape at 50 Hz (16 x 4 of 30 s, n_c 1500, decimate 2,
+    prefer_os=False: full length), raw [B, 3, seconds * 100] chunks at
+    100 Hz, chunk 5 ragged (its last 19% zero); the three planted
+    detectors' templates cut from the oracle's prepped chunks."""
+    rng = np.random.default_rng(seed)
+    sr = RAW_SR / DEC
+    n = int(30 * sr * NC)
+    L_raw = int(seconds * RAW_SR)
+    nfftp = tds.required_fft_len(L_raw // DEC, n // NC)
+    H = tprep.butter_response(FILT, RAW_SR, DEC * nfftp, device=dev)
+    planted = [(1, 0, int(0.13 * L_raw)), (5, 6, int(0.67 * L_raw)),
+               (6, 11, int(0.89 * L_raw))]
+    X = raw_chunks(rng, B, L_raw, [(b, p) for b, _, p in planted])
+    lens = [L_raw] * B
+    lens[5] = int(0.81 * L_raw)
+    X[5, :, lens[5]:] = 0.0
+    Up, prepped = oracle_templates(X, lens, [(b, p) for b, _, p in planted],
+                                   H, nfftp, n)
+    Us = [basis(rng, 2 + s % 2, n) for s in range(14)]
+    for (_, s, _), u in zip(planted, Up):
+        Us[s] = u
+    bank = tds.build_bank(Us, NC, (L_raw // DEC) * NC, dev, prefer_os=False,
+                          pad_S=16, min_dmax=4)
+    need(tds.bank_kind(bank) == "demux" and bank["nfft2"] == nfftp,
+         "phase E3 bank is not the full-length form")
+    return dict(X=X, lens=lens, H=H, bank=bank, Us=Us, prepped=prepped,
+                planted=[(b, s) for b, s, _ in planted])
+
+
+def phase_e3(dev, e3):
+    """E3: scan_chunks_raw (route "raw-demux+devicePrep":
+    ds_bank_demux_raw with ds_finalize per chunk), then run_bank_raw on
+    the ragged planted chunk."""
+    X, lens, H, bank, Us = e3["X"], e3["lens"], e3["H"], e3["bank"], e3["Us"]
+    B = X.shape[0]
+    th = np.full(16, 0.5, np.float32)
+    sr = RAW_SR / DEC
+    say("phase E3: 16 x 4 full-length bank at %g Hz (nfft2 %d), raw B=%d x "
+        "%s, decimate %d, chunk 5 ragged at %d raw samples"
+        % (sr, bank["nfft2"], B, X.shape[1:], DEC, lens[5]))
+    out, times = timed_runs(lambda: tscan.scan_chunks_raw(
+        X, lens, H, bank, th, NC, int(20 * sr), max_trig=8, dec=DEC))
+    hist, maxds, tidx, tval, tcnt = (t.cpu().numpy() for t in out)
+    n_c = bank["n_c"]
+    need(np.array_equal(hist.sum(axis=1), np.full(16, sum(
+        v // DEC - n_c + 1 for v in lens))), "phase E3 histogram totals off")
+
+    def oracle(b, s):
+        return tds.ds_numpy(e3["prepped"][b][:lens[b] // DEC * NC], Us[s], NC)
+
+    err = check_triggers("E3", e3["planted"], oracle, maxds, tidx, tval,
+                         tcnt, 14)
+    best = min(times)
+    rate = B * 3720.0 / 86400.0 / best
+    b, s = e3["planted"][1]
+    t0 = time.perf_counter()
+    one = tprep.run_bank_raw(X[b, :, :lens[b]], bank, NC, H, DEC)
+    t_raw = time.perf_counter() - t0
+    e = float(np.abs(one[s] - oracle(b, s)).max())
+    need(e <= 2e-5, "phase E3 run_bank_raw err %g" % e)
+    say("phase E3: s/launch %s (best %.6f), station-days/s %.3f; run_bank_raw "
+        "(ragged chunk) %.6f s (host clock); planted DS err vs float64 "
+        "oracle %.2e" % ([round(t, 6) for t in times], best, rate, t_raw,
+                         max(err, e)))
+    return dict(s_per_launch=best, station_days_per_s=rate,
+                oracle_err=max(err, e))
+
+
+def phase_e4(dev, seed=44):
+    """E4, small, each on the card and on the CPU twins with the same
+    inputs: a multiplexed bank (template length 1681, not a multiple of 3)
+    through run_bank and scan_chunks (route "plain"), and the raw path at
+    decimate 2 with the complex (one-pass) filter response through
+    run_bank_raw and scan_chunks_raw on a full-length bank."""
+    rng = np.random.default_rng(seed)
+    L_c = 40000
+    Um = [basis(rng, 2, 1681) for _ in range(3)]
+    X = rng.standard_normal((3, NC * L_c)).astype(np.float32)
+    X[1, NC * 9000:NC * 9000 + 1681] += 3.0 * np.sqrt(1681) * Um[0][0]
+    Ur = [basis(rng, 2, NC * 500) for _ in range(3)]
+    L_raw = DEC * L_c
+    Xr = raw_chunks(rng, 2, L_raw, [(0, 30000)])
+    lens = [L_raw, L_raw - 7000]
+    Xr[1, :, lens[1]:] = 0.0
+    filt = FILT[:3] + [False]
+    outs = {}
+    for d in (dev, "cpu"):
+        mux = tds.build_bank(Um, NC, NC * L_c, d)
+        need(tds.bank_kind(mux) == "mux", "phase E4 bank is not multiplexed")
+        full = tds.build_bank(Ur, NC, NC * L_c, d, prefer_os=False)
+        H = tprep.butter_response(filt, RAW_SR, DEC * full["nfft2"], False,
+                                  device=d)
+        th = np.full(3, 0.6, np.float32)
+        outs[str(d)] = (
+            [tds.run_bank(X[1], mux, NC)]
+            + [t.cpu() for t in tscan.scan_chunks(X, mux, th, NC,
+                                                  int(20 * SR), max_trig=8)]
+            + [tprep.run_bank_raw(Xr[1, :, :lens[1]], full, NC, H, DEC)]
+            + [t.cpu() for t in tscan.scan_chunks_raw(
+                Xr, lens, H, full, np.full(3, 0.5, np.float32), NC,
+                int(20 * SR / DEC), max_trig=8, dec=DEC)])
+    g, c = outs[str(dev)], outs["cpu"]
+    errs = [float(np.abs(g[0] - c[0]).max()), float(np.abs(g[6] - c[6]).max())]
+    for i in (1, 7):                   # hist, maxds, idx, val, count
+        need(torch.equal(g[i].sum(1), c[i].sum(1)),
+             "phase E4 histogram totals differ from the CPU's")
+        moves = int((g[i] - c[i]).abs().sum().item())
+        need(moves <= max(int(c[i].sum().item()) // 200000, 2),
+             "phase E4 histogram moves %d" % moves)
+        errs.append((g[i + 1] - c[i + 1]).abs().max().item())
+        need(torch.equal(g[i + 2], c[i + 2]) and torch.equal(g[i + 4],
+                                                             c[i + 4]),
+             "phase E4 triggers differ from the CPU's")
+    need(max(errs) <= 2e-5, "phase E4 DS err vs CPU %g" % max(errs))
+    ds64 = tds.ds_numpy(X[1].astype(np.float64), Um[0], NC)
+    need(int(g[5][1, 0]) == 1 and int(g[3][1, 0, 0]) ==
+         int(np.nanargmax(ds64)), "phase E4 multiplexed planted trigger")
+    say("phase E4: multiplexed bank and the complex-H raw path at decimate "
+        "%d: max err vs CPU %.2e (run_bank, run_bank_raw, maxds)"
+        % (DEC, max(errs)))
+    return dict(err=max(errs))
+
+
+def phase_e_kernels(dev, e2):
+    """ds_finalize (B10) held against its twin on the inputs ds_bank_demux
+    gives it for one E2 chunk (S 16, D 4, L 369,001), outside the counted
+    runs, and timed."""
+    bank = e2["bank"]
+    parts = tds.demux_parts(e2["X"][e2["planted"][0][0]], bank["Ufd2"],
+                            bank["sum_u"], bank["d_mask"], bank["n_c"], NC,
+                            bank["nfft2"])
+    k = ck.ds_finalize(*parts)
+    r = ref.ds_finalize_ref(*parts)
+    torch.cuda.synchronize()
+    need(bool(torch.isfinite(k).all()), "ds_finalize not finite")
+    err = (k - r).abs().max().item()
+    need(err <= 1e-5, "ds_finalize err %g > 1e-5" % err)
+    S, D, L = parts[0].shape
+    res = dict(err=err, ms=cuda_ms(lambda: ck.ds_finalize(*parts)),
+               plain_ms=cuda_ms(lambda: ref.ds_finalize_ref(*parts)),
+               bound=bound((S * D * L + S * L + 2 * L + S * D) * 4,
+                           S * L * (3 * D + 1)))
+    say("  ds_finalize cc %s (E2): max_abs_err %.3g; kernel %.3f ms, twin "
+        "%.3f ms, library call -, bound %.3f ms (%s) (SM clock %s)"
+        % ((S, D, L), err, res["ms"], res["plain_ms"], res["bound"][0],
+           res["bound"][1], sm_clock()))
+    return {"ds_finalize": res}
+
+
 def anatomy(dev, pa):
     """Phase A's launch split into its parts at the full shape (B=256), by
     CUDA events, outside the counted main-path run: the torch glue
@@ -1107,11 +1493,37 @@ def main():
         ("D3", ("rfft_ct_half", "spec_ds_fold"), ("fused-sub",)),
         ("D4", ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_scan",
                 "ds_finalize_os_fold"), ("plain", "fold"))))
+    torch.cuda.empty_cache()
+
+    say("phase E: device prep, full-length and multiplexed banks; "
+        "ds_finalize vs twin at E2's shape")
+    tmp = tempfile.TemporaryDirectory()
+    e1 = phase_e1_setup(dev, tmp.name)
+    e2 = phase_e2_setup(dev)
+    e3 = phase_e3_setup(dev)
+    res_e = phase_e_kernels(dev, e2)
+    checks.append(res_e)
+    times.update(res_e)
+    torch.cuda.empty_cache()
+    counted("E1", phase_e1, e1)
+    del e1
+    counted("E2", phase_e2, dev, e2)
+    del e2
+    counted("E3", phase_e3, dev, e3)
+    del e3
+    counted("E4", phase_e4, dev)
+    tmp.cleanup()
+    check_phases((
+        ("E1", fused, ("fused-net+fusedprep+devicePrep",)),
+        ("E2", ("ds_finalize", "hist_uniform"), ("plain",)),
+        ("E3", ("ds_finalize", "hist_uniform"), ("raw-demux+devicePrep",)),
+        ("E4", ("ds_finalize",), ("plain", "raw-demux+devicePrep"))))
 
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
-    # kernels), at phase C's re-verify shape (dense kernels) and at phase
-    # D's shapes (per-chunk kernels and rfft_ct_half)
+    # kernels), at phase C's re-verify shape (dense kernels), at phase D's
+    # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
+    # (ds_finalize)
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]

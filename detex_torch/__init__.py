@@ -1,17 +1,20 @@
 """
-detex_torch: PyTorch + CUDA port of detex_tpu's overlap-save detection scan
-and of the dense re-verify of triggered chunks.
+detex_torch: PyTorch + CUDA port of detex_tpu's detection scans (every bank
+form, the device preprocessing of raw chunks, serving) and of the dense
+re-verify of triggered chunks.
 
 The package mirrors detex_tpu's layout (``ops/ds.py``, ``ops/dft.py``,
-``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
+``ops/prep.py``, ``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
 ``parallel/scan.py``, ``serving.py``) so every ported function has an
-obvious namesake there. The kernels of both paths are hand-written CUDA
-C++ for Hopper (``kernels/``); each has a plain PyTorch twin
-(``ops/reference.py``) that runs when the caller hands CPU tensors.
+obvious namesake there. Every Pallas kernel of detex_tpu has a
+hand-written CUDA C++ counterpart for Hopper (``kernels/``) with a plain
+PyTorch twin (``ops/reference.py``) that runs when the caller hands CPU
+tensors.
 
 It imports torch, numpy and scipy only: never jax, detex_tpu or pandas.
-Every tensor is made on an explicit ``device``; there is no global default
-device and no randomness inside the package.
+Banks are built on the card (``device="cuda"``) unless the caller passes
+another device, as the CPU tests pass "cpu"; every other tensor follows the
+bank's device. There is no randomness inside the package.
 """
 from __future__ import annotations
 

@@ -22,12 +22,13 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("fwd_prep_fold.cu", "spec_ds_fold.cu", "rfft_ct.cu",
            "irfft_ct.cu", "ds_finalize_os_fold.cu", "rfft_ct_half.cu",
-           "ds_finalize_os_scan.cu", "ds_finalize_os.cu", "hist_uniform.cu")
+           "ds_finalize_os_scan.cu", "ds_finalize_os.cu", "hist_uniform.cu",
+           "ds_finalize.cu")
 HEADERS = ("fft.cuh", "fwd_prep_fold.cuh", "spec_ds_fold.cuh", "rfft_ct.cuh",
            "irfft_ct.cuh", "finalize_os.cuh", "ds_finalize_os_fold.cuh",
            "rfft_ct_half.cuh",
            "ds_finalize_os_scan.cuh", "ds_finalize_os.cuh",
-           "hist_uniform.cuh")
+           "hist_uniform.cuh", "ds_finalize.cuh")
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the CUDA toolkit's default install location, searched after $CUDA_HOME
@@ -60,6 +61,8 @@ _ARGTYPES = {
     "detex_ds_finalize_os": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
     # ds, hist, S, L, nbin, stream
     "detex_hist_uniform": [_P] * 2 + [_LL, _LL, _I, _P],
+    # cc, a, pw, su, ds, S, D, L, stream
+    "detex_ds_finalize": [_P] * 5 + [_LL, _I, _LL, _P],
 }
 
 _LIBS = {}

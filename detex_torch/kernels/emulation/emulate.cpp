@@ -17,6 +17,7 @@ namespace detex {
 alignas(16) unsigned char smem[232448];  // the H100 per-block maximum
 }
 
+#include "ds_finalize.cuh"
 #include "ds_finalize_os.cuh"
 #include "ds_finalize_os_fold.cuh"
 #include "ds_finalize_os_scan.cuh"
@@ -182,6 +183,16 @@ extern "C" int emu_rfft_ct_half(const float* x, const float* tw, float* fr,
     } else {
       detex::rfft_ct_half_kernel<14>(x, tw2, fr, fi, Rp);
     }
+  });
+  return 0;
+}
+
+extern "C" int emu_ds_finalize(const float* cc, const float* a,
+                               const float* pw, const float* su, float* ds,
+                               long long S, int D, long long L) {
+  const int tiles = (int)((L + detex::kDsFinTile - 1) / detex::kDsFinTile);
+  run_grid(S * tiles, detex::kDsFinThreads, [=] {
+    detex::ds_finalize_kernel(cc, a, pw, su, ds, D, L, tiles);
   });
   return 0;
 }

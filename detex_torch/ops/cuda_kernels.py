@@ -20,6 +20,7 @@ Kernels, the TPU kernel each replaces, and sources:
   ds_finalize_os_scan  pallas_kernels.py:438   kernels/ds_finalize_os_scan.cu
   ds_finalize_os       pallas_kernels.py:701   kernels/ds_finalize_os.cu
   hist_uniform         pallas_kernels.py:199   kernels/hist_uniform.cu
+  ds_finalize          pallas_kernels.py:104   kernels/ds_finalize.cu
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from detex_torch.ops import reference as _ref
 LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
             "rfft_ct_fused": 0, "irfft_ct_fused": 0, "rfft_ct_half": 0,
             "ds_finalize_os_scan": 0, "ds_finalize_os": 0,
-            "hist_uniform": 0}
+            "hist_uniform": 0, "ds_finalize": 0}
 
 
 def reset_launches():
@@ -376,3 +377,32 @@ def hist_uniform(ds, nbin):
     _build.check(lib, rc, "hist_uniform")
     LAUNCHES["hist_uniform"] += 1
     return hist
+
+
+def ds_finalize(cc, a, power, sum_u):
+    """Full-length DS finalize: ds [S, L] = sum_d (cc - sum_u * a)^2 /
+    power from cc [S, D, L], a, power [L] (power made safe by the caller:
+    inf where 0) and sum_u [S, D] (0 on masked slots). Semantics:
+    reference.ds_finalize_ref."""
+    if not _on_cuda(cc, a, power, sum_u):
+        return _ref.ds_finalize_ref(cc, a, power, sum_u)
+    _require(cc.dim() == 3, "cc must be [S, D, L], got %s"
+             % (tuple(cc.shape),))
+    S, D, L = cc.shape
+    _require(tuple(a.shape) == (L,) and power.shape == a.shape,
+             "a / power must be [%d]" % L)
+    _require(tuple(sum_u.shape) == (S, D), "sum_u must be [%d, %d]" % (S, D))
+    for t in (cc, a, power, sum_u):
+        _require(t.dtype == torch.float32 and t.is_contiguous(),
+                 "cc, stats and sum_u must be contiguous float32")
+    ds = torch.empty((S, L), dtype=torch.float32, device=cc.device)
+    if S * L == 0:
+        return ds
+    lib = _build.load_library()
+    with torch.cuda.device(cc.device):
+        rc = lib.detex_ds_finalize(_ptr(cc), _ptr(a), _ptr(power),
+                                   _ptr(sum_u), _ptr(ds), S, D, L,
+                                   _stream(cc.device))
+    _build.check(lib, rc, "ds_finalize")
+    LAUNCHES["ds_finalize"] += 1
+    return ds

@@ -15,7 +15,9 @@ os_prep_batch, os_block_scan_batch, _os_block), ``rfft_pair`` the forward
 transform of the fused scan's unfused prep (ds.os_prep_batch_pair). Blocks
 of 16384 and 32768 samples go to the kernels; any other block length to
 ``torch.fft`` (where detex_tpu runs its XLA matrix DFT, not a Pallas
-kernel).
+kernel). ``irfft_full`` is the inverse of the full-length banks and of the
+device prep (ops/ds.py, ops/prep.py), always ``torch.fft``, as detex_tpu
+uses ``jnp.fft`` there.
 """
 from __future__ import annotations
 
@@ -117,3 +119,18 @@ def rfft_pair(x, n, rp):
     f = torch.fft.rfft(x, n=n, dim=-1)
     pad = rp - f.shape[-1]
     return F.pad(f.real, (0, pad)), F.pad(f.imag, (0, pad))
+
+
+def irfft_full(spec, n):
+    """torch.fft.irfft(spec, n, dim=-1) with the imaginary parts of bin 0
+    and, when spec has n//2 + 1 bins, bin n/2 taken as 0, as numpy's and
+    XLA's irfft take them. A truncated or filtered spectrum has them (the
+    last bin kept after spectral decimation is not the Nyquist bin of the
+    transform it came from); cuFFT's C2R does not promise to ignore them, so
+    they are zeroed here on every device. Zeroes them in place: ``spec``
+    must be a temporary the caller owns."""
+    v = torch.view_as_real(spec)
+    v[..., 0, 1] = 0.0
+    if n % 2 == 0 and spec.shape[-1] == n // 2 + 1:
+        v[..., n // 2, 1] = 0.0
+    return torch.fft.irfft(spec, n=n, dim=-1)

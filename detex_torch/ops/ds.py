@@ -1,8 +1,7 @@
 """
-The subspace detection statistic (DS) over overlap-save banks.
+The subspace detection statistic (DS) over every bank form.
 
-Namesake of detex_tpu/ops/ds.py, ported as far as the fused overlap-save
-scan and the dense re-verify need it. Reference semantics (Detex _MPXDS
+Namesake of detex_tpu/ops/ds.py. Reference semantics (Detex _MPXDS
 detect.py:559-578): for a multiplexed chunk x and a basis U [D, n],
 
     a     = rolling_mean(x, n)
@@ -10,17 +9,24 @@ detect.py:559-578): for a multiplexed chunk x and a basis U [D, n],
     y_d   = correlate(x, U_d) - sum(U_d) * a
     DS    = sum_d y_d^2 / power, taken at every nc-th window start
 
-evaluated per channel on the demultiplexed chunk (polyphase form) and by
-overlap-save: the chunk's channels are cut into blocks of ``blk_fft``
-samples at stride W, transformed once, multiplied by the template spectra
-and inverted, dropping each block's circularly contaminated head D0.
+A bank is a dict of tensors with detex_tpu's keys (sum_u, d_mask and the
+int statics n, Dmax, nc, pad_len) in one of three forms (bank_kind):
 
-A bank is a dict of tensors with detex_tpu's keys (Ufd2, sum_u, d_mask and
-the int statics n, n_c, Dmax, nc, blk_fft, pad_len). Only the overlap-save
-form is ported; the full-length and multiplexed forms raise
-NotImplementedError (ROADMAP A9).
+  "os"     overlap-save demuxed (Ufd2 at blk_fft, n_c, os=True): the
+           chunk's channels are cut into blocks of blk_fft samples at
+           stride W, transformed once, multiplied by the template spectra
+           and inverted, dropping each block's circularly contaminated head
+           D0;
+  "demux"  full-length demuxed (Ufd2 at the chunk's FFT length nfft2,
+           n_c): one rfft per channel, the channel-summed cross-spectra,
+           one irfft per (template, basis row) and the ds_finalize kernel
+           (ds_bank_demux);
+  "mux"    multiplexed (Ufd at nfft), for a template length that is not a
+           multiple of nc: the statistic over the interleaved stream in
+           torch, no kernel (ds_bank).
 
-Three ways run a bank over chunks:
+build_bank picks the form by detex_tpu's rule. Three ways run an
+overlap-save bank over chunks:
 
   the fused scan     os_prep_batch_fused (kernel fwd_prep_fold) or
                      os_prep_batch_pair (rfft_ct_half) + os_scan_batch_fused
@@ -36,8 +42,9 @@ Three ways run a bank over chunks:
                      "plain" route, run_bank, run_bank_rows and the dense
                      re-verify beyond its caps.
 
-Blocks of 16384 and 32768 samples transform in the kernels, other blocks
-with torch.fft (ops/dft.py).
+Full-length and multiplexed banks always go one chunk at a time, on every
+entry point. Blocks of 16384 and 32768 samples transform in the kernels,
+other blocks and every full-length transform with torch.fft (ops/dft.py).
 """
 from __future__ import annotations
 
@@ -55,6 +62,11 @@ from detex_torch.ops.rolling import window_stats_rows
 # Above them the scan and the dense re-verify go one chunk at a time.
 FUSED_DS_BYTES = 6 << 30
 FOLD_CB_BYTES = 2 << 30
+
+# full-length spectra above this many complex elements (S * Dmax * nc *
+# (nfft2//2 + 1)) switch a bank to the overlap-save form (detex_tpu's
+# OS_SPECTRA_BUDGET)
+OS_SPECTRA_BUDGET = 1 << 26
 
 # The fused kernels need a block with the 128-row split (n1 == 128); 16384
 # is the smallest. A shorter natural block always snaps up to it when the
@@ -107,21 +119,56 @@ def pad_dims(D):
     return 1 << max(int(D - 1).bit_length(), 0)
 
 
-def make_bank_demux_os(U_list, nc, blk_fft, device):
-    """Pack [D_i, n] multiplexed bases into an overlap-save demuxed bank on
-    ``device``: Ufd2 [S, Dmax, nc, blk_fft//2+1] complex64 (rfft of the
-    reversed per-channel templates, computed in float64 on the host),
-    sum_u [S, Dmax] float32, d_mask [S, Dmax] bool."""
+def required_fft_len(data_len_samps, n):
+    """The reference's FFT length 2^bit_length(data_len + n) (detect.py
+    368-371, fas.py:147-148)."""
+    return 2 ** int(int(data_len_samps) + int(n)).bit_length()
+
+
+def prep_basis_fd(U, nfft):
+    """rfft of the reversed basis vectors U [..., n] at length nfft, in
+    float64 on the host (reference _loadMPSubSpace detect.py:371): numpy
+    complex128 [..., nfft//2 + 1]."""
+    U = np.asarray(U, np.float64)
+    return np.fft.rfft(U[..., ::-1], int(nfft), axis=-1)
+
+
+def _bank_tensors(spec, sum_u, mask, device):
+    return (torch.as_tensor(spec.astype(np.complex64), device=device),
+            torch.as_tensor(sum_u.astype(np.float32), device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def make_bank(U_list, nfft, device="cuda", min_dmax=0):
+    """Pack [D_i, n] multiplexed bases (equal n) into a multiplexed bank on
+    ``device``: Ufd [S, Dmax, nfft//2+1] complex64, sum_u [S, Dmax] float32,
+    d_mask [S, Dmax] bool, n, Dmax. ``min_dmax`` pads the basis slots with
+    masked zero slots."""
+    n = U_list[0].shape[1]
+    if any(u.shape[1] != n for u in U_list):
+        raise ValueError("bank templates differ in length")
+    S = len(U_list)
+    Dmax = max(max(u.shape[0] for u in U_list), int(min_dmax))
+    U = np.zeros((S, Dmax, n), dtype=np.float64)
+    mask = np.zeros((S, Dmax), dtype=bool)
+    for i, u in enumerate(U_list):
+        U[i, :u.shape[0]] = u
+        mask[i, :u.shape[0]] = True
+    Ufd, sum_u, d_mask = _bank_tensors(prep_basis_fd(U, nfft), U.sum(axis=-1),
+                                       mask, device)
+    return dict(Ufd=Ufd, sum_u=sum_u, d_mask=d_mask, n=int(n), Dmax=int(Dmax))
+
+
+def _demux_basis(U_list, nc, min_dmax):
+    """The demultiplexed templates Ud [S, Dmax, nc, n_c] (float64), the
+    mask and the basis sums of [D_i, n] multiplexed bases."""
     n = U_list[0].shape[1]
     if n % nc:
         raise ValueError("template length %d is not a multiple of nc=%d"
                          % (n, nc))
     n_c = n // nc
-    if blk_fft < os_min_block(n_c):
-        raise ValueError("block FFT too small: need >= aligned head + 128 "
-                         "(os_min_block(n_c) = %d)" % os_min_block(n_c))
     S = len(U_list)
-    Dmax = max(u.shape[0] for u in U_list)
+    Dmax = max(max(u.shape[0] for u in U_list), int(min_dmax))
     Ud = np.zeros((S, Dmax, nc, n_c), dtype=np.float64)
     mask = np.zeros((S, Dmax), dtype=bool)
     sum_u = np.zeros((S, Dmax), dtype=np.float64)
@@ -131,68 +178,125 @@ def make_bank_demux_os(U_list, nc, blk_fft, device):
             Ud[i, d] = u[d].reshape(n_c, nc).T
         mask[i, :u.shape[0]] = True
         sum_u[i, :u.shape[0]] = u.sum(axis=-1)
-    Ufd2 = np.fft.rfft(Ud[..., ::-1], int(blk_fft), axis=-1)
-    return dict(
-        Ufd2=torch.as_tensor(Ufd2.astype(np.complex64), device=device),
-        sum_u=torch.as_tensor(sum_u.astype(np.float32), device=device),
-        d_mask=torch.as_tensor(mask, device=device),
-        n=int(n), n_c=int(n_c), Dmax=int(Dmax), nc=int(nc),
-        blk_fft=int(blk_fft), demux=True, os=True)
+    return Ud, mask, sum_u, dict(n=int(n), n_c=int(n_c), Dmax=int(Dmax),
+                                 nc=int(nc))
 
 
-def build_bank(U_list, nc, data_len_samps, device, block_fft=None):
-    """Pack basis arrays into an overlap-save bank for chunks of
-    ``data_len_samps`` multiplexed samples (detex_tpu ds.build_bank with
-    prefer_os=True). Records ``pad_len``, the fixed chunk length.
+def make_bank_demux(U_list, nc, nfft2, device="cuda", min_dmax=0):
+    """Pack [D_i, n] multiplexed bases into a full-length demuxed bank on
+    ``device``: Ufd2 [S, Dmax, nc, nfft2//2+1] complex64 (rfft of the
+    reversed per-channel templates at the chunk's full FFT length, computed
+    in float64 on the host), sum_u [S, Dmax] float32, d_mask [S, Dmax]
+    bool."""
+    Ud, mask, sum_u, st = _demux_basis(U_list, nc, min_dmax)
+    Ufd2, su, dm = _bank_tensors(prep_basis_fd(Ud, nfft2), sum_u, mask,
+                                 device)
+    return dict(Ufd2=Ufd2, sum_u=su, d_mask=dm, **st, nfft2=int(nfft2),
+                demux=True)
 
-    The block is ``block_fft`` when given, else 2^bit_length(4*n_c) raised
-    to os_min_block and snapped up to FUSED_BLOCK (when the chunk's
-    full-length FFT is at least that long). What detex_tpu serves with a
-    full-length or multiplexed bank (``block_fft=0``, template length not a
-    multiple of nc, chunks shorter than one block) raises
-    NotImplementedError (ROADMAP A9)."""
+
+def make_bank_demux_os(U_list, nc, blk_fft, device="cuda", min_dmax=0):
+    """Pack [D_i, n] multiplexed bases into an overlap-save demuxed bank on
+    ``device``: Ufd2 [S, Dmax, nc, blk_fft//2+1] complex64 (rfft of the
+    reversed per-channel templates, computed in float64 on the host),
+    sum_u [S, Dmax] float32, d_mask [S, Dmax] bool."""
+    Ud, mask, sum_u, st = _demux_basis(U_list, nc, min_dmax)
+    if blk_fft < os_min_block(st["n_c"]):
+        raise ValueError("block FFT too small: need >= aligned head + 128 "
+                         "(os_min_block(n_c) = %d)" % os_min_block(st["n_c"]))
+    Ufd2, su, dm = _bank_tensors(prep_basis_fd(Ud, blk_fft), sum_u, mask,
+                                 device)
+    return dict(Ufd2=Ufd2, sum_u=su, d_mask=dm, **st, blk_fft=int(blk_fft),
+                demux=True, os=True)
+
+
+def build_bank(U_list, nc, data_len_samps, device="cuda", block_fft=None,
+               prefer_os=True, pad_S=None, min_dmax=0):
+    """Pack basis arrays into a bank on ``device`` for chunks of
+    ``data_len_samps`` multiplexed samples, by detex_tpu's rule
+    (ds.build_bank): a template length that is not a multiple of nc gives
+    the multiplexed form (make_bank); otherwise the overlap-save form when
+    ``block_fft`` is given (block_fft=0 forces the full-length form), when
+    ``prefer_os`` or when the full-length spectra would exceed
+    OS_SPECTRA_BUDGET complex elements, and the full-length demuxed form
+    (make_bank_demux) else or when the chunk is too short for one
+    overlap-save block. Records ``pad_len``, the fixed chunk length.
+
+    ``prefer_os`` defaults to True, what detex_tpu's engine and serving pass
+    on its accelerator (detex_tpu's own default is False, ROADMAP C22). The
+    overlap-save block is ``block_fft`` when given, else 2^bit_length(4*n_c)
+    raised to os_min_block and snapped up to FUSED_BLOCK when the chunk's
+    full-length FFT is at least that long (ROADMAP C1). ``pad_S`` pads the
+    detector rows with all-zero templates (DS identically 0), ``min_dmax``
+    the basis slots with masked zero slots (pad_rows, pad_dims)."""
     n = U_list[0].shape[1]
+    if pad_S is not None and int(pad_S) > len(U_list):
+        U_list = list(U_list) + [np.zeros((1, n), np.float64)] * (
+            int(pad_S) - len(U_list))
     pad_len = int(data_len_samps)
     pad_len += (-pad_len) % nc
     if n % nc:
-        raise NotImplementedError(
-            "multiplexed bank (template length %d not a multiple of nc=%d) "
-            "is not ported yet: ROADMAP A9" % (n, nc))
-    if block_fft == 0:
-        raise NotImplementedError(
-            "full-length demuxed bank is not ported yet: ROADMAP A9")
+        nfft = required_fft_len(pad_len, n)
+        bank = make_bank(U_list, nfft, device, min_dmax)
+        bank.update(nfft=nfft, demux=False, nc=int(nc))
+        bank["pad_len"] = pad_len
+        return bank
     n_c = n // nc
-    L_c = pad_len // nc
-    nfft2 = 2 ** int(L_c + n_c).bit_length()
-    blk = int(block_fft) if block_fft else 2 ** int(4 * n_c).bit_length()
-    while blk < os_min_block(n_c):
-        blk *= 2
-    if not block_fft and blk < FUSED_BLOCK and nfft2 >= FUSED_BLOCK:
-        blk = FUSED_BLOCK
-    blk = min(blk, nfft2)
-    if blk < os_min_block(n_c):
-        raise NotImplementedError(
-            "chunk too short for overlap-save blocks; the full-length bank "
-            "is not ported yet: ROADMAP A9")
-    bank = make_bank_demux_os(U_list, nc, blk, device)
+    nfft2 = required_fft_len(pad_len // nc, n_c)
+    Dmax = max(max(u.shape[0] for u in U_list), int(min_dmax))
+    full_elems = len(U_list) * Dmax * nc * (nfft2 // 2 + 1)
+    use_os = (block_fft if block_fft is not None
+              else (prefer_os or full_elems > OS_SPECTRA_BUDGET))
+    blk = 0
+    if use_os:
+        blk = int(block_fft) if block_fft else 2 ** int(4 * n_c).bit_length()
+        while blk < os_min_block(n_c):
+            blk *= 2
+        if not block_fft and blk < FUSED_BLOCK and nfft2 >= FUSED_BLOCK:
+            blk = FUSED_BLOCK
+        blk = min(blk, nfft2)
+        if blk < os_min_block(n_c):         # chunk too short for OS blocks
+            blk = 0
+    if blk:
+        bank = make_bank_demux_os(U_list, nc, blk, device, min_dmax)
+    else:
+        bank = make_bank_demux(U_list, nc, nfft2, device, min_dmax)
     bank["pad_len"] = pad_len
     return bank
 
 
-def bank_from_numpy(d, device):
-    """The port's bank from a detex_tpu overlap-save bank's arrays given as
-    numpy (Ufd2, sum_u, d_mask) plus its int statics, so both packages
-    compute with identical template spectra."""
-    if not d.get("os"):
-        raise NotImplementedError(
-            "only overlap-save banks are ported: ROADMAP A9")
-    out = dict(
-        Ufd2=torch.tensor(np.asarray(d["Ufd2"]).astype(np.complex64),
-                          device=device),
-        sum_u=torch.tensor(np.asarray(d["sum_u"], np.float32), device=device),
-        d_mask=torch.tensor(np.asarray(d["d_mask"], bool), device=device),
-        demux=True, os=True)
-    for k in ("n", "n_c", "Dmax", "nc", "blk_fft", "pad_len"):
+def bank_kind(bank):
+    """"os" (overlap-save demuxed), "demux" (full-length demuxed) or "mux"
+    (multiplexed); raises ValueError for a dict that is none of them."""
+    if bank.get("os") and "blk_fft" in bank:
+        return "os"
+    if bank.get("demux") and "nfft2" in bank:
+        return "demux"
+    if not bank.get("demux") and "Ufd" in bank and "nfft" in bank:
+        return "mux"
+    raise ValueError("not an overlap-save, full-length demuxed or "
+                     "multiplexed bank: keys %s" % sorted(bank))
+
+
+def bank_from_numpy(d, device="cuda"):
+    """The port's bank from a detex_tpu bank's arrays given as numpy (Ufd2,
+    or Ufd for the multiplexed form, sum_u, d_mask) plus its int statics
+    (blk_fft, nfft2 or nfft among them), so both packages compute with
+    identical template spectra. Every bank form is carried; the statics
+    present are copied (a dict of arrays alone gives arrays to update a
+    bank with)."""
+    key = "Ufd2" if "Ufd2" in d else "Ufd"
+    out = {key: torch.tensor(np.asarray(d[key]).astype(np.complex64),
+                             device=device),
+           "sum_u": torch.tensor(np.asarray(d["sum_u"], np.float32),
+                                 device=device),
+           "d_mask": torch.tensor(np.asarray(d["d_mask"], bool),
+                                  device=device),
+           "demux": key == "Ufd2"}
+    if d.get("os"):
+        out["os"] = True
+    for k in ("n", "n_c", "Dmax", "nc", "blk_fft", "nfft2", "nfft",
+              "pad_len"):
         if k in d:
             out[k] = int(d[k])
     return out
@@ -221,6 +325,89 @@ def bank_spec_pair(bank):
 
         bank["_spec_pair"] = (part(Ufd2.real), part(Ufd2.imag))
     return bank["_spec_pair"]
+
+
+def _safe_power(power):
+    return torch.where(power == 0, torch.full_like(power, float("inf")),
+                       power)
+
+
+def _standardize(x):
+    """(x - mean) / population std of one chunk x [Lc], sd 0 -> 1
+    (detex_tpu ds.py:104-106, 200-202; ROADMAP C10)."""
+    sd, mu = torch.std_mean(x, correction=0)
+    return (x - mu) / torch.where(sd == 0, torch.ones_like(sd), sd)
+
+
+def channel_sum(Ufd2, F):
+    """sum_c Ufd2[..., c, :] * F[c, :]: the channel-summed cross-spectra
+    [S, Dmax, R] of a demuxed bank Ufd2 [S, Dmax, nc, R] and a chunk's
+    channel spectra F [nc, R] (detex_tpu's einsum "sdcr,cr->sdr"). A plain
+    complex multiply-add, never a matrix product, so no TF32 setting of
+    torch.backends reaches it (ROADMAP C5)."""
+    out = Ufd2[:, :, 0] * F[0]
+    for c in range(1, F.shape[0]):
+        out += Ufd2[:, :, c] * F[c]
+    return out
+
+
+def ds_bank(x, Ufd, sum_u, d_mask, n, nc, nfft):
+    """DS of one multiplexed chunk x [Lc] against a multiplexed bank
+    (detex_tpu ds.ds_bank): [S, ceil((Lc - n + 1) / nc)], the statistic at
+    every nc-th window start. No kernel, as in detex_tpu: the chunk's
+    standardization, window stats, one rfft and one irfft per (template,
+    basis row), then the finalize in torch. The window stats are
+    rolling.window_stats_rows' (float64 sums and the exact zero-power rule,
+    ROADMAP C23), not detex_tpu's float32 rolling means."""
+    Lc = x.shape[0]
+    xs = _standardize(x)
+    a, power = window_stats_rows(xs[None, None], n, n)
+    a, power = a[0, ::nc], power[0, ::nc]
+    cc = _dft.irfft_full(Ufd * torch.fft.rfft(xs, nfft), nfft)
+    y = cc[:, :, n - 1:Lc:nc] - sum_u[:, :, None] * a
+    y = torch.where(d_mask[:, :, None], y, torch.zeros_like(y))
+    return (y * y).sum(dim=1) / _safe_power(power)
+
+
+def ds_bank_chunks(X, Ufd, sum_u, d_mask, n, nc, nfft):
+    """ds_bank over a chunk batch X [B, Lc], one chunk at a time:
+    [B, S, out_len]."""
+    return torch.stack([ds_bank(x, Ufd, sum_u, d_mask, n, nc, nfft)
+                        for x in X])
+
+
+def demux_parts(x, Ufd2, sum_u, d_mask, n_c, nc, nfft2):
+    """ds_bank_demux up to its finalize, for one multiplexed chunk x [Lc]:
+    (cc [S, Dmax, L_c - n_c + 1], a, power [L_c - n_c + 1] with power 0 ->
+    inf, su [S, Dmax] with masked slots 0), the inputs of
+    cuda_kernels.ds_finalize. Population standardization of the whole
+    chunk (ROADMAP C10), window stats by rolling.window_stats_rows, the
+    channel rffts at nfft2, channel_sum and one irfft per (template, basis
+    row)."""
+    L_c = x.shape[0] // nc
+    xc = _standardize(x)[:L_c * nc].reshape(L_c, nc).T      # [nc, L_c]
+    a, power = window_stats_rows(xc[None], n_c, n_c * nc)
+    spec = channel_sum(Ufd2, torch.fft.rfft(xc, nfft2, dim=-1))
+    cc = _dft.irfft_full(spec, nfft2)[:, :, n_c - 1:L_c].contiguous()
+    del spec
+    su = torch.where(d_mask, sum_u, torch.zeros_like(sum_u)).contiguous()
+    return cc, a[0].contiguous(), _safe_power(power[0]).contiguous(), su
+
+
+def ds_bank_demux(x, Ufd2, sum_u, d_mask, n_c, nc, nfft2):
+    """DS of one multiplexed chunk x [Lc] (Lc a multiple of nc) against a
+    full-length demuxed bank (detex_tpu ds.ds_bank_demux):
+    [S, Lc//nc - n_c + 1]. demux_parts, then one ds_finalize launch on
+    the card."""
+    return _ck.ds_finalize(*demux_parts(x, Ufd2, sum_u, d_mask, n_c, nc,
+                                        nfft2))
+
+
+def ds_bank_demux_chunks(X, Ufd2, sum_u, d_mask, n_c, nc, nfft2):
+    """ds_bank_demux over a chunk batch X [B, Lc], one chunk at a time
+    (detex_tpu's lax.map, _ds_map_demux): [B, S, out_len]."""
+    return torch.stack([ds_bank_demux(x, Ufd2, sum_u, d_mask, n_c, nc,
+                                      nfft2) for x in X])
 
 
 def _fused_geometry_ok(n_c, blk_fft):
@@ -307,7 +494,7 @@ def _pad_stats(a, power, out_len, width):
     """Window stats [..., out_len] padded to ``width`` (a = 0, power = 1
     past out_len) with power made safe (0 -> inf): the finalize's input."""
     pad_w = width - out_len
-    pp = torch.where(power == 0, torch.full_like(power, float("inf")), power)
+    pp = _safe_power(power)
     return (torch.nn.functional.pad(a, (0, pad_w)).contiguous(),
             torch.nn.functional.pad(pp, (0, pad_w), value=1.0).contiguous())
 
@@ -470,38 +657,47 @@ def _run_bank_batch_fold(X, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
     return ds
 
 
-def _require_os(bank):
-    if not bank.get("os"):
-        raise NotImplementedError(
-            "only overlap-save banks are ported: ROADMAP A9")
+def _ds_of_bank(x, bank, nc):
+    """DS [S, out_len] of one chunk x [Lc] on the bank's device, by the
+    bank's form: ds_bank_demux_os, ds_bank_demux or ds_bank."""
+    kind = bank_kind(bank)
+    arrs = (bank["sum_u"], bank["d_mask"])
+    if kind == "os":
+        return ds_bank_demux_os(x, bank["Ufd2"], *arrs, bank["n_c"], int(nc),
+                                bank["blk_fft"])
+    if kind == "demux":
+        return ds_bank_demux(x, bank["Ufd2"], *arrs, bank["n_c"], int(nc),
+                             bank["nfft2"])
+    return ds_bank(x, bank["Ufd"], *arrs, bank["n"], int(nc), bank["nfft"])
 
 
 def _bank_batch_program(Xd, lens, bank, nc):
     """Run the bank over a device-resident chunk batch Xd [B, pad_len]
     with valid lengths ``lens`` (multiplexed samples). Returns (ds on the
-    bank's device, lens): [B, S, m*W] with -inf past each valid length from
-    the unfused batch, or, beyond fold_scan_supported or the inverse-block
-    cap, [B, S, out_len] unmasked from a loop of ds_bank_demux_os over the
-    chunks (detex_tpu's _ds_map_demux_os). Callers read each row up to its
-    valid length."""
-    _require_os(bank)
-    n_c, blk = bank["n_c"], bank["blk_fft"]
+    bank's device, lens). An overlap-save bank gives [B, S, m*W] with -inf
+    past each valid length from the unfused batch, or, beyond
+    fold_scan_supported or the inverse-block cap, [B, S, out_len] unmasked
+    from a loop of ds_bank_demux_os over the chunks (detex_tpu's
+    _ds_map_demux_os); full-length and multiplexed banks give [B, S,
+    out_len] unmasked from a loop of ds_bank_demux or ds_bank (its
+    _ds_map_demux, _ds_map_mux). Callers read each row up to its valid
+    length."""
     pad_len = bank["pad_len"]
     if tuple(Xd.shape) != (len(lens), pad_len):
         raise ValueError("chunk batch %s does not match %d lengths x "
                          "pad_len %d" % (tuple(Xd.shape), len(lens), pad_len))
-    Dmax = int(bank["Dmax"])
-    S = int(bank["sum_u"].shape[0])
-    _, _, _, _, m = _os_geometry(pad_len // int(nc), n_c, blk)
-    arrs = (bank["Ufd2"], bank["sum_u"], bank["d_mask"])
-    if (fold_scan_supported(n_c, blk)
-            and len(lens) * S * Dmax * m * blk * 4 <= FOLD_CB_BYTES):
-        nv = [max(_n_valid(L, bank, nc), 0) for L in lens]
-        out = _run_bank_batch_fold(Xd, nv, *arrs, n_c, int(nc), blk)
-    else:
-        out = torch.stack([ds_bank_demux_os(x, *arrs, n_c, int(nc), blk)
-                           for x in Xd])
-    return out, list(lens)
+    if bank_kind(bank) == "os":
+        n_c, blk = bank["n_c"], bank["blk_fft"]
+        Dmax = int(bank["Dmax"])
+        S = int(bank["sum_u"].shape[0])
+        _, _, _, _, m = _os_geometry(pad_len // int(nc), n_c, blk)
+        if (fold_scan_supported(n_c, blk)
+                and len(lens) * S * Dmax * m * blk * 4 <= FOLD_CB_BYTES):
+            nv = [max(_n_valid(L, bank, nc), 0) for L in lens]
+            return _run_bank_batch_fold(
+                Xd, nv, bank["Ufd2"], bank["sum_u"], bank["d_mask"], n_c,
+                int(nc), blk), list(lens)
+    return torch.stack([_ds_of_bank(x, bank, nc) for x in Xd]), list(lens)
 
 
 def _pad_chunk(x_np, bank, nc, pad_len=None):
@@ -519,13 +715,12 @@ def _pad_chunk(x_np, bank, nc, pad_len=None):
 
 
 def run_bank(x_np, bank, nc, pad_len=None):
-    """Run a bank over one host chunk, zero-padded to ``pad_len`` (default
-    the bank's): a numpy [S, n_valid] DS array over the windows fully
-    inside the real data (one ds_bank_demux_os, one device-to-host copy)."""
-    _require_os(bank)
+    """Run a bank of any form over one host chunk, zero-padded to
+    ``pad_len`` (default the bank's): a numpy [S, n_valid] DS array over
+    the windows fully inside the real data (one bank run, one
+    device-to-host copy)."""
     xp, Lc = _pad_chunk(x_np, bank, nc, pad_len)
-    out = ds_bank_demux_os(xp, bank["Ufd2"], bank["sum_u"], bank["d_mask"],
-                           bank["n_c"], int(nc), bank["blk_fft"])
+    out = _ds_of_bank(xp, bank, nc)
     return out[:, :max(_n_valid(Lc, bank, nc), 0)].cpu().numpy()
 
 
@@ -536,10 +731,8 @@ def run_bank_rows(x_np, bank, nc, rows):
     rows = [int(si) for si in rows]
     if not rows:
         return {}
-    _require_os(bank)
     xp, Lc = _pad_chunk(x_np, bank, nc)
-    out = ds_bank_demux_os(xp, bank["Ufd2"], bank["sum_u"], bank["d_mask"],
-                           bank["n_c"], int(nc), bank["blk_fft"])
+    out = _ds_of_bank(xp, bank, nc)
     nv = max(_n_valid(Lc, bank, nc), 0)
     sel = out[torch.as_tensor(rows, device=out.device), :nv].cpu().numpy()
     return dict(zip(rows, sel))

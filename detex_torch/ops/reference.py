@@ -223,3 +223,11 @@ def ds_finalize_os_fold_ref(cb, a, power, sum_u, nv, head, D, W, group=1,
                      torch.full_like(ds, float("-inf")))
     pyr = ds.reshape(BS, (m * W) // 128, 128).amax(dim=-1)
     return ds, pyr, (hist_floor_rule(ds, nbin) if nbin else None)
+
+
+def ds_finalize_ref(cc, a, power, sum_u):
+    """Twin of cuda_kernels.ds_finalize (detex_tpu's ds_finalize_xla):
+    cc [S, D, L], a, power [L] (power already safe: inf where 0), sum_u
+    [S, D] -> ds [S, L] = sum_d (cc - sum_u * a)^2 / power."""
+    y = cc - sum_u[:, :, None] * a[None, None, :]
+    return (y * y).sum(dim=1) / power[None, :]

@@ -14,7 +14,11 @@ again). Two forms:
                                re-verify: a few rows of known length);
   extract_triggers_pyramid_pm  over per-block maxima (the pyramid the
                                fused scan kernel emits), re-reading one
-                               block per step (the serving scan).
+                               block per step (the serving scan);
+  extract_triggers_topk,       the fixed-capacity forms of the full-length
+  extract_triggers_pyramid     route (parallel/scan._extract): the full-row
+                               form, and the pyramid built here from the
+                               row in blocks of 512.
 
 Suppression mirrors the reference's three-case zeroing with row length L:
 
@@ -118,6 +122,35 @@ def extract_triggers_pyramid_pm(ceval, pyr_max, threshold, buff_samps,
     return _pyramid_suppress_scan(ceval.to(torch.float32), pyr_max,
                                   threshold, buff_samps, max_triggers,
                                   block, L)
+
+
+def extract_triggers_pyramid(ceval, threshold, buff_samps, max_triggers=64,
+                             block=512):
+    """Triggers of every row of ceval [R, L] at per-row thresholds [R]
+    through a block-max pyramid built here (pad positions -inf), with
+    detex_tpu's block of 512; the three-case clamp uses the true L.
+    Output-identical to extract_triggers_topk. Returns (idx
+    [R, max_triggers] int32, -1 past the row's count; count [R] int32)."""
+    R, L = ceval.shape
+    nblk = -(-L // block)
+    cp = torch.nn.functional.pad(ceval.to(torch.float32),
+                                 (0, nblk * block - L), value=float("-inf"))
+    pyr0 = cp.reshape(R, nblk, block).amax(dim=-1)
+    return _pyramid_suppress_scan(cp, pyr0, threshold, buff_samps,
+                                  max_triggers, block, L)
+
+
+def extract_triggers_topk(ceval, threshold, buff_samps, max_triggers=64):
+    """Triggers of every row of ceval [R, L] at per-row thresholds [R] with
+    a fixed capacity (detex_tpu's extract_triggers_topk): extract_triggers'
+    steps, padded to ``max_triggers`` columns. Returns (idx
+    [R, max_triggers] int32, -1 past the row's count; count [R] int32)."""
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=ceval.device).reshape(-1)
+    idx, cnt = extract_triggers(ceval, thr, buff_samps, max_triggers)
+    idx = torch.nn.functional.pad(idx, (0, max_triggers - idx.shape[1]),
+                                  value=-1)
+    return idx.to(torch.int32), cnt.to(torch.int32)
 
 
 def extract_triggers_np(ceval, threshold, buff_samps,

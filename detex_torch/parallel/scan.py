@@ -1,9 +1,9 @@
 """
-Batched continuous-data scan over an overlap-save bank.
+Batched continuous-data scan over a bank of any form.
 
 Namesake of detex_tpu/parallel/scan.py for banks of up to TEMPLATE_BLOCK
 templates on one device. scan_chunks takes detex_tpu's route
-(_os_fold_route), in its order:
+(_os_fold_route), in its order, on an overlap-save bank:
 
   fused   one spec_ds_fold launch over the whole chunk batch, prepped by
           fwd_prep_fold ("fused-net+fusedprep", "fused-sub+fusedprep") or,
@@ -15,6 +15,16 @@ templates on one device. scan_chunks takes detex_tpu's route
           (ds_finalize_os_scan, or ds_finalize_os and hist_uniform where the
           block is too wide for the scan form), non-uniform bins by sort and
           search.
+
+A full-length demuxed or multiplexed bank always takes "plain": one chunk
+at a time, ds_bank_demux (kernel ds_finalize) or ds_bank, the pad mask,
+_hist_rows, and trigger extraction by extract_triggers_pyramid (rows of at
+least PYRAMID_MIN_LEN) or extract_triggers_topk.
+
+scan_chunks_raw scans raw channel chunks with the device prep
+(ops/prep.py): on an overlap-save bank prep_multiplex_batch and then
+scan_chunks (route name + "+devicePrep"); on a full-length demuxed bank
+route "raw-demux+devicePrep", one ds_bank_demux_raw per chunk.
 
 The caps that send a batch down the list are detex_tpu's (ops/ds.py
 FUSED_DS_BYTES, FOLD_CB_BYTES); its Pallas tile budgets have no
@@ -32,6 +42,7 @@ import torch
 import detex_torch
 from detex_torch.ops import cuda_kernels as _ck
 from detex_torch.ops import ds as _ds
+from detex_torch.ops import prep as _prep
 from detex_torch.ops import triggers as _triggers
 
 DEFAULT_BINS = np.linspace(0, 1, 401)
@@ -56,8 +67,11 @@ def route_name(route, mode):
         (mode or "")[:3], "fold") + fp
 
 
-def _note_route(name):
-    """Count, and log once per unique name, the route a scan dispatched."""
+def _note_route(name, device_prep=False):
+    """Count, and log once per unique name, the route a scan dispatched;
+    ``device_prep`` appends "+devicePrep" as detex_tpu does."""
+    if device_prep:
+        name += "+devicePrep"
     ROUTE_COUNTS[name] += 1
     if name not in _ROUTES_LOGGED:
         _ROUTES_LOGGED.add(name)
@@ -100,9 +114,42 @@ def _hist_rows(ds, bins, uniform_nbin):
 
 
 def _bank_statics(bank, nc):
-    _ds._require_os(bank)
-    return dict(n_c=bank["n_c"], nc=int(nc),
-                nfft=bank["blk_fft"], S=int(bank["sum_u"].shape[0]))
+    """detex_tpu's statics of a bank: demux "os", True (full-length) or
+    False (multiplexed), the template length n_c (per channel; n for the
+    multiplexed form) and the transform length nfft."""
+    S = int(bank["sum_u"].shape[0])
+    kind = _ds.bank_kind(bank)
+    if kind == "os":
+        return dict(demux="os", n_c=bank["n_c"], nc=int(nc),
+                    nfft=bank["blk_fft"], S=S)
+    if kind == "demux":
+        return dict(demux=True, n_c=bank["n_c"], nc=int(nc),
+                    nfft=bank["nfft2"], S=S)
+    return dict(demux=False, n_c=bank["n"], nc=int(nc), nfft=bank["nfft"],
+                S=S)
+
+
+def _ds_of(x, arrs, demux, n_c, nc, nfft):
+    """DS [S, out_len] of one chunk x [Lc] on a full-length demuxed or a
+    multiplexed bank's arrays (Ufd2 or Ufd, sum_u, d_mask)."""
+    if demux:
+        return _ds.ds_bank_demux(x, *arrs, n_c, nc, nfft)
+    return _ds.ds_bank(x, *arrs, n_c, nc, nfft)
+
+
+# from this DS row length on, the full-length route extracts triggers by
+# the block-max pyramid (same outputs as the full-row form)
+PYRAMID_MIN_LEN = 4096
+
+
+def _extract(v, th, buff_samps, max_trig):
+    """Triggers of rows v [R, L] at thresholds th [R] on the full-length
+    route: (idx [R, max_trig] int32, count [R] int32)."""
+    if v.shape[1] >= PYRAMID_MIN_LEN:
+        return _triggers.extract_triggers_pyramid(v, th, buff_samps,
+                                                  max_triggers=max_trig)
+    return _triggers.extract_triggers_topk(v, th, buff_samps,
+                                           max_triggers=max_trig)
 
 
 def _specds_arrs(bank):
@@ -138,20 +185,22 @@ def _fold_scan_ok(bank, st, B, L_c, unb):
 
 
 def _os_fold_route(bank, st, B, L_c, unb, thresholds):
-    """Kernel routing for overlap-save banks (detex_tpu scan.py:619-656).
-    Returns (route, mode, arrs, thresholds_dev): route "fold" with mode
-    "net" / "sub" (+"+fp" with the fused prep) and arrs (ur, ui, sum_u,
-    d_mask) for the fused kernel, route "fold" with mode None and arrs
-    (Ufd2, sum_u, d_mask) for the unfused batch, or route None (the
-    per-chunk loop) with the same arrs."""
+    """Kernel routing (detex_tpu scan.py:619-656). Returns (route, mode,
+    arrs, thresholds_dev): route "fold" with mode "net" / "sub" (+"+fp"
+    with the fused prep) and arrs (ur, ui, sum_u, d_mask) for the fused
+    kernel, route "fold" with mode None and arrs (Ufd2, sum_u, d_mask) for
+    the unfused batch, or route None (the per-chunk loop) with the bank's
+    raw arrs. Full-length and multiplexed banks fall straight through to
+    route None."""
     if st["S"] > TEMPLATE_BLOCK:
         raise NotImplementedError(
             "template-blocked route (S = %d > %d): ROADMAP A3"
             % (st["S"], TEMPLATE_BLOCK))
     th = torch.as_tensor(np.asarray(thresholds, np.float32),
                          device=bank["sum_u"].device)
-    raw = (bank["Ufd2"], bank["sum_u"], bank["d_mask"])
-    if not _fold_scan_ok(bank, st, B, L_c, unb):
+    raw = (bank["Ufd2" if st["demux"] else "Ufd"], bank["sum_u"],
+           bank["d_mask"])
+    if st["demux"] != "os" or not _fold_scan_ok(bank, st, B, L_c, unb):
         return None, None, raw, th
     mode = _ds.spec_ds_mode(B, st["S"], int(bank["Dmax"]), st["n_c"],
                             st["nc"], st["nfft"])
@@ -256,13 +305,40 @@ def _unfused_chunks_fn(X, NV, arrs, thresholds, n_c, nc, blk_fft,
             tcnt.reshape(B, S))
 
 
-def _chunk_fn(x, nv, arrs, thresholds, bins, n_c, nc, nfft, buff_samps,
-              max_trig, calc_hist, uniform_nbin, calc_triggers):
-    """One chunk of the per-chunk route (detex_tpu scan.py:258-348, its
-    overlap-save branch): x [Lc], nv its valid DS length (a 0-d int32 on
-    the device). Returns (hist [S, nbins] int32, maxds [S], and
-    (tidx [S, K], tval [S, K], tcnt [S]) or None without triggers); the
-    chunk's DS array is freed on return."""
+def _finish(ds, nv, thresholds, bins, buff_samps, max_trig, calc_hist,
+            uniform_nbin, calc_triggers):
+    """The full-length route's summaries of one chunk's DS rows ds [S, L]
+    (detex_tpu _chunk_fn's ``finish``): -inf at positions >= nv, the
+    histogram, the maxima and the triggers (or None)."""
+    pos = torch.arange(ds.shape[-1], device=ds.device)
+    ds = torch.where(pos[None, :] < nv, ds, torch.full_like(ds, float("-inf")))
+    if calc_hist:
+        hist = _hist_rows(ds, bins, uniform_nbin)
+    else:
+        hist = torch.zeros((ds.shape[0], bins.shape[0] - 1),
+                           dtype=torch.int32, device=ds.device)
+    maxds = ds.amax(dim=-1)
+    if not calc_triggers:
+        return hist, maxds, None
+    tidx, tcnt = _extract(ds, thresholds, buff_samps, max_trig)
+    vals = torch.gather(ds, 1, tidx.clamp(min=0).to(torch.int64))
+    tval = torch.where(tidx >= 0, vals, torch.full_like(vals, float("nan")))
+    return hist, maxds, (tidx, tval, tcnt)
+
+
+def _chunk_fn(x, nv, arrs, thresholds, bins, demux, n_c, nc, nfft,
+              buff_samps, max_trig, calc_hist, uniform_nbin, calc_triggers):
+    """One chunk of the per-chunk route (detex_tpu scan.py:258-348): x [Lc],
+    nv its valid DS length (a 0-d int32 on the device). Returns
+    (hist [S, nbins] int32, maxds [S], and (tidx [S, K], tval [S, K],
+    tcnt [S]) or None without triggers); the chunk's DS array is freed on
+    return. An overlap-save bank (demux "os") runs os_prep + os_block_scan
+    and extracts triggers from the finalize's block maxima; the other forms
+    run _ds_of and _finish."""
+    if demux != "os":
+        return _finish(_ds_of(x, arrs, demux, n_c, nc, nfft), nv, thresholds,
+                       bins, buff_samps, max_trig, calc_hist, uniform_nbin,
+                       calc_triggers)
     S = arrs[1].shape[0]
     F, a, power = _ds.os_prep(x, n_c, nc, nfft)
     ds, pyr, fused_hist = _ds.os_block_scan(
@@ -282,32 +358,38 @@ def _chunk_fn(x, nv, arrs, thresholds, bins, n_c, nc, nfft, buff_samps,
     return hist, maxds, trig
 
 
-def _scan_chunks_loop(X, NV, arrs, thresholds, bins, n_c, nc, nfft,
+def _stack_chunks(outs, B, S, nbins, calc_triggers, dev):
+    """Sum the per-chunk histograms and stack the maxima and triggers of
+    a loop over B chunks: (hist [S, nbins], maxds [B, S], tidx, tval,
+    tcnt [B, S, ...])."""
+    hist = torch.zeros((S, nbins), dtype=torch.int32, device=dev)
+    for h, _, _ in outs:
+        hist += h
+    maxds = (torch.stack([o[1] for o in outs]) if outs else
+             torch.empty((0, S), dtype=torch.float32, device=dev))
+    if not calc_triggers:
+        return (hist, maxds) + _no_trig(B, S, dev)
+    return (hist, maxds) + tuple(torch.stack(parts)
+                                 for parts in zip(*[o[2] for o in outs]))
+
+
+def _scan_chunks_loop(X, NV, arrs, thresholds, bins, demux, n_c, nc, nfft,
                       buff_samps, max_trig, S, calc_hist, uniform_nbin,
                       calc_triggers):
     """The per-chunk route over a chunk batch X [B, Lc] (detex_tpu
     _scan_chunks_jit's lax.map as a loop): hist summed over chunks,
     maxds [B, S], triggers stacked [B, S, K]. Adds no host sync of its own;
     the trigger loop syncs once per step as everywhere."""
-    B = X.shape[0]
-    dev = X.device
-    hist = torch.zeros((S, bins.shape[0] - 1), dtype=torch.int32, device=dev)
-    maxds = torch.empty((B, S), dtype=torch.float32, device=dev)
-    trig = []
-    for b in range(B):
-        h, maxds[b], t = _chunk_fn(X[b], NV[b], arrs, thresholds, bins, n_c,
-                                   nc, nfft, buff_samps, max_trig, calc_hist,
-                                   uniform_nbin, calc_triggers)
-        hist += h
-        trig.append(t)
-    if not calc_triggers:
-        return (hist, maxds) + _no_trig(B, S, dev)
-    return (hist, maxds) + tuple(torch.stack(parts) for parts in zip(*trig))
+    outs = [_chunk_fn(X[b], NV[b], arrs, thresholds, bins, demux, n_c, nc,
+                      nfft, buff_samps, max_trig, calc_hist, uniform_nbin,
+                      calc_triggers) for b in range(X.shape[0])]
+    return _stack_chunks(outs, X.shape[0], S, bins.shape[0] - 1,
+                         calc_triggers, X.device)
 
 
 def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
                 valid_lens=None, mesh=None, calc_hist=True,
-                calc_triggers=True):
+                calc_triggers=True, _device_prep=False):
     """Batched scan: X [B, Lc] -> (hist [S, nbin], maxds [B, S],
     trig_idx [B, S, K], trig_val [B, S, K], trig_count [B, S]) as tensors
     on the bank's device, by the route _os_fold_route picks.
@@ -332,7 +414,7 @@ def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
     route, mode, arrs, th = _os_fold_route(
         bank, st, int(X.shape[0]), int(X.shape[1]) // st["nc"], unb,
         thresholds)
-    _note_route(route_name(route, mode))
+    _note_route(route_name(route, mode), device_prep=_device_prep)
     NV = torch.as_tensor(nv, device=dev)
     if route == "fold":
         return _fold_chunks_fn(
@@ -342,6 +424,69 @@ def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
     bins_t = torch.as_tensor(np.asarray(bins), dtype=torch.float32,
                              device=dev)
     return _scan_chunks_loop(
-        X, NV, arrs, th, bins_t, st["n_c"], st["nc"], st["nfft"],
-        int(buff_samps), int(max_trig), st["S"], bool(calc_hist), unb,
-        bool(calc_triggers))
+        X, NV, arrs, th, bins_t, st["demux"], st["n_c"], st["nc"],
+        st["nfft"], int(buff_samps), int(max_trig), st["S"],
+        bool(calc_hist), unb, bool(calc_triggers))
+
+
+def _chunk_fn_raw(xc, Lv, H, arrs, thresholds, bins, n_c, nc, nfft2,
+                  buff_samps, max_trig, dec, calc_hist, uniform_nbin,
+                  calc_triggers):
+    """One raw chunk of the "raw-demux" route (detex_tpu _chunk_fn_raw):
+    xc [nc, L_raw], Lv its true raw sample count (int). ds_bank_demux_raw,
+    then _finish with nv = Lv // dec - n_c + 1."""
+    ds = _prep.ds_bank_demux_raw(xc, Lv, H, arrs[0], arrs[1], arrs[2], n_c,
+                                 nc, nfft2, dec)
+    return _finish(ds, int(Lv) // dec - n_c + 1, thresholds, bins,
+                   buff_samps, max_trig, calc_hist, uniform_nbin,
+                   calc_triggers)
+
+
+def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
+                    bins=None, max_trig=64, dec=1, mesh=None,
+                    calc_hist=True, calc_triggers=True):
+    """Batched scan of raw channel chunks with the device prep (detrend,
+    bandpass by the response H over dec * nfft bins, decimation by
+    ``dec``): Xc [B, nc, L_raw] zero-padded channels (numpy or a tensor),
+    lens [B] their true raw per-channel sample counts. Returns
+    scan_chunks' outputs.
+
+    On an overlap-save bank: prep_multiplex_batch, then scan_chunks on the
+    multiplexed chunks with valid lengths (lens // dec) * nc. On a
+    full-length demuxed bank: route "raw-demux", ds_bank_demux_raw per
+    chunk. A multiplexed bank raises ValueError, as in detex_tpu."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device scan: ROADMAP A11")
+    dev = bank["sum_u"].device
+    Xc = torch.as_tensor(Xc, dtype=torch.float32, device=dev)
+    lens = [int(v) for v in lens]
+    kind = _ds.bank_kind(bank)
+    if kind == "os":
+        nfftp = (int(H.shape[0]) - 1) * 2 // int(dec)
+        X, lens_mux = _prep.prep_multiplex_batch(Xc, lens, H, nfftp,
+                                                 int(dec), int(nc))
+        return scan_chunks(X, bank, thresholds, nc, buff_samps, bins=bins,
+                           max_trig=max_trig, valid_lens=lens_mux,
+                           calc_hist=calc_hist, calc_triggers=calc_triggers,
+                           _device_prep=True)
+    if kind != "demux":
+        raise ValueError("scan_chunks_raw requires a demuxed bank")
+    S = int(bank["sum_u"].shape[0])
+    if S > TEMPLATE_BLOCK:
+        raise NotImplementedError(
+            "template-blocked route (S = %d > %d): ROADMAP A3"
+            % (S, TEMPLATE_BLOCK))
+    if bins is None:
+        bins = DEFAULT_BINS
+    _note_route("raw-demux", device_prep=True)
+    arrs = (bank["Ufd2"], bank["sum_u"], bank["d_mask"])
+    th = torch.as_tensor(np.asarray(thresholds, np.float32), device=dev)
+    bins_t = torch.as_tensor(np.asarray(bins), dtype=torch.float32,
+                             device=dev)
+    unb = _uniform_nbin(bins)
+    outs = [_chunk_fn_raw(Xc[b], lens[b], H, arrs, th, bins_t, bank["n_c"],
+                          int(nc), bank["nfft2"], int(buff_samps),
+                          int(max_trig), int(dec), bool(calc_hist), unb,
+                          bool(calc_triggers)) for b in range(Xc.shape[0])]
+    return _stack_chunks(outs, Xc.shape[0], S, bins_t.shape[0] - 1,
+                         bool(calc_triggers), dev)

@@ -4,12 +4,16 @@ Deployment artifacts and the serving scan.
 Namesake of detex_tpu/serving.py: ``load_detectors`` reads the plain
 ``.npz`` detector artifact that ``detex_tpu.serving.export_detectors``
 writes (per detector ``U__<station>__<name>`` [D, n] float32, plus a JSON
-``meta`` entry with each station's nc, sampling rate and detectors) and
-builds overlap-save banks on an explicit device; ``scan_station`` scans a
-station's chunks against them with trigger extraction on.
+``meta`` entry with each station's nc, sampling rate and detectors, and
+the artifact's ``filt`` and ``decimate``) and builds banks on the card
+unless ``device`` says otherwise; ``scan_station`` scans a station's
+multiplexed chunks against them with trigger extraction on, and
+``scan_station_raw`` its raw channel chunks with the device prep
+(ops/prep.py) fused in front of the scan.
 
-    dep = detex_torch.serving.load_detectors("detectors.npz", device="cuda")
+    dep = detex_torch.serving.load_detectors("detectors.npz")
     out = detex_torch.serving.scan_station(dep, "TA.S00", chunk_matrix)
+    out = detex_torch.serving.scan_station_raw(dep, "TA.S00", raw_chunks)
 """
 from __future__ import annotations
 
@@ -17,13 +21,18 @@ import json
 
 import numpy as np
 
+import torch
+
 from detex_torch.ops import ds as _ds
+from detex_torch.ops import prep as _prep
 from detex_torch.parallel import scan as _scan
 
 
-def load_detectors(path, chunk_sec=3600.0, conBuff=120.0, *, device):
+def load_detectors(path, chunk_sec=3600.0, conBuff=120.0, *, device="cuda"):
     """Load an exported detector artifact and build per-station banks on
-    ``device`` sized for ``chunk_sec + conBuff`` second chunks.
+    ``device`` sized for ``chunk_sec + conBuff`` second chunks (build_bank's
+    default: overlap-save banks, as detex_tpu builds them on its
+    accelerator).
 
     Returns {station: {"banks": [bank, ...], "nc": int, "sr": float,
     "meta": {...}, ...}}; each bank carries "names" and "thresholds"."""
@@ -83,6 +92,78 @@ def scan_station(dep, sta, chunks, mesh=None, bins=None, buff_sec=20.0,
         hist, maxds, ti, tv, tc = _scan.scan_chunks(
             padded, bank, bank["thresholds"], nc, buff, bins=bins,
             max_trig=max_trig, valid_lens=vlens, mesh=mesh,
+            calc_hist=calc_hist)
+        results.append(dict(names=bank["names"],
+                            hist=hist.cpu().numpy(),
+                            maxds=maxds.cpu().numpy(),
+                            trig_idx=ti.cpu().numpy(),
+                            trig_val=tv.cpu().numpy(),
+                            trig_count=tc.cpu().numpy()))
+    return results
+
+
+def _bank_H(bank, nc, filt, dec, sr):
+    """The device prep's filter response for ``bank``, cached on it: over
+    dec * nfftp bins at the raw rate sr * dec, nfftp the bank's full-length
+    FFT (recomputed by the demuxed-bank formula for an overlap-save bank);
+    |H|^2 when filt[3] (zero phase), else the complex H; all ones without
+    a filter (detex_tpu serving._bank_H)."""
+    if "H" not in bank:
+        if _ds.bank_kind(bank) == "os":
+            nfftp = _ds.required_fft_len(bank["pad_len"] // nc, bank["n_c"])
+        else:
+            nfftp = bank["nfft2"]
+        nbins = dec * nfftp
+        dev = bank["sum_u"].device
+        if filt:
+            if filt[1] >= sr / 2.0 and dec > 1:
+                raise ValueError(
+                    "device decimation needs the bandpass high corner "
+                    "below the decimated Nyquist (%.3g Hz)" % (sr / 2.0))
+            bank["H"] = _prep.butter_response(filt, sr * dec, nbins,
+                                              zerophase=bool(filt[3]),
+                                              device=dev)
+        else:
+            bank["H"] = torch.ones(nbins // 2 + 1, dtype=torch.float32,
+                                   device=dev)
+    return bank["H"]
+
+
+def scan_station_raw(dep, sta, chans, lens=None, mesh=None, bins=None,
+                     buff_sec=20.0, max_trig=64, calc_hist=True):
+    """Scan raw channel chunks [B, nc, L_raw] (unfiltered, at the raw rate
+    sr * decimate) of one station against all of its banks: detrend,
+    bandpass and decimation by the artifact's ``filt`` and ``decimate`` run
+    on the device (scan_chunks_raw), then the scan.
+
+    ``lens`` ([B], optional) gives each chunk's true raw per-channel
+    sample count for zero-padded rows. Returns scan_station's per-bank
+    dicts. Needs demuxed banks (template length a multiple of nc)."""
+    sd = dep[sta]
+    nc, sr = sd["nc"], sd["sr"]
+    dec = int(sd.get("dec") or 1)
+    buff = int(buff_sec * sr)
+    chans = np.asarray(chans, np.float32)
+    if chans.ndim != 3 or chans.shape[1] != nc:
+        raise ValueError("chans must be [B, nc=%d, L_raw]" % nc)
+    B, _, L_raw = chans.shape
+    lens = np.full(B, L_raw, np.int64) if lens is None else np.asarray(
+        lens, np.int64)
+    results = []
+    for bank in sd["banks"]:
+        if not bank.get("demux"):
+            raise ValueError("scan_station_raw needs demuxed banks "
+                             "(template length divisible by nc)")
+        Lp = (bank["pad_len"] // nc) * dec
+        if L_raw < Lp:
+            padded = np.zeros((B, nc, Lp), np.float32)
+            padded[:, :, :L_raw] = chans
+        else:
+            padded = chans[:, :, :Lp]
+        H = _bank_H(bank, nc, sd.get("filt"), dec, sr)
+        hist, maxds, ti, tv, tc = _scan.scan_chunks_raw(
+            padded, np.minimum(lens, Lp), H, bank, bank["thresholds"], nc,
+            buff, bins=bins, max_trig=max_trig, dec=dec, mesh=mesh,
             calc_hist=calc_hist)
         results.append(dict(names=bank["names"],
                             hist=hist.cpu().numpy(),

@@ -12,13 +12,21 @@ by torch.profiler:
            (route "plain", blk 32768);
   phase D2 one request of phase B's shape on 64 chunks (route "plain");
   phase D3 one scan_chunks launch of a 90 s subspace with the block
-           pinned at 16384 on 16 two-hour chunks (route "fused-sub").
+           pinned at 16384 on 16 two-hour chunks (route "fused-sub");
+  phase E1 one serving.scan_station_raw request (128 detectors at 50 Hz,
+           raw 8 x 3720 s at 100 Hz, decimate 2, route
+           "fused-net+fusedprep+devicePrep");
+  phase E2 one scan_chunks launch of a 16 x 4 full-length bank on 8 chunks
+           of 3720 s (route "plain", ds_finalize);
+  phase E3 one scan_chunks_raw launch of that bank's shape at 50 Hz on 8
+           raw chunks (route "raw-demux+devicePrep").
 
 For each it prints the wall time and the device-busy time per repeat (the
 union of all device intervals) and the profiler's table of device time by
-kernel. Run from the repository root:
+kernel. Run from the repository root (with the argument ``E``, phase E
+alone):
 
-    python3 scripts/profile_torch_phases.py
+    python3 scripts/profile_torch_phases.py [E]
 """
 import json
 import os
@@ -73,9 +81,32 @@ def prof(name, fn, reps=3):
           flush=True)
 
 
+def phase_e(dev):
+    with tempfile.TemporaryDirectory() as tmp:
+        e1 = cs.phase_e1_setup(dev, tmp)
+        prof("phase E1 request", lambda: serving.scan_station_raw(
+            e1["dep"], cs.SERVE_STA, e1["X"], max_trig=8), reps=2)
+    del e1
+    torch.cuda.empty_cache()
+    e2 = cs.phase_e2_setup(dev)
+    prof("phase E2 launch", lambda: tscan.scan_chunks(
+        e2["X"], e2["bank"], np.full(16, 0.5, np.float32), cs.NC, 2000,
+        max_trig=8), reps=2)
+    del e2
+    torch.cuda.empty_cache()
+    e3 = cs.phase_e3_setup(dev)
+    prof("phase E3 launch", lambda: tscan.scan_chunks_raw(
+        e3["X"], e3["lens"], e3["H"], e3["bank"],
+        np.full(16, 0.5, np.float32), cs.NC, 1000, max_trig=8, dec=cs.DEC),
+        reps=2)
+
+
 def main():
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    phase_e(dev)
+    if sys.argv[1:] == ["E"]:
+        return
     rng = np.random.default_rng(1)
     U = cs.basis(rng, 4, 9000)
     bank = tds.build_bank([U], cs.NC, 2160000, dev)

@@ -81,18 +81,29 @@ def test_bank_spec_pair_parity():
 
 def test_bank_from_numpy_carries_weights():
     """bank_from_numpy turns a detex_tpu bank's numpy arrays into the
-    port's bank with bit-identical spectra and the same statics."""
+    port's bank with bit-identical spectra and the same statics, for the
+    overlap-save, full-length demuxed and multiplexed forms; a dict that
+    is none of them (an overlap-save bank without its flag) raises."""
     U_list = _U_list(np.random.default_rng(3), S=2, D=3)
-    jb = jds.build_bank(U_list, NC, LC, prefer_os=True, block_fft=BLK)
-    d = {k: (np.asarray(v) if hasattr(v, "shape") else v)
-         for k, v in jb.items()}
-    tb = tds.bank_from_numpy(d, "cpu")
-    assert tb["Ufd2"].dtype == torch.complex64
-    assert np.array_equal(tb["Ufd2"].numpy(), d["Ufd2"].astype(np.complex64))
-    for k in ("n", "n_c", "Dmax", "nc", "blk_fft", "pad_len"):
-        assert tb[k] == d[k]
-    with pytest.raises(NotImplementedError, match="A9"):
-        tds.bank_from_numpy(dict(d, os=False), "cpu")
+    for kw, kind, spec, statics in (
+            (dict(prefer_os=True, block_fft=BLK), "os", "Ufd2",
+             ("n", "n_c", "Dmax", "nc", "blk_fft", "pad_len")),
+            (dict(block_fft=0), "demux", "Ufd2",
+             ("n", "n_c", "Dmax", "nc", "nfft2", "pad_len")),
+            (dict(), "mux", "Ufd", ("n", "Dmax", "nc", "nfft", "pad_len"))):
+        U = U_list if kind != "mux" else [u[:, :N - 1] for u in U_list]
+        jb = jds.build_bank(U, NC, LC, **kw)
+        d = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+             for k, v in jb.items()}
+        tb = tds.bank_from_numpy(d, "cpu")
+        assert tds.bank_kind(tb) == kind and set(tb) == set(d)
+        assert tb[spec].dtype == torch.complex64
+        assert np.array_equal(tb[spec].numpy(), d[spec].astype(np.complex64))
+        for k in statics:
+            assert tb[k] == d[k]
+        if kind == "os":
+            with pytest.raises(ValueError, match="not an overlap-save"):
+                tds.bank_kind(tds.bank_from_numpy(dict(d, os=False), "cpu"))
 
 
 def test_block_snap_is_unconditional(jax_fused_env):
@@ -118,8 +129,11 @@ def _small_bank(S=3):
 @pytest.mark.parametrize("case", ["blocked", "mesh", "fullbank", "mux"])
 def test_unported_routes_raise(case):
     """Every route detex_tpu would take that the port has not ported yet
-    (template-blocked, multi-device, full-length and multiplexed banks)
-    raises NotImplementedError naming its ROADMAP item."""
+    raises NotImplementedError naming its ROADMAP item: the
+    template-blocked route (S > 128) on an overlap-save ("blocked") and a
+    full-length bank ("fullbank"), and the multi-device scan on an
+    overlap-save bank ("mesh") and the raw scan of a multiplexed bank
+    ("mux")."""
     X = np.zeros((2, LC), np.float32)
     kw = dict(buff_samps=250, max_trig=4)
     with pytest.raises(NotImplementedError) as err:
@@ -130,10 +144,16 @@ def test_unported_routes_raise(case):
             tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
                               mesh=object(), **kw)
         elif case == "fullbank":
-            tds.build_bank(_U_list(np.random.default_rng(6), 1, 1), NC, LC,
-                           "cpu", block_fft=0)
+            bank = tds.build_bank(_U_list(np.random.default_rng(6), 1, 1),
+                                  NC, LC, "cpu", block_fft=0, pad_S=129)
+            assert tds.bank_kind(bank) == "demux"
+            tscan.scan_chunks(X, bank, np.ones(129), NC, **kw)
         else:
-            tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
+            bank = tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
+            assert tds.bank_kind(bank) == "mux"
+            tscan.scan_chunks_raw(X.reshape(2, NC, -1), [LC // NC] * 2,
+                                  torch.ones(LC // NC + 1), bank, np.ones(1),
+                                  NC, mesh=object(), **kw)
     assert "ROADMAP A" in str(err.value)
 
 
@@ -177,10 +197,15 @@ def test_wrappers_dispatch_on_device():
     assert ds.shape == (NC, 15744)
     hist = tck.hist_uniform(ds, 400)
     assert hist.shape == (NC, 400) and hist.dtype == torch.int32
+    cc = cb.reshape(1, NC, BLK)
+    fin = (a[0, :BLK].contiguous(), a[0, :BLK] + 1, torch.zeros(1, NC))
+    ds = tck.ds_finalize(cc, *fin)
+    assert ds.shape == (1, BLK)
     assert set(tck.LAUNCHES) == {
         "fwd_prep_fold", "spec_ds_fold", "ds_finalize_os_fold",
         "rfft_ct_fused", "irfft_ct_fused", "rfft_ct_half",
-        "ds_finalize_os_scan", "ds_finalize_os", "hist_uniform"}
+        "ds_finalize_os_scan", "ds_finalize_os", "hist_uniform",
+        "ds_finalize"}
     assert not any(tck.LAUNCHES.values())
     meta = [lambda: tck.fwd_prep_fold(xq.to("meta"), NC, 560, BLK, 40000),
             lambda: tck.rfft_ct_fused(xq[0, :, :BLK].to("meta"), BLK),
@@ -194,7 +219,9 @@ def test_wrappers_dispatch_on_device():
                 cb.reshape(NC, 1, BLK).to("meta"), *(t.to("meta") for t in
                                                      stats),
                 su.to("meta"), 640, 1, 15744),
-            lambda: tck.hist_uniform(ds.to("meta"), 400)]
+            lambda: tck.hist_uniform(ds.to("meta"), 400),
+            lambda: tck.ds_finalize(cc.to("meta"),
+                                    *(t.to("meta") for t in fin))]
     for call in meta:
         with pytest.raises(ValueError, match="no kernel for device"):
             call()
@@ -203,7 +230,8 @@ def test_wrappers_dispatch_on_device():
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
     detex_torch still imports and runs a CPU scan, a dense re-verify, a
-    per-chunk ("plain") scan and run_bank."""
+    per-chunk ("plain") scan, run_bank, and a full-length bank's scan and
+    raw scan with the device prep."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
@@ -229,6 +257,17 @@ def test_port_imports_without_jax_or_pandas():
         "assert dict(scan.ROUTE_COUNTS) == {'plain': 1}\n"
         "assert out[0].sum() == 2 * (35000 - 560 + 1)\n"
         "assert ds.run_bank(X[0], bank, 3).shape == (1, 35000 - 560 + 1)\n"
+        "from detex_torch.ops import prep\n"
+        "full = ds.build_bank([U], 3, 3 * 35000, 'cpu', prefer_os=False)\n"
+        "assert ds.bank_kind(full) == 'demux'\n"
+        "out = scan.scan_chunks(X, full, np.ones(1), 3, 250)\n"
+        "assert out[0].sum() == 2 * (35000 - 560 + 1)\n"
+        "H = prep.butter_response([1, 8, 2, True], 25.0, full['nfft2'],\n"
+        "                         device='cpu')\n"
+        "Xc = X.reshape(2, 35000, 3).transpose(0, 2, 1)\n"
+        "out = scan.scan_chunks_raw(Xc, [35000] * 2, H, full, np.ones(1), 3,\n"
+        "                           250)\n"
+        "assert out[1].shape == (2, 1)\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

@@ -19,6 +19,7 @@ import detex_torch
 from detex_torch.ops import cuda_kernels as ck
 from detex_torch.ops import dft
 from detex_torch.ops import ds as tds
+from detex_torch.ops import prep as tprep
 from detex_torch.ops import reference as ref
 from detex_torch.parallel import scan as tscan
 
@@ -416,3 +417,75 @@ def test_zero_gap_routes_agree_on_the_card(cuda, monkeypatch):
         for ds in (fused[s], plain[s]):
             assert np.all(ds[gap] == 0.0)
             assert np.abs(ds[~gap] - o[~gap]).max() <= 2e-5
+
+
+def test_ds_finalize_kernel_matches_twin(cuda):
+    """ds_finalize (B10) on the inputs ds_bank_demux gives it for one chunk
+    of a full-length bank with padded rows and masked slots (S 8, Dmax 4,
+    L 59,701): within 1e-5 of its twin, one launch per call; the full
+    ds_bank_demux on the card against the CPU within 2e-5."""
+    rng = np.random.default_rng(23)
+    n = NC * 300
+    U_list = _U_list(rng, 5, 3, n)
+    x = rng.standard_normal(NC * 60000).astype(np.float32)
+    x[NC * 7000:NC * 7000 + n] += 3.0 * np.sqrt(n) * U_list[2][0]
+    out = {}
+    for dev in ("cpu", cuda):
+        bank = tds.build_bank(U_list, NC, x.size, dev, block_fft=0, pad_S=8,
+                              min_dmax=4)
+        args = (torch.as_tensor(x, device=dev), bank["Ufd2"], bank["sum_u"],
+                bank["d_mask"], bank["n_c"], NC, bank["nfft2"])
+        ck.reset_launches()
+        out[str(dev)] = tds.ds_bank_demux(*args).cpu()
+        assert ck.LAUNCHES == dict(_NONE, ds_finalize=int(dev != "cpu"))
+    parts = tds.demux_parts(*args)
+    assert tuple(parts[0].shape) == (8, 4, 60000 - 300 + 1)
+    k = ck.ds_finalize(*parts)
+    r = ref.ds_finalize_ref(*parts)
+    torch.cuda.synchronize()
+    assert (k - r).abs().max().item() <= 1e-5
+    c, g = out["cpu"], out[str(cuda)]
+    assert (c - g).abs().max().item() <= 2e-5
+    assert bool((g[5:] == 0).all()) and int(g[2].argmax()) == 7000
+
+
+@pytest.mark.parametrize("zerophase", [True, False])
+def test_raw_path_dec2_on_the_card_matches_cpu(cuda, zerophase):
+    """The device prep at dec 2 (the last bin kept after truncation is not
+    a Nyquist bin and has an imaginary part, which cuFFT's C2R would not
+    ignore unless zeroed): run_bank_raw and scan_chunks_raw on a
+    full-length bank, and scan_chunks_raw on an overlap-save bank, on the
+    card against the same calls on the CPU; a ragged chunk among them."""
+    dec, n_c, L_raw = 2, 500, 80000
+    n = NC * n_c
+    rng = np.random.default_rng(29 + zerophase)
+    U_list = _U_list(rng, 3, 2, n)
+    X = rng.standard_normal((2, NC, L_raw)).astype(np.float32)
+    X += np.linspace(0, 4, L_raw, dtype=np.float32)
+    lens = [L_raw, L_raw - 9000]
+    X[1, :, lens[1]:] = 0.0
+    Lc = L_raw // dec * NC
+    filt = [1.0, 10.0, 2, zerophase]
+    out = {}
+    for dev in ("cpu", cuda):
+        full = tds.build_bank(U_list, NC, Lc, dev, block_fft=0)
+        osb = tds.build_bank(U_list, NC, Lc, dev, block_fft=16384)
+        H = tprep.butter_response(filt, 100.0, dec * full["nfft2"],
+                                  zerophase, device=dev)
+        ck.reset_launches()
+        res = [tprep.run_bank_raw(X[1, :, :lens[1]], full, NC, H, dec)]
+        for bank in (full, osb):
+            res += [t.cpu() for t in tscan.scan_chunks_raw(
+                X, lens, H, bank, np.full(3, 0.6, np.float32), NC, 250,
+                max_trig=4, dec=dec)]
+        out[str(dev)] = res
+        if dev != "cpu":
+            assert ck.LAUNCHES["ds_finalize"] == 3
+    c, g = out["cpu"], out[str(cuda)]
+    assert np.abs(c[0] - g[0]).max() <= 2e-5
+    for i in (1, 6):                     # hist, maxds, idx, val, count
+        assert torch.equal(c[i].sum(1), g[i].sum(1))
+        assert (c[i] - g[i]).abs().sum().item() <= 40
+        assert (c[i + 1] - g[i + 1]).abs().max().item() <= 2e-5
+        assert torch.equal(c[i + 2], g[i + 2])
+        assert torch.equal(c[i + 4], g[i + 4])

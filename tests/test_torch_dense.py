@@ -333,11 +333,12 @@ def test_trigger_rows_device_matches_jax_and_host_chain(use_stalta, sta_n):
 
 
 def test_dense_path_raises_on_unported_forms(monkeypatch):
-    """The bank forms the port has not ported (full-length and
-    multiplexed, ROADMAP A9) raise NotImplementedError naming A9 on every
-    dense entry. Geometries and batch sizes detex_tpu serves with its
-    per-chunk fallback now run (tests/test_torch_chunk.py); the batch above
-    the inverse-block cap goes one chunk at a time without raising."""
+    """A dict that is no bank form (an overlap-save bank without its flag)
+    raises ValueError on every dense entry; the full-length and
+    multiplexed forms run (tests/test_torch_fullbank.py). Geometries and
+    batch sizes detex_tpu serves with its per-chunk fallback run
+    (tests/test_torch_chunk.py); the batch above the inverse-block cap goes
+    one chunk at a time without raising."""
     rng = np.random.default_rng(8)
     U_list = _U_list(rng, S=1, D=1)
     x = [rng.standard_normal(LC).astype(np.float32)]
@@ -348,7 +349,7 @@ def test_dense_path_raises_on_unported_forms(monkeypatch):
                                                  [[0], [0]]),
                  lambda: tds.run_bank(x[0], full, NC),
                  lambda: tds.run_bank_rows(x[0], full, NC, [0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(ValueError, match="not an overlap-save"):
             call()
     want = tds.run_bank_rows_batch(x * 2, tb, NC, [[0], [0]])
     monkeypatch.setattr(tds, "FOLD_CB_BYTES", 2 * BLK * 4 - 1)

@@ -1,7 +1,8 @@
 """The CUDA kernel sources of detex_torch, compiled for the host with g++
 against detex_torch/kernels/emulation (one thread block runs as std::threads
 with real barriers and warp exchanges), held against the kernels' PyTorch
-twins at small geometries (blk 16384 and 32768). This checks the kernels'
+twins at small geometries (blk 16384 and 32768; the full-length finalize
+at a few row lengths). This checks the kernels'
 arithmetic, indexing, shared-memory reuse and synchronisation on a machine
 without a GPU; speed, the memory model and nvcc's acceptance of the code
 are only checked on the card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -54,6 +55,7 @@ def emu(tmp_path_factory):
     lib.emu_ds_finalize_os.argtypes = [P] * 5 + [LL] + [I] * 5
     lib.emu_hist_uniform.argtypes = [P] * 2 + [LL, LL, I]
     lib.emu_rfft_ct_half.argtypes = [P] * 4 + [LL, I, I]
+    lib.emu_ds_finalize.argtypes = [P] * 5 + [LL, I, LL]
     return lib
 
 
@@ -376,3 +378,39 @@ def test_hist_uniform_source_matches_twin(emu, nbin, L):
     v = ds.numpy()
     keep = (v >= 0) & (v <= 1)
     assert np.array_equal(hist.sum(1).numpy(), keep.sum(1))
+
+
+@pytest.mark.parametrize("S,D,L", [(3, 2, 2500), (2, 4, 1024), (2, 3, 1)])
+def test_ds_finalize_source_matches_twin(emu, S, D, L):
+    """ds_finalize (B10): the full-length finalize against its twin at L
+    not a multiple of the kernel's tile (2500), exactly one tile (1024) and
+    L = 1; power inf (DS 0) at a few positions, a masked basis slot (cc row
+    0, sum_u 0), a padded row (every cc row and sum_u 0: DS 0), a planted
+    exact DS of 9.0, and no write past the [S, L] output."""
+    rng = np.random.default_rng(S * L + D)
+    cc = torch.from_numpy(
+        (rng.standard_normal((S, D, L)) * 4).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal(L).astype(np.float32))
+    pw = torch.from_numpy(rng.uniform(20, 200, L).astype(np.float32))
+    su = torch.from_numpy(rng.standard_normal((S, D)).astype(np.float32))
+    cc[0, D - 1] = 0.0
+    su[0, D - 1] = 0.0
+    cc[S - 1] = 0.0
+    su[S - 1] = 0.0
+    pw[3:7] = float("inf")
+    t = L // 2 if L > 7 else 0
+    a[t], pw[t] = 0.0, 1.0
+    cc[0, :, t] = 0.0
+    cc[0, 0, t] = 3.0
+    out = torch.full((S * L + 1,), float("nan"))     # + a guard element
+    assert emu.emu_ds_finalize(_ptr(cc), _ptr(a), _ptr(pw), _ptr(su),
+                               _ptr(out), S, D, L) == 0
+    assert bool(torch.isnan(out[-1]))                # nothing past [S, L]
+    ds = out[:-1].reshape(S, L)
+    d0 = ref.ds_finalize_ref(cc, a, pw, su)
+    assert bool(torch.isfinite(ds).all())
+    assert (ds - d0).abs().max().item() <= 2e-5
+    assert float(ds[0, t]) == 9.0
+    assert bool((ds[S - 1] == 0).all())
+    if L > 7:
+        assert bool((ds[:, 3:7] == 0).all())
