@@ -657,18 +657,28 @@ def _run_bank_batch_fold(X, nv, Ufd2, sum_u, d_mask, n_c, nc, blk_fft):
     return ds
 
 
+# per bank_kind: the spectra's key, detex_tpu's static ``demux``, and the
+# keys of the template length and of the transform length
+BANK_FORMS = {"os": ("Ufd2", "os", "n_c", "blk_fft"),
+              "demux": ("Ufd2", True, "n_c", "nfft2"),
+              "mux": ("Ufd", False, "n", "nfft")}
+
+
+def ds_of(x, arrs, demux, n_c, nc, nfft):
+    """DS [S, out_len] of one chunk x [Lc] on a bank's arrays (Ufd2 or Ufd,
+    sum_u, d_mask), by detex_tpu's static ``demux``: "os" ds_bank_demux_os,
+    True ds_bank_demux, False ds_bank (``n_c`` is then the template length
+    n)."""
+    fn = (ds_bank_demux_os if demux == "os"
+          else ds_bank_demux if demux else ds_bank)
+    return fn(x, *arrs, n_c, int(nc), nfft)
+
+
 def _ds_of_bank(x, bank, nc):
-    """DS [S, out_len] of one chunk x [Lc] on the bank's device, by the
-    bank's form: ds_bank_demux_os, ds_bank_demux or ds_bank."""
-    kind = bank_kind(bank)
-    arrs = (bank["sum_u"], bank["d_mask"])
-    if kind == "os":
-        return ds_bank_demux_os(x, bank["Ufd2"], *arrs, bank["n_c"], int(nc),
-                                bank["blk_fft"])
-    if kind == "demux":
-        return ds_bank_demux(x, bank["Ufd2"], *arrs, bank["n_c"], int(nc),
-                             bank["nfft2"])
-    return ds_bank(x, bank["Ufd"], *arrs, bank["n"], int(nc), bank["nfft"])
+    """ds_of on a bank, on the bank's device."""
+    spec, demux, n, nfft = BANK_FORMS[bank_kind(bank)]
+    return ds_of(x, (bank[spec], bank["sum_u"], bank["d_mask"]), demux,
+                 bank[n], nc, bank[nfft])
 
 
 def _bank_batch_program(Xd, lens, bank, nc):

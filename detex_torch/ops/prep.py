@@ -137,7 +137,10 @@ def ds_bank_demux_raw(xc, Lv, H, Ufd2, sum_u, d_mask, n_c, nc, nfft2, dec=1):
     L_c = xc.shape[1] // dec
     Lvd = int(Lv) // dec
     Ff = _filtered_spectra(_masked_detrend(xc, int(Lv)), H, nfft2, dec)
-    xf = _dft.irfft_full(Ff.clone(), nfft2)[:, :L_c]
+    # irfft_full zeroes Ff's end bins' imaginary parts in place; that is
+    # safe for the cross-spectra below: Ufd2's bins 0 and nfft2/2 are real,
+    # so only their imaginary parts change, and irfft_full zeroes those too
+    xf = _dft.irfft_full(Ff, nfft2)[:, :L_c]
     w = (torch.arange(L_c, device=xc.device) < Lvd)[None, :]
     cnt = float(max(Lvd, 0) * nc)
     xf64 = torch.where(w, xf, torch.zeros_like(xf)).to(torch.float64)

@@ -117,24 +117,9 @@ def _bank_statics(bank, nc):
     """detex_tpu's statics of a bank: demux "os", True (full-length) or
     False (multiplexed), the template length n_c (per channel; n for the
     multiplexed form) and the transform length nfft."""
-    S = int(bank["sum_u"].shape[0])
-    kind = _ds.bank_kind(bank)
-    if kind == "os":
-        return dict(demux="os", n_c=bank["n_c"], nc=int(nc),
-                    nfft=bank["blk_fft"], S=S)
-    if kind == "demux":
-        return dict(demux=True, n_c=bank["n_c"], nc=int(nc),
-                    nfft=bank["nfft2"], S=S)
-    return dict(demux=False, n_c=bank["n"], nc=int(nc), nfft=bank["nfft"],
-                S=S)
-
-
-def _ds_of(x, arrs, demux, n_c, nc, nfft):
-    """DS [S, out_len] of one chunk x [Lc] on a full-length demuxed or a
-    multiplexed bank's arrays (Ufd2 or Ufd, sum_u, d_mask)."""
-    if demux:
-        return _ds.ds_bank_demux(x, *arrs, n_c, nc, nfft)
-    return _ds.ds_bank(x, *arrs, n_c, nc, nfft)
+    _, demux, n, nfft = _ds.BANK_FORMS[_ds.bank_kind(bank)]
+    return dict(demux=demux, n_c=bank[n], nc=int(nc), nfft=bank[nfft],
+                S=int(bank["sum_u"].shape[0]))
 
 
 # from this DS row length on, the full-length route extracts triggers by
@@ -334,11 +319,11 @@ def _chunk_fn(x, nv, arrs, thresholds, bins, demux, n_c, nc, nfft,
     tcnt [S]) or None without triggers); the chunk's DS array is freed on
     return. An overlap-save bank (demux "os") runs os_prep + os_block_scan
     and extracts triggers from the finalize's block maxima; the other forms
-    run _ds_of and _finish."""
+    run ds.ds_of and _finish."""
     if demux != "os":
-        return _finish(_ds_of(x, arrs, demux, n_c, nc, nfft), nv, thresholds,
-                       bins, buff_samps, max_trig, calc_hist, uniform_nbin,
-                       calc_triggers)
+        return _finish(_ds.ds_of(x, arrs, demux, n_c, nc, nfft), nv,
+                       thresholds, bins, buff_samps, max_trig, calc_hist,
+                       uniform_nbin, calc_triggers)
     S = arrs[1].shape[0]
     F, a, power = _ds.os_prep(x, n_c, nc, nfft)
     ds, pyr, fused_hist = _ds.os_block_scan(

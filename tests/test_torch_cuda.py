@@ -419,7 +419,7 @@ def test_zero_gap_routes_agree_on_the_card(cuda, monkeypatch):
             assert np.abs(ds[~gap] - o[~gap]).max() <= 2e-5
 
 
-def test_ds_finalize_kernel_matches_twin(cuda):
+def test_ds_finalize_full_kernel_matches_twin(cuda):
     """ds_finalize (B10) on the inputs ds_bank_demux gives it for one chunk
     of a full-length bank with padded rows and masked slots (S 8, Dmax 4,
     L 59,701): within 1e-5 of its twin, one launch per call; the full
