@@ -10,7 +10,9 @@ small test geometry, at blk 32768, at phase A's geometry cut to 16 chunks,
 at phase B's shape and, after the main-path run, at phase A's full shape;
 the dense re-verify kernels at the small geometry, at blk 32768 and, after
 the main-path run, at phase C's re-verify shape; the per-chunk kernels and
-rfft_ct_half at phase D's shapes, before phase D's runs), then drives the
+rfft_ct_half at phase D's shapes, before phase D's runs; the two forward
+transforms also on one row, under one wave of the card, at n = 32768 and
+reading overlapping frames in place), then drives the
 port's paths through the entry points a user calls:
 
   phase A  the engine's summary-only scan (parallel/scan.scan_chunks with
@@ -119,6 +121,9 @@ KERNEL_INFO = {
                     "detex_tpu/ops/pallas_kernels.py:104"),
 }
 DENSE_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_fold")
+# launches per timing of the block transforms, which take under 0.3 ms: a
+# mean of 3 would hold the first launch's start-up
+TRANSFORM_REPS = 20
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
 # the tensor cores, the rate every kernel here computes at
 HBM_BYTES_PER_S = 3.35e12
@@ -162,6 +167,33 @@ def cuda_ms(fn, reps=3, warm_s=0.3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=50):
+    """Mean device milliseconds of fn() without the host's launch cost:
+    CUDA events around one replay of a CUDA graph of ``reps`` calls. For
+    shapes under one wave of the card, where cuda_ms would time the host's
+    launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def transform_ms(fn):
+    """cuda_ms over TRANSFORM_REPS launches."""
+    return cuda_ms(fn, reps=TRANSFORM_REPS)
 
 
 def bound(nbytes, flops):
@@ -335,9 +367,10 @@ def compare_rfft(frames, blk, timing=False):
     need(err <= 2e-3, "rfft_ct_fused spectra err %g > 2e-3" % err)
     out = dict(err=err)
     if timing:
-        out["ms"] = cuda_ms(lambda: ck.rfft_ct_fused(frames, blk))
-        out["plain_ms"] = cuda_ms(lambda: ref.rfft_ct_fused_ref(frames, blk))
-        out["library_ms"] = cuda_ms(lambda: torch.fft.rfft(frames, n=blk))
+        out["ms"] = transform_ms(lambda: ck.rfft_ct_fused(frames, blk))
+        out["plain_ms"] = transform_ms(
+            lambda: ref.rfft_ct_fused_ref(frames, blk))
+        out["library_ms"] = transform_ms(lambda: torch.fft.rfft(frames, n=blk))
         N = frames.shape[0]
         out["bound"] = bound(N * blk * 4 + N * (blk // 2 + 1) * 8,
                              N * rfft_flops(blk))
@@ -355,9 +388,10 @@ def compare_irfft(spec, blk, timing=False):
     need(rel <= 2e-5, "irfft_ct_fused err %g of the row max > 2e-5" % rel)
     out = dict(err=diff.max().item(), rel=rel)
     if timing:
-        out["ms"] = cuda_ms(lambda: ck.irfft_ct_fused(spec, blk))
-        out["plain_ms"] = cuda_ms(lambda: ref.irfft_ct_fused_ref(spec, blk))
-        out["library_ms"] = cuda_ms(lambda: torch.fft.irfft(spec, n=blk))
+        out["ms"] = transform_ms(lambda: ck.irfft_ct_fused(spec, blk))
+        out["plain_ms"] = transform_ms(
+            lambda: ref.irfft_ct_fused_ref(spec, blk))
+        out["library_ms"] = transform_ms(lambda: torch.fft.irfft(spec, n=blk))
         N = spec.shape[0]
         out["bound"] = bound(N * (blk // 2 + 1) * 8 + N * blk * 4,
                              N * rfft_flops(blk))
@@ -728,11 +762,91 @@ def compare_half(frames, blk):
     del k, r
     N = frames.shape[0]
     return dict(
-        err=err, ms=cuda_ms(lambda: ck.rfft_ct_half(frames, blk)),
-        plain_ms=cuda_ms(lambda: ref.rfft_ct_half_ref(frames, blk)),
-        library_ms=cuda_ms(lambda: torch.fft.rfft(frames, n=blk)),
+        err=err, ms=transform_ms(lambda: ck.rfft_ct_half(frames, blk)),
+        plain_ms=transform_ms(lambda: ref.rfft_ct_half_ref(frames, blk)),
+        library_ms=transform_ms(lambda: torch.fft.rfft(frames, n=blk)),
         bound=bound(N * blk * 4 + 2 * N * dft.half_rp(blk) * 4,
                     N * rfft_flops(blk)))
+
+
+def forward_extras(dev):
+    """rfft_ct_fused (B4) and rfft_ct_half (B6) beyond the shapes of the
+    ``kernels`` line, each held against its twin first (spectra 2e-3, B6's
+    zeros past blk/2 exact) and timed beside torch.fft.rfft: one row; the
+    per-chunk route's 84 rows of 16,384 (D2) and 42 rows of 32,768 (D1),
+    under one wave of the card and so timed by graph replay; n = 32768 at
+    648 and 2,352 rows; and the framed form the paths use (overlapping
+    frames read in place from the padded demuxed batch) at phase C's
+    re-verify shape, D3's shape and one D1 chunk, beside contiguous() +
+    torch.fft.rfft of the same view."""
+    g = torch.Generator(device=dev).manual_seed(77)
+    errs = {"rfft_ct_fused": 0.0, "rfft_ct_half": 0.0}
+
+    def held(name, got, rows, blk):
+        R = blk // 2 + 1
+        if name == "rfft_ct_fused":
+            err = (got - ref.rfft_ct_fused_ref(rows, blk)).abs().max().item()
+        else:
+            want = ref.rfft_ct_half_ref(rows, blk)
+            got = [a.reshape(-1, dft.half_rp(blk)) for a in got]
+            err = max((a[:, :R] - b[:, :R]).abs().max().item()
+                      for a, b in zip(got, want))
+            need(all(bool((a[:, R:] == 0).all()) for a in got),
+                 "rfft_ct_half spectra past blk/2 not zero")
+        torch.cuda.synchronize()
+        need(err <= 2e-3, "%s spectra err %g > 2e-3" % (name, err))
+        errs[name] = max(errs[name], err)
+        return err
+
+    for name, N, blk in (("rfft_ct_fused", 1, 16384),
+                         ("rfft_ct_fused", 84, 16384),
+                         ("rfft_ct_fused", 42, 32768),
+                         ("rfft_ct_fused", 648, 32768),
+                         ("rfft_ct_half", 1, 32768),
+                         ("rfft_ct_half", 2352, 32768)):
+        x = torch.randn((N, blk), generator=g, device=dev)
+        fn = getattr(ck, name)
+        err = held(name, fn(x, blk), x, blk)
+        timer = graph_ms if N < 132 else transform_ms
+        say("  %s %d x %d: max_abs_err %.3g; kernel %.4f ms, torch.fft.rfft "
+            "%.4f ms%s" % (name, N, blk, err, timer(lambda: fn(x, blk)),
+                           timer(lambda: torch.fft.rfft(x, n=blk)),
+                           " (graph replay of 50)" if N < 132 else ""))
+        del x
+    L_c = int(7200 * SR)
+    for name, tag, B, L, n_c, blk in (
+            ("rfft_ct_fused", "C's re-verify", 8, L_c, 3000, 16384),
+            ("rfft_ct_half", "D3", 16, L_c, 9000, 16384),
+            ("rfft_ct_fused", "one D1 chunk", 1, int(3720 * SR), 6000,
+             32768)):
+        _, _, D0, W, m = tds._os_geometry(L, n_c, blk)
+        xq = torch.randn((B, NC, m * W + D0), generator=g, device=dev)
+        if name == "rfft_ct_fused":
+            fn = lambda: dft.rfft_frames(xq, blk, W, m)
+        else:
+            fn = lambda: dft.rfft_pair_frames(xq, blk, W, m,
+                                              dft.half_rp(blk))
+        before = ck.LAUNCHES[name]
+        got = fn()
+        need(ck.LAUNCHES[name] == before + 1, "%s framed: not one launch"
+             % name)
+        rows = xq.unfold(2, blk, W).reshape(-1, blk)
+        err = held(name, got.reshape(-1, blk // 2 + 1)
+                   if name == "rfft_ct_fused" else got, rows, blk)
+        del got, rows
+        timer = graph_ms if B * NC * m < 132 else transform_ms
+        say("  %s framed (%s): %d frames of %d at stride %d in %d rows: "
+            "max_abs_err %.3g; kernel, frames read in place %.4f ms; "
+            "contiguous() + torch.fft.rfft %.4f ms; kernel on the copied "
+            "frames %.4f ms + the copy %.4f ms"
+            % (name, tag, B * NC * m, blk, W, B * NC, err, timer(fn),
+               timer(lambda: torch.fft.rfft(
+                   xq.unfold(2, blk, W).contiguous(), n=blk)),
+               timer(lambda r=xq.unfold(2, blk, W).reshape(-1, blk):
+                     getattr(ck, name)(r, blk)),
+               timer(lambda: xq.unfold(2, blk, W).contiguous())))
+        del xq
+    return {k: dict(err=v) for k, v in errs.items()}
 
 
 def compare_os_scan(fin, nv, nbin):
@@ -1476,6 +1590,9 @@ def main():
     res_d = phase_d_kernels(dev, d1, d2, d3)
     checks.append(res_d)
     times.update(res_d)
+    say("phase D: the forward transforms at small N, at n = 32768 and in "
+        "the framed form")
+    checks.append(forward_extras(dev))
     torch.cuda.empty_cache()
     counted("D1", phase_d1, dev, d1)
     del d1

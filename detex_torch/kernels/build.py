@@ -24,9 +24,9 @@ SOURCES = ("fwd_prep_fold.cu", "spec_ds_fold.cu", "rfft_ct.cu",
            "irfft_ct.cu", "ds_finalize_os_fold.cu", "rfft_ct_half.cu",
            "ds_finalize_os_scan.cu", "ds_finalize_os.cu", "hist_uniform.cu",
            "ds_finalize.cu")
-HEADERS = ("fft.cuh", "fwd_prep_fold.cuh", "spec_ds_fold.cuh", "rfft_ct.cuh",
-           "irfft_ct.cuh", "finalize_os.cuh", "ds_finalize_os_fold.cuh",
-           "rfft_ct_half.cuh",
+HEADERS = ("fft.cuh", "fft_regs.cuh", "fwd_prep_fold.cuh",
+           "spec_ds_fold.cuh", "rfft_ct.cuh", "irfft_ct.cuh",
+           "finalize_os.cuh", "ds_finalize_os_fold.cuh", "rfft_ct_half.cuh",
            "ds_finalize_os_scan.cuh", "ds_finalize_os.cuh",
            "hist_uniform.cuh", "ds_finalize.cuh")
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,15 +46,15 @@ _ARGTYPES = {
     # ur, ui, fr, fi, a, power, su, nv, tw, ds, pyr, hist, B, S, D, nc, m,
     # W, head, Rp, nbin, sub, log2m, stream
     "detex_spec_ds_fold": [_P] * 12 + [_I] * 11 + [_P],
-    # x, tw, out, N, log2m, stream
-    "detex_rfft_ct": [_P] * 3 + [_LL, _I, _P],
+    # x, stage, tw, out, N, Lp, m, W, log2m, stream
+    "detex_rfft_ct": [_P] * 4 + [_LL, _LL, _I, _I, _I, _P],
     # spec, tw, out, N, log2m, stream
     "detex_irfft_ct": [_P] * 3 + [_LL, _I, _P],
     # cb, a, pw, su, nv, ds, pyr, hist, BS, D, m, blk, W, head, group,
     # nbin, stream
     "detex_ds_finalize_os_fold": [_P] * 8 + [_LL] + [_I] * 7 + [_P],
-    # x, tw, fr, fi, N, Rp, log2m, stream
-    "detex_rfft_ct_half": [_P] * 4 + [_LL, _I, _I, _P],
+    # x, stage, tw, fr, fi, N, Lp, m, W, Rp, log2m, stream
+    "detex_rfft_ct_half": [_P] * 5 + [_LL, _LL, _I, _I, _I, _I, _P],
     # cb, a, pw, su, nv, ds, pyr, hist, S, D, m, blk, W, head, nbin, stream
     "detex_ds_finalize_os_scan": [_P] * 8 + [_LL] + [_I] * 6 + [_P],
     # cb, a, pw, su, ds, S, D, m, blk, W, head, stream

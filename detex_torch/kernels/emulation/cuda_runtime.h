@@ -22,6 +22,7 @@
 
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+struct alignas(16) float4 { float x, y, z, w; };
 struct dim3e { unsigned x, y, z; };
 
 extern thread_local dim3e threadIdx;

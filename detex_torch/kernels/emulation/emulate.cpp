@@ -2,7 +2,8 @@
 // g++ -std=c++20 -O2 -shared -fPIC -I<this dir> -I<kernels dir>
 // emulate.cpp. Entry points take host pointers and the arguments of the
 // CUDA entry points (blk = 16384 or 32768) and run every thread block of
-// the grid in turn.
+// the grid in turn; emu_fft_regs runs the register-resident FFT core of
+// fft_regs.cuh alone.
 #include <functional>
 #include <thread>
 #include <vector>
@@ -99,17 +100,42 @@ extern "C" int emu_spec_ds_fold(const float* ur, const float* ui,
   return 0;
 }
 
-extern "C" int emu_rfft_ct(const float* x, const float* tw, float* out,
-                           long long N, int log2m) {
+extern "C" int emu_rfft_ct(const float* x, const float* stage,
+                           const float* tw, float* out, long long N,
+                           long long Lp, int m, int W, int log2m) {
+  const float2* st2 = reinterpret_cast<const float2*>(stage);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   float2* out2 = reinterpret_cast<float2*>(out);
   if (log2m != 13 && log2m != 14) return 1;
-  run_grid(N, detex::kThreads, [=] {
+  run_grid(N, log2m == 13 ? detex::RegsFft<13>::T : detex::RegsFft<14>::T,
+           [=] {
     if (log2m == 13) {
-      detex::rfft_ct_kernel<13>(x, tw2, out2);
+      detex::rfft_ct_kernel<13>(x, Lp, m, W, st2, tw2, out2);
     } else {
-      detex::rfft_ct_kernel<14>(x, tw2, out2);
+      detex::rfft_ct_kernel<14>(x, Lp, m, W, st2, tw2, out2);
     }
+  });
+  return 0;
+}
+
+// The FFT core alone: the M-point complex forward transform of each row of
+// zin [N, M] (re, im pairs) to zout, natural order in and out.
+extern "C" int emu_fft_regs(const float* zin, const float* stage,
+                            float* zout, long long N, int log2m) {
+  const float2* st2 = reinterpret_cast<const float2*>(stage);
+  float2* z = reinterpret_cast<float2*>(detex::smem);
+  if (log2m != 13 && log2m != 14) return 1;
+  const int M = 1 << log2m;
+  const int T = M / 32;
+  run_grid(N, T, [=] {
+    const float* row = zin + blockIdx.x * 2LL * M;
+    if (log2m == 13) {
+      detex::fft_regs_row<13>(reinterpret_cast<const float4*>(row), st2, z);
+    } else {
+      detex::fft_regs_row<14>(reinterpret_cast<const float4*>(row), st2, z);
+    }
+    float2* dst = reinterpret_cast<float2*>(zout) + blockIdx.x * (long long)M;
+    for (int k = threadIdx.x; k < M; k += T) dst[k] = z[k];
   });
   return 0;
 }
@@ -173,15 +199,19 @@ extern "C" int emu_hist_uniform(const float* ds, int* hist, long long S,
   return 0;
 }
 
-extern "C" int emu_rfft_ct_half(const float* x, const float* tw, float* fr,
-                                float* fi, long long N, int Rp, int log2m) {
+extern "C" int emu_rfft_ct_half(const float* x, const float* stage,
+                                const float* tw, float* fr, float* fi,
+                                long long N, long long Lp, int m, int W,
+                                int Rp, int log2m) {
+  const float2* st2 = reinterpret_cast<const float2*>(stage);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   if (log2m != 13 && log2m != 14) return 1;
-  run_grid(N, detex::kThreads, [=] {
+  run_grid(N, log2m == 13 ? detex::RegsFft<13>::T : detex::RegsFft<14>::T,
+           [=] {
     if (log2m == 13) {
-      detex::rfft_ct_half_kernel<13>(x, tw2, fr, fi, Rp);
+      detex::rfft_ct_half_kernel<13>(x, Lp, m, W, st2, tw2, fr, fi, Rp);
     } else {
-      detex::rfft_ct_half_kernel<14>(x, tw2, fr, fi, Rp);
+      detex::rfft_ct_half_kernel<14>(x, Lp, m, W, st2, tw2, fr, fi, Rp);
     }
   });
   return 0;

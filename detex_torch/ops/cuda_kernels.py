@@ -164,27 +164,57 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
     return ds, pyr, hist
 
 
-def rfft_ct_fused(x, n):
-    """Forward real DFT of every row of x [N, n] float32 (n = 16384 or
-    32768 on the card): complex64 [N, n//2 + 1], bins 0..n/2 in natural
-    order. Semantics: reference.rfft_ct_fused_ref."""
+def _frame_source(x, n, stride, frames, name):
+    """Checks of a forward transform's source x [R, Lp]: ``frames`` frames
+    of n samples at stride ``stride`` per row (contiguous [N, n] rows when
+    ``stride`` is None), every frame on a 16-byte boundary. Returns
+    (Lp, m, W)."""
+    _require(x.dim() == 2, "%s: x must be two-dimensional, got %s"
+             % (name, tuple(x.shape)))
+    Lp = x.shape[1]
+    if stride is None:
+        _require(frames == 1 and Lp == n,
+                 "%s: x must be [N, %d], got %s" % (name, n, tuple(x.shape)))
+        return Lp, 1, n
+    m, W = int(frames), int(stride)
+    _require(m >= 1 and W >= 1 and (m - 1) * W + n <= Lp,
+             "%s: %d frames of %d at stride %d do not fit rows of %d"
+             % (name, m, n, W, Lp))
+    _require(W % 4 == 0 and Lp % 4 == 0,
+             "%s: stride %d and row length %d must be multiples of 4 "
+             "samples (frames start on 16-byte boundaries)" % (name, W, Lp))
+    return Lp, m, W
+
+
+def _frame_view(x, n, m, W):
+    """The frames as rows [R*m, n] (a copy unless the rows are [N, n])."""
+    return x.unfold(1, n, W)[:, :m].reshape(-1, n)
+
+
+def rfft_ct_fused(x, n, stride=None, frames=1):
+    """Forward real DFT of float32 rows of n samples (n = 16384 or 32768
+    on the card): complex64 [N, n//2 + 1], bins 0..n/2 in natural order.
+    x is [N, n], or with ``stride`` [R, Lp] holding ``frames`` frames of n
+    samples at that stride per row, read in place (frame f of row r is
+    output row r*frames + f). Semantics: reference.rfft_ct_fused_ref."""
+    Lp, m, W = _frame_source(x, n, stride, frames, "rfft_ct_fused")
     if not _on_cuda(x):
-        return _ref.rfft_ct_fused_ref(x, n)
+        return _ref.rfft_ct_fused_ref(_frame_view(x, n, m, W), n)
     log2m = _log2m(n)
-    _require(x.dim() == 2 and x.shape[1] == n,
-             "x must be [N, %d], got %s" % (n, tuple(x.shape)))
-    _require(x.dtype == torch.float32 and x.is_contiguous(),
-             "x must be contiguous float32")
-    N = x.shape[0]
+    _require(x.dtype == torch.float32 and x.is_contiguous()
+             and x.data_ptr() % 16 == 0,
+             "x must be contiguous float32 on a 16-byte boundary")
+    N = x.shape[0] * m
     out = torch.empty((N, n // 2 + 1), dtype=torch.complex64,
                       device=x.device)
     if N == 0:
         return out
     tw = _dft.twiddles(n, x.device)
+    stage = _dft.stage_twiddles(n, x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        rc = lib.detex_rfft_ct(_ptr(x), _ptr(tw), _ptr(out), N, log2m,
-                               _stream(x.device))
+        rc = lib.detex_rfft_ct(_ptr(x), _ptr(stage), _ptr(tw), _ptr(out), N,
+                               Lp, m, W, log2m, _stream(x.device))
     _build.check(lib, rc, "rfft_ct_fused")
     LAUNCHES["rfft_ct_fused"] += 1
     return out
@@ -261,29 +291,32 @@ def ds_finalize_os_fold(cb, a, power, sum_u, nv, head, D, W, group=1,
     return ds, pyr, hist
 
 
-def rfft_ct_half(x, n):
-    """Forward real DFT of every row of x [N, n] float32 (n = 16384 or
-    32768 on the card) as the padded half-spectrum pair (fr, fi)
-    [N, dft.half_rp(n)] float32, zeros past n//2. Semantics:
-    reference.rfft_ct_half_ref."""
+def rfft_ct_half(x, n, stride=None, frames=1):
+    """Forward real DFT of float32 rows of n samples (n = 16384 or 32768
+    on the card) as the padded half-spectrum pair (fr, fi)
+    [N, dft.half_rp(n)] float32, zeros past n//2. x is [N, n], or with
+    ``stride`` [R, Lp] holding ``frames`` frames per row, read in place,
+    as rfft_ct_fused. Semantics: reference.rfft_ct_half_ref."""
+    Lp, m, W = _frame_source(x, n, stride, frames, "rfft_ct_half")
     if not _on_cuda(x):
-        return _ref.rfft_ct_half_ref(x, n)
+        return _ref.rfft_ct_half_ref(_frame_view(x, n, m, W), n)
     log2m = _log2m(n)
-    _require(x.dim() == 2 and x.shape[1] == n,
-             "x must be [N, %d], got %s" % (n, tuple(x.shape)))
-    _require(x.dtype == torch.float32 and x.is_contiguous(),
-             "x must be contiguous float32")
-    N = x.shape[0]
+    _require(x.dtype == torch.float32 and x.is_contiguous()
+             and x.data_ptr() % 16 == 0,
+             "x must be contiguous float32 on a 16-byte boundary")
+    N = x.shape[0] * m
     Rp = _dft.half_rp(n)
     fr = torch.empty((N, Rp), dtype=torch.float32, device=x.device)
     fi = torch.empty_like(fr)
     if N == 0:
         return fr, fi
     tw = _dft.twiddles(n, x.device)
+    stage = _dft.stage_twiddles(n, x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        rc = lib.detex_rfft_ct_half(_ptr(x), _ptr(tw), _ptr(fr), _ptr(fi), N,
-                                    Rp, log2m, _stream(x.device))
+        rc = lib.detex_rfft_ct_half(_ptr(x), _ptr(stage), _ptr(tw), _ptr(fr),
+                                    _ptr(fi), N, Lp, m, W, Rp, log2m,
+                                    _stream(x.device))
     _build.check(lib, rc, "rfft_ct_half")
     LAUNCHES["rfft_ct_half"] += 1
     return fr, fi

@@ -4,17 +4,24 @@ Block-transform geometry and twiddle tables for the CUDA kernels.
 Namesake of detex_tpu/ops/dft.py. The TPU package splits each 16384-point
 transform into two 128 x 128 matrix stages (``_split``, ``_ct_mats_half``)
 because its matrix unit is the fast path there. The CUDA kernels instead run
-a shared-memory Stockham FFT (four radix-8 passes, then one radix-2 or
-radix-4 pass) of the real signal packed as n/2 complex points
-(kernels/fft.cuh), so what they need from this module is the split (still
-the legality rule of the block kernels, n1 == 128), the padded spectrum
-width ``half_rp`` and one table of roots of unity, built in float64 on the
-host and cast to float32. ``rfft_ct`` / ``irfft_ct`` are the block
-transforms of the dense re-verify and the per-chunk route (ops/ds.py
-os_prep_batch, os_block_scan_batch, _os_block), ``rfft_pair`` the forward
-transform of the fused scan's unfused prep (ds.os_prep_batch_pair). Blocks
-of 16384 and 32768 samples go to the kernels; any other block length to
-``torch.fft`` (where detex_tpu runs its XLA matrix DFT, not a Pallas
+an FFT of the real signal packed as n/2 complex points. The forward block
+transforms (rfft_ct_fused, rfft_ct_half) keep 32 points a thread in
+registers over three Stockham passes (radix 16, 16, 32 at n = 16384; 16,
+32, 32 at 32768) with two exchanges through shared memory, two rows
+resident per SM at 16384, and read overlapping frames in place
+(kernels/fft_regs.cuh); the inverse transform and the fused scan kernels
+run four radix-8 passes and one radix-2 or radix-4 pass in shared memory
+(kernels/fft.cuh). What they need from this module is the split (still the
+legality rule of the block kernels, n1 == 128), the padded spectrum width
+``half_rp`` and the tables of roots of unity, built in float64 on the host
+and cast to float32 (``twiddles`` for every kernel, ``stage_twiddles`` laid
+out per pass and lane for the forward transforms). ``rfft_ct`` /
+``rfft_frames`` / ``irfft_ct`` are the block transforms of the dense
+re-verify and the per-chunk route (ops/ds.py os_prep_batch,
+os_block_scan_batch, _os_block), ``rfft_pair`` / ``rfft_pair_frames`` the
+forward transform of the fused scan's unfused prep (ds.os_prep_batch_pair).
+Blocks of 16384 and 32768 samples go to the kernels; any other block length
+to ``torch.fft`` (where detex_tpu runs its XLA matrix DFT, not a Pallas
 kernel). ``irfft_full`` is the inverse of the full-length banks and of the
 device prep (ops/ds.py, ops/prep.py), always ``torch.fft``, as detex_tpu
 uses ``jnp.fft`` there.
@@ -68,6 +75,70 @@ def twiddles(n, device):
         tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
         _TWIDDLES[key] = torch.from_numpy(tab).to(device)
     return _TWIDDLES[key]
+
+
+_STAGE_TWIDDLES = {}
+
+
+def stage_twiddles(n, device):
+    """Roots of unity of the forward kernels' second and third pass
+    (kernels/fft_regs.cuh), float32 [16*R2 + n//2, 2] as (re, im) pairs
+    with M = n//2 points, T = M//32 threads and R2 = 16 (n = 16384) or 32
+    (n = 32768): first exp(-2*pi*i*r*j/(16*R2)) at [r*16 + j], r < R2,
+    j < 16, then exp(-2*pi*i*r*t/M) at [16*R2 + r*T + t], r < 32, t < T,
+    so that the lanes of a warp load neighbouring entries. Built in float64
+    on the host, cast once and cached per (n, device)."""
+    if not kernel_block(n):
+        raise ValueError("no forward transform kernel for n = %d" % n)
+    device = torch.device(device)
+    key = (int(n), str(device))
+    if key not in _STAGE_TWIDDLES:
+        M = n // 2
+        T = M // 32
+        R2 = M // (16 * 32)
+        e2 = np.outer(np.arange(R2), np.arange(16)) % (16 * R2)
+        e3 = np.outer(np.arange(32), np.arange(T)) % M
+        ang = -2.0 * np.pi * np.concatenate(
+            [e2.ravel() / (16.0 * R2), e3.ravel() / float(M)])
+        tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+        _STAGE_TWIDDLES[key] = torch.from_numpy(tab).to(device)
+    return _STAGE_TWIDDLES[key]
+
+
+def _frames(xq, n, W, m):
+    """The m frames of n samples at stride W of every row of xq [..., Lp]
+    as a view [..., m, n]."""
+    if (m - 1) * W + n > xq.shape[-1]:
+        raise ValueError("%d frames of %d at stride %d do not fit rows of %d"
+                         % (m, n, W, xq.shape[-1]))
+    return xq.unfold(-1, n, W)[..., :m, :]
+
+
+def rfft_frames(xq, n, W, m):
+    """== rfft_ct(xq.unfold(-1, n, W)[..., :m, :], n): the forward transform
+    of m frames of n samples at stride W of every row of xq [..., Lp]
+    float32 -> complex64 [..., m, n//2 + 1]. When kernel_block(n), one
+    rfft_ct_fused launch that reads the overlapping frames in place (on the
+    card no copy of them is made); else torch.fft.rfft of the view."""
+    from detex_torch.ops import cuda_kernels as _ck
+    if not kernel_block(n):
+        return torch.fft.rfft(_frames(xq, n, W, m), n=n, dim=-1)
+    lead = xq.shape[:-1]
+    out = _ck.rfft_ct_fused(xq.reshape(-1, xq.shape[-1]), n, stride=W,
+                            frames=m)
+    return out.reshape(lead + (m, n // 2 + 1))
+
+
+def rfft_pair_frames(xq, n, W, m, rp):
+    """== rfft_pair of the m frames of n samples at stride W of every row
+    of xq [..., Lp] float32: the (real, imag) pair [rows * m, rp], frame f
+    of row r at r*m + f. When kernel_block(n) and rp == half_rp(n), one
+    rfft_ct_half launch that reads the frames in place."""
+    from detex_torch.ops import cuda_kernels as _ck
+    if kernel_block(n) and rp == half_rp(n):
+        return _ck.rfft_ct_half(xq.reshape(-1, xq.shape[-1]), n, stride=W,
+                                frames=m)
+    return rfft_pair(_frames(xq, n, W, m).reshape(-1, n), n, rp)
 
 
 def rfft_ct(x, n):

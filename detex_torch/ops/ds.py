@@ -477,17 +477,15 @@ def os_prep_batch_pair(X, n_c, nc, blk_fft):
     (n_c > W): X [B, Lc] -> (Fr, Fi [B*nc, m*Rp], a, power [B, out_len]).
     standardize_demux, window stats (rolling.window_stats_rows, not yet
     padded or power-safe), exactly m frames at stride W and their forward
-    transform as a (real, imag) pair (dft.rfft_pair: one rfft_ct_half
-    launch on the card)."""
-    B = X.shape[0]
+    transform as a (real, imag) pair (dft.rfft_pair_frames: one
+    rfft_ct_half launch on the card, the frames read in place)."""
     L_c = X.shape[1] // nc
     xq, _ = standardize_demux(X, n_c, nc, blk_fft)
     _, pad0, _, W, m = _os_geometry(L_c, n_c, blk_fft)
     a, power = window_stats_rows(xq[:, :, pad0:pad0 + L_c], n_c, n_c * nc)
     Rp = _dft.half_rp(blk_fft)
-    fr, fi = _dft.rfft_pair(
-        xq.unfold(2, blk_fft, W).reshape(B * nc * m, blk_fft), blk_fft, Rp)
-    return fr.reshape(B * nc, m * Rp), fi.reshape(B * nc, m * Rp), a, power
+    fr, fi = _dft.rfft_pair_frames(xq, blk_fft, W, m, Rp)
+    return fr.reshape(-1, m * Rp), fi.reshape(-1, m * Rp), a, power
 
 
 def _pad_stats(a, power, out_len, width):
@@ -532,13 +530,13 @@ def os_prep_batch(X, n_c, nc, blk_fft):
     standardize_demux (per-row standardization, demux, padding), window
     stats (rolling.window_stats_rows; power not yet power-safe), exactly m
     overlapping blocks at stride W and their forward transform
-    (dft.rfft_ct: one rfft_ct_fused launch on the card)."""
+    (dft.rfft_frames: one rfft_ct_fused launch on the card, the blocks
+    read in place)."""
     L_c = X.shape[1] // nc
     xq, _ = standardize_demux(X, n_c, nc, blk_fft)
-    _, pad0, _, W, _ = _os_geometry(L_c, n_c, blk_fft)
+    _, pad0, _, W, m = _os_geometry(L_c, n_c, blk_fft)
     a, power = window_stats_rows(xq[:, :, pad0:pad0 + L_c], n_c, n_c * nc)
-    F = _dft.rfft_ct(xq.unfold(2, blk_fft, W), blk_fft)
-    return F, a, power
+    return _dft.rfft_frames(xq, blk_fft, W, m), a, power
 
 
 def os_block_scan_batch(F, a, power, Ufd2, sum_u, d_mask, n_c, nc, blk_fft,
@@ -586,7 +584,8 @@ def os_prep(x, n_c, nc, blk_fft):
     """Prep of one chunk for the per-chunk route: x [Lc] float32 tensor ->
     (F [nc, m, blk_fft//2 + 1] complex64, a, power [out_len]), i.e.
     os_prep_batch of a batch of one (standardization, window stats with
-    the exact zero-power rule, exactly m frames at stride W, dft.rfft_ct)."""
+    the exact zero-power rule, exactly m frames at stride W,
+    dft.rfft_frames)."""
     F, a, power = os_prep_batch(x[None], n_c, nc, blk_fft)
     return F[0], a[0], power[0]
 

@@ -337,6 +337,69 @@ def test_rfft_pair_matches_float64_rfft(n):
         tdft.rfft_pair(torch.from_numpy(x), n, n // 2)
 
 
+@pytest.mark.parametrize("n,W,m", [(16384, 7296, 3), (32768, 26752, 2),
+                                   (8192, 4096, 3), (16384, 16384, 2)])
+def test_rfft_frames_equal_rfft_of_unfold(n, W, m):
+    """dft.rfft_frames and dft.rfft_pair_frames on the CPU are exactly
+    dft.rfft_ct and dft.rfft_pair of the unfolded (copied) frames: at the
+    kernels' block lengths (the twins), at 8192 (torch.fft) and with frames
+    that do not overlap; rows longer than the frames need, two leading
+    dimensions."""
+    rng = np.random.default_rng(n + W)
+    xq = torch.from_numpy(rng.standard_normal(
+        (2, 3, (m - 1) * W + n + 128)).astype(np.float32))
+    frames = xq.unfold(2, n, W)[:, :, :m]
+    F = tdft.rfft_frames(xq, n, W, m)
+    assert tuple(F.shape) == (2, 3, m, n // 2 + 1)
+    assert torch.equal(F, tdft.rfft_ct(frames, n))
+    rp = tdft.half_rp(n)
+    fr, fi = tdft.rfft_pair_frames(xq, n, W, m, rp)
+    wr, wi = tdft.rfft_pair(frames.reshape(-1, n), n, rp)
+    assert tuple(fr.shape) == (6 * m, rp)
+    assert torch.equal(fr, wr) and torch.equal(fi, wi)
+    with pytest.raises(ValueError):
+        tdft.rfft_frames(xq, n, W, m + 1)
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_stage_twiddles_match_float64(n):
+    """dft.stage_twiddles: the forward kernels' per-pass roots of unity at
+    the places fft_regs.cuh reads them, within float32 rounding of the
+    float64 values."""
+    tab = _np(tdft.stage_twiddles(n, "cpu")).astype(np.float64)
+    M, T, R2 = n // 2, n // 64, n // 1024
+    assert tab.shape == (16 * R2 + M, 2)
+    z = tab[:, 0] + 1j * tab[:, 1]
+    for r, j in ((0, 5), (1, 1), (R2 - 1, 15), (7, 9)):
+        want = np.exp(-2j * np.pi * r * j / (16 * R2))
+        assert abs(z[r * 16 + j] - want) <= 1e-7
+    for r, t in ((0, 3), (1, 1), (31, T - 1), (17, 200), (2, T // 2)):
+        want = np.exp(-2j * np.pi * r * t / M)
+        assert abs(z[16 * R2 + r * T + t] - want) <= 1e-7
+    assert np.abs(np.abs(z) - 1).max() <= 1e-7
+    with pytest.raises(ValueError):
+        tdft.stage_twiddles(8192, "cpu")
+
+
+def test_forward_wrappers_check_the_frame_geometry():
+    """The forward transform wrappers refuse, on any device, a stride or
+    row length off the 16-byte boundary the kernels load by, frames that
+    do not fit their rows, and a contiguous input that is not [N, n]."""
+    from detex_torch.ops import cuda_kernels as tck
+    x = torch.zeros((2, 16384 + 4 * 130))
+    for fn in (tck.rfft_ct_fused, tck.rfft_ct_half):
+        with pytest.raises(ValueError):
+            fn(x, 16384, stride=130, frames=3)
+        with pytest.raises(ValueError):
+            fn(x[:, :-2], 16384, stride=128, frames=3)
+        with pytest.raises(ValueError):
+            fn(x, 16384, stride=128, frames=6)
+        with pytest.raises(ValueError):
+            fn(x, 16384)
+        out = fn(x, 16384, stride=128, frames=5)
+        assert (out if torch.is_tensor(out) else out[0]).shape[0] == 10
+
+
 @pytest.mark.parametrize("case", ["fold-8192", "per-chunk"])
 def test_dense_entries_beyond_the_caps_match_jax(monkeypatch, case):
     """run_bank_batch / run_bank_rows_batch / run_bank_triggers_batch

@@ -489,3 +489,120 @@ def test_raw_path_dec2_on_the_card_matches_cpu(cuda, zerophase):
         assert (c[i + 1] - g[i + 1]).abs().max().item() <= 2e-5
         assert torch.equal(c[i + 2], g[i + 2])
         assert torch.equal(c[i + 4], g[i + 4])
+
+
+# (blk, rows R, frames m, stride W; None: contiguous rows [R, blk]): one
+# transform, row counts that no number of resident rows divides, more rows
+# than one wave of the card holds, and overlapping frames read in place
+# from rows longer than the frames need
+FRAME_CASES = [(16384, 1, 1, None), (32768, 1, 1, None),
+               (16384, 5, 1, None), (32768, 3, 1, None),
+               (16384, 301, 1, None), (16384, 6, 55, 13312),
+               (16384, 3, 98, 7296), (32768, 3, 14, 26752),
+               (16384, 2, 3, 128)]
+
+
+def _frame_source(cuda, blk, R, m, W, seed):
+    Lp = blk if W is None else (m - 1) * W + blk + 256
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (R, Lp)).astype(np.float32), device=cuda)
+    rows = x if W is None else x.unfold(1, blk, W)[:, :m].reshape(-1, blk)
+    return x, rows
+
+
+@pytest.mark.parametrize("blk,R,m,W", FRAME_CASES)
+def test_rfft_ct_kernel_frames_match_twin(cuda, blk, R, m, W):
+    """rfft_ct_fused (B4) on contiguous rows and on frames read in place,
+    against unfold + the twin; one launch either way."""
+    x, rows = _frame_source(cuda, blk, R, m, W, blk + R)
+    ck.reset_launches()
+    k = ck.rfft_ct_fused(x, blk, stride=W, frames=m)
+    assert ck.LAUNCHES == dict(_NONE, rfft_ct_fused=1)
+    r = ref.rfft_ct_fused_ref(rows, blk)
+    torch.cuda.synchronize()
+    assert k.shape == r.shape
+    assert (k - r).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("blk,R,m,W", FRAME_CASES)
+def test_rfft_ct_half_kernel_frames_match_twin(cuda, blk, R, m, W):
+    """rfft_ct_half (B6) on contiguous rows and on frames read in place,
+    against unfold + the twin; zeros past blk/2 exact."""
+    x, rows = _frame_source(cuda, blk, R, m, W, blk + R + 1)
+    ck.reset_launches()
+    k = ck.rfft_ct_half(x, blk, stride=W, frames=m)
+    assert ck.LAUNCHES == dict(_NONE, rfft_ct_half=1)
+    r = ref.rfft_ct_half_ref(rows, blk)
+    torch.cuda.synchronize()
+    Rb = blk // 2 + 1
+    for a, b in zip(k, r):
+        assert a.shape == b.shape
+        assert (a[:, :Rb] - b[:, :Rb]).abs().max().item() <= 2e-3
+        assert bool((a[:, Rb:] == 0).all())
+
+
+def test_forward_transforms_refuse_misaligned_frames(cuda):
+    """A stride or row length that is not a multiple of 4 samples (frames
+    off the 16-byte boundary the kernels load by) raises; nothing falls
+    back to another transform."""
+    x = torch.zeros((2, 16384 + 4 * 130), device=cuda)
+    for fn in (ck.rfft_ct_fused, ck.rfft_ct_half):
+        with pytest.raises(ValueError):
+            fn(x, 16384, stride=130, frames=3)
+        with pytest.raises(ValueError):
+            fn(x[:, :-2], 16384, stride=128, frames=3)
+        with pytest.raises(ValueError):
+            fn(x, 16384, stride=128, frames=6)
+
+
+@pytest.mark.parametrize("path", ["os_prep_batch", "os_prep",
+                                  "os_prep_batch_pair"])
+def test_prep_paths_read_frames_in_place(cuda, monkeypatch, path):
+    """The three call paths of the forward transforms hand the kernel the
+    padded demuxed batch itself (its storage, its rows, the frame stride
+    and count), so no copy of the overlapping frames is made; one launch a
+    call; the result equals the twin's on the copied frames."""
+    blk, n_c, L_c = (BLK, 9000, 60000) if path.endswith("pair") else (
+        BLK, 560, 60000)
+    rng = np.random.default_rng(41)
+    X = torch.as_tensor(rng.standard_normal((2, NC * L_c)).astype(
+        np.float32), device=cuda)
+    _, _, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+    seen = {}
+    demux = tds.standardize_demux
+    name = "rfft_ct_half" if path.endswith("pair") else "rfft_ct_fused"
+    kernel = getattr(ck, name)
+
+    def spy_demux(*args):
+        seen["xq"] = demux(*args)[0]
+        return seen["xq"], None
+
+    def spy_kernel(x, n, stride=None, frames=1):
+        seen["call"] = (x.data_ptr(), tuple(x.shape), n, stride, frames)
+        return kernel(x, n, stride=stride, frames=frames)
+
+    monkeypatch.setattr(tds, "standardize_demux", spy_demux)
+    monkeypatch.setattr(ck, name, spy_kernel)
+    ck.reset_launches()
+    if path == "os_prep":
+        out = tds.os_prep(X[0], n_c, NC, blk)[0][None]
+    else:
+        out = getattr(tds, path)(X, n_c, NC, blk)[:2 if path.endswith(
+            "pair") else 1]
+        out = out[0] if len(out) == 1 else out
+    assert ck.LAUNCHES == dict(_NONE, **{name: 1})
+    xq = seen["xq"]
+    B = xq.shape[0]
+    assert seen["call"] == (xq.data_ptr(), (B * NC, m * W + D0), blk, W, m)
+    frames = xq.unfold(2, blk, W).reshape(-1, blk)
+    Rb = blk // 2 + 1
+    if path.endswith("pair"):
+        want = ref.rfft_ct_half_ref(frames, blk)
+        Rp = dft.half_rp(blk)
+        for a, b in zip(out, want):
+            a = a.reshape(-1, Rp)
+            assert (a[:, :Rb] - b[:, :Rb]).abs().max().item() <= 2e-3
+            assert bool((a[:, Rb:] == 0).all())
+    else:
+        want = ref.rfft_ct_fused_ref(frames, blk).reshape(B, NC, m, Rb)
+        assert (out - want).abs().max().item() <= 2e-3

@@ -48,13 +48,14 @@ def emu(tmp_path_factory):
     lib.emu_fwd_prep_fold.argtypes = [P] * 6 + [I, I, LL, I, I, I, I, I, LL,
                                                 I, I]
     lib.emu_spec_ds_fold.argtypes = [P] * 12 + [I] * 11
-    lib.emu_rfft_ct.argtypes = [P] * 3 + [LL, I]
+    lib.emu_rfft_ct.argtypes = [P] * 4 + [LL, LL, I, I, I]
+    lib.emu_fft_regs.argtypes = [P] * 3 + [LL, I]
     lib.emu_irfft_ct.argtypes = [P] * 3 + [LL, I]
     lib.emu_ds_finalize_os_fold.argtypes = [P] * 8 + [LL] + [I] * 7
     lib.emu_ds_finalize_os_scan.argtypes = [P] * 8 + [LL] + [I] * 6
     lib.emu_ds_finalize_os.argtypes = [P] * 5 + [LL] + [I] * 5
     lib.emu_hist_uniform.argtypes = [P] * 2 + [LL, LL, I]
-    lib.emu_rfft_ct_half.argtypes = [P] * 4 + [LL, I, I]
+    lib.emu_rfft_ct_half.argtypes = [P] * 5 + [LL, LL, I, I, I, I]
     lib.emu_ds_finalize.argtypes = [P] * 5 + [LL, I, LL]
     return lib
 
@@ -195,7 +196,8 @@ def test_block_transforms_source_match_twins(emu, blk):
     log2m = blk.bit_length() - 2
     R = blk // 2 + 1
     out = torch.empty((3, R), dtype=torch.complex64)
-    assert emu.emu_rfft_ct(_ptr(x), _ptr(tw), _ptr(out), 3, log2m) == 0
+    assert emu.emu_rfft_ct(_ptr(x), _ptr(dft.stage_twiddles(blk, "cpu")),
+                           _ptr(tw), _ptr(out), 3, blk, 1, blk, log2m) == 0
     ref_f = ref.rfft_ct_fused_ref(x, blk)
     assert (out - ref_f).abs().max().item() <= 2e-3
     spec = ref_f.clone()
@@ -267,14 +269,93 @@ def test_rfft_ct_half_source_matches_twin(emu, blk):
     Rp = dft.half_rp(blk)
     fr = torch.full((3, Rp), float("nan"))
     fi = torch.full((3, Rp), float("nan"))
-    assert emu.emu_rfft_ct_half(_ptr(x), _ptr(dft.twiddles(blk, "cpu")),
-                                _ptr(fr), _ptr(fi), 3, Rp,
+    assert emu.emu_rfft_ct_half(_ptr(x), _ptr(dft.stage_twiddles(blk, "cpu")),
+                                _ptr(dft.twiddles(blk, "cpu")), _ptr(fr),
+                                _ptr(fi), 3, blk, 1, blk, Rp,
                                 blk.bit_length() - 2) == 0
     r_re, r_im = ref.rfft_ct_half_ref(x, blk)
     R = blk // 2 + 1
     for k, r in ((fr, r_re), (fi, r_im)):
         assert (k[:, :R] - r[:, :R]).abs().max().item() <= 2e-3
         assert bool((k[:, R:] == 0).all()) and bool((r[:, R:] == 0).all())
+
+
+@pytest.mark.parametrize("M", [8192, 16384])
+def test_fft_regs_core_matches_numpy_fft(emu, M):
+    """The register-resident FFT core (fft_regs.cuh) alone: the M-point
+    complex forward transform of two rows, one of noise and one a single
+    tone plus an impulse, against numpy.fft.fft in float64. Tolerance:
+    2e-3 absolute on values up to ~M (the spectra gate of the kernels that
+    use it); noise rows measure ~1e-4."""
+    rng = np.random.default_rng(M)
+    z = rng.standard_normal((2, M)) + 1j * rng.standard_normal((2, M))
+    z[1] = 0.1 * np.exp(2j * np.pi * 37 * np.arange(M) / M)
+    z[1, 5] += 3.0
+    zin = torch.from_numpy(z.astype(np.complex64))
+    zout = torch.full((2, M), float("nan"), dtype=torch.complex64)
+    n = 2 * M
+    assert emu.emu_fft_regs(_ptr(zin), _ptr(dft.stage_twiddles(n, "cpu")),
+                            _ptr(zout), 2, n.bit_length() - 2) == 0
+    want = np.fft.fft(zin.numpy().astype(np.complex128), axis=1)
+    err = np.abs(zout.numpy() - want).max()
+    assert np.isfinite(err) and err <= 2e-3
+
+
+def _framed_source(blk, R, m, W, seed):
+    """Rows [R, Lp] of noise holding m overlapping frames of blk samples
+    at stride W, Lp longer than the frames need."""
+    Lp = (m - 1) * W + blk + 256
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((R, Lp)).astype(np.float32))
+
+
+# (blk, rows R, frames m, stride W): one transform; a row count that no
+# number of resident rows divides; overlapping frames in rows longer than
+# they need (W < blk, Lp > n), at both block lengths
+FRAME_CASES = [(16384, 1, 1, None), (32768, 1, 1, None),
+               (16384, 5, 1, None), (16384, 2, 3, 7296),
+               (32768, 1, 3, 26752), (16384, 3, 2, 128)]
+
+
+@pytest.mark.parametrize("blk,R,m,W", FRAME_CASES)
+def test_rfft_ct_source_frames_match_twin(emu, blk, R, m, W):
+    """rfft_ct (B4) on contiguous rows (W None) and on frames read in
+    place, against unfold + the twin; nothing written past the output."""
+    x = (_framed_source(blk, R, m, W, blk + R) if W else torch.from_numpy(
+        np.random.default_rng(R).standard_normal((R, blk)).astype(
+            np.float32)))
+    Lp, Wk = x.shape[1], W or blk
+    N, Rb = R * m, blk // 2 + 1
+    out = torch.full((N * Rb + 1,), float("nan"), dtype=torch.complex64)
+    assert emu.emu_rfft_ct(_ptr(x), _ptr(dft.stage_twiddles(blk, "cpu")),
+                           _ptr(dft.twiddles(blk, "cpu")), _ptr(out), N, Lp,
+                           m, Wk, blk.bit_length() - 2) == 0
+    assert bool(torch.isnan(out[-1].real))
+    want = ref.rfft_ct_fused_ref(x.unfold(1, blk, Wk)[:, :m].reshape(N, blk),
+                                 blk)
+    assert (out[:-1].reshape(N, Rb) - want).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("blk,R,m,W", FRAME_CASES)
+def test_rfft_ct_half_source_frames_match_twin(emu, blk, R, m, W):
+    """rfft_ct_half (B6) on contiguous rows and on frames read in place,
+    against unfold + the twin; zeros past blk/2 exact."""
+    x = (_framed_source(blk, R, m, W, blk + R + 1) if W else torch.from_numpy(
+        np.random.default_rng(R + 9).standard_normal((R, blk)).astype(
+            np.float32)))
+    Lp, Wk = x.shape[1], W or blk
+    N, Rp, Rb = R * m, dft.half_rp(blk), blk // 2 + 1
+    fr = torch.full((N, Rp), float("nan"))
+    fi = torch.full((N, Rp), float("nan"))
+    assert emu.emu_rfft_ct_half(_ptr(x), _ptr(dft.stage_twiddles(blk, "cpu")),
+                                _ptr(dft.twiddles(blk, "cpu")), _ptr(fr),
+                                _ptr(fi), N, Lp, m, Wk, Rp,
+                                blk.bit_length() - 2) == 0
+    r_re, r_im = ref.rfft_ct_half_ref(
+        x.unfold(1, blk, Wk)[:, :m].reshape(N, blk), blk)
+    for k, r in ((fr, r_re), (fi, r_im)):
+        assert (k[:, :Rb] - r[:, :Rb]).abs().max().item() <= 2e-3
+        assert bool((k[:, Rb:] == 0).all())
 
 
 def _os_block_inputs(blk, S, D, m, seed):
