@@ -7,7 +7,9 @@ Smoke run of detex_torch on one NVIDIA GPU of compute capability 9.0 (H100).
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch twin on the card (the scan kernels at the
 small test geometry, at blk 32768, at phase A's geometry cut to 16 chunks,
-at phase B's shape and, after the main-path run, at phase A's full shape;
+at phase B's shape, at one thread block of work and under one wave of the
+card at both block lengths and, after the main-path run, at phase A's
+full shape;
 the dense re-verify kernels at the small geometry, at blk 32768 and, after
 the main-path run, at phase C's re-verify shape; the per-chunk kernels and
 rfft_ct_half at phase D's shapes, before phase D's runs; the two forward
@@ -326,6 +328,58 @@ def kernel_vs_twin(dev, B, Lc, n, S, D, mode, seed, timing=False,
             agg.update(ms=s["ms"], plain_ms=s["plain_ms"])
     say("  fwd_prep_fold blk %d: spectra max_abs_err %.3g, a err %.3g"
         % (blk, p["err"], p["a_err"]))
+    return res
+
+
+def scan_extras(dev):
+    """fwd_prep_fold and spec_ds_fold beyond the main path's shapes: at one
+    thread block of work and under one wave of the card's 132 SMs, at blk
+    16384 and at blk 32768 (n_c 16300), each held against its twin first,
+    spec_ds_fold in both row orders with and without the DS array. Timed
+    by CUDA-graph replay: events around single launches this short would
+    time the host's launch rate."""
+    res = {"fwd_prep_fold": dict(err=0.0), "spec_ds_fold": dict(err=0.0)}
+    cases = (("one block", 1, 3 * 8000, 1680, 1, 1, None),
+             ("one block", 1, 3 * 30000, 3 * 16300, 1, 2, 32768),
+             ("under one wave", 20, 3 * 35000, 1680, 2, 3, None),
+             ("under one wave", 4, 3 * 200000, 3 * 16300, 2, 1, 32768))
+    for tag, B, Lc, n, S, D, block_fft in cases:
+        rng = np.random.default_rng(B + n)
+        n_c, L_c = n // NC, Lc // NC
+        bank = tds.build_bank([basis(rng, D, n) for _ in range(S)], NC, Lc,
+                              dev, block_fft=block_fft)
+        blk = bank["blk_fft"]
+        out_len, pad0, D0, W, m = tds._os_geometry(L_c, n_c, blk)
+        g = torch.Generator(device=dev).manual_seed(B + n)
+        xq = torch.zeros((B, NC, m * W + D0), dtype=torch.float32, device=dev)
+        xq[:, :, pad0:pad0 + L_c] = torch.randn((B, NC, L_c), generator=g,
+                                                device=dev)
+        nv = torch.full((B,), out_len, dtype=torch.int32, device=dev)
+        if L_c // 2 > n_c:                           # ragged last chunk
+            xq[-1, :, pad0 + L_c // 2:] = 0.0
+            nv[-1] = L_c // 2 - n_c + 1
+        p = compare_prep(xq, n_c, blk, out_len)
+        Fr, Fi, a, power = p["prep"]
+        ur, ui = tds.bank_spec_pair(bank)
+        su = bank["sum_u"].T.contiguous()
+        err = 0.0
+        for mode in ("sub", "net"):
+            args = (ur, ui, Fr, Fi, a, power, su, nv, mode, NC, W, D0, blk)
+            for emit_ds in (True, False):
+                err = max(err, compare_spec(args, emit_ds)["err"])
+        prep_ms = graph_ms(lambda: ck.fwd_prep_fold(xq, NC, n_c, blk,
+                                                    out_len))
+        spec_ms = graph_ms(lambda: ck.spec_ds_fold(*args, nbin=NBIN,
+                                                   emit_ds=False))
+        res["fwd_prep_fold"]["err"] = max(res["fwd_prep_fold"]["err"],
+                                          p["err"])
+        res["spec_ds_fold"]["err"] = max(res["spec_ds_fold"]["err"], err)
+        say("  %s, blk %d: fwd_prep_fold %d frames x %d channels, spectra "
+            "max_abs_err %.3g, %.4f ms; spec_ds_fold %d transforms (sub, "
+            "net; DS array on, off), max_abs_err %.3g, summary-only %.4f ms "
+            "[graph replay]"
+            % (tag, blk, B * m, NC, p["err"], prep_ms, B * S * D * m, err,
+               spec_ms))
     return res
 
 
@@ -1481,15 +1535,19 @@ def anatomy(dev, pa):
         2 * ur.numel() * 4 + spectra + stats + B * S * m * (W // 128) * 4
         + B * S * NBIN * 4,
         B * S * m * D * (NC * (M + 1) * 8 + rfft_flops(blk) + 3 * W))
+    # what its transforms read of U and F, nearly all from L2 (its second
+    # floor, beside the device-memory bound)
+    out["spec_ds_fold"]["l2_bytes"] = B * S * m * D * 2 * 2 * NC * (M + 1) * 4
     s = out["spec_ds_fold"]
     say("phase A anatomy (B=%d): glue %.3f ms; fwd_prep_fold kernel %.3f "
         "ms, twin %.3f ms, spectra max_abs_err %.3g; spec_ds_fold "
         "summary-only kernel %.3f ms, twin %.3f ms, pyr max_abs_err %.3g, "
-        "hist moves %d (allowed %d) (SM clock %s)"
+        "hist moves %d (allowed %d), %.2f GB of spectra read by its %d "
+        "transforms (SM clock %s)"
         % (nv.shape[0], out["glue_ms"], out["fwd_prep_fold"]["ms"],
            out["fwd_prep_fold"]["plain_ms"], out["fwd_prep_fold"]["err"],
            s["ms"], s["plain_ms"], s["err"], s["moves"], s["allowed"],
-           sm_clock()))
+           s["l2_bytes"] / 1e9, B * S * m * D, sm_clock()))
     return out
 
 
@@ -1543,6 +1601,8 @@ def main():
         say("  %s at phase-B shape%s: kernel %.3f ms, twin %.3f ms (SM "
             "clock %s)" % (k, " (emit_ds)" if k == "spec_ds_fold" else "",
                            timed[k]["ms"], timed[k]["plain_ms"], sm_clock()))
+    say("phase 2: the scan kernels at one block of work and under one wave")
+    checks.append(scan_extras(dev))
     torch.cuda.empty_cache()
 
     launches, routes = {}, {}

@@ -39,13 +39,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ARGTYPES = {
-    # xq, tw, fr, fi, a, power, B, nc, Lp, m, W, D0, pad0, n_c, out_len,
-    # Rp, log2m, stream
-    "detex_fwd_prep_fold": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _I, _LL,
+    # xq, stage, tw, fr, fi, a, power, B, nc, Lp, m, W, D0, pad0, n_c,
+    # out_len, Rp, log2m, stream
+    "detex_fwd_prep_fold": [_P] * 7 + [_I, _I, _LL, _I, _I, _I, _I, _I, _LL,
                                        _I, _I, _P],
-    # ur, ui, fr, fi, a, power, su, nv, tw, ds, pyr, hist, B, S, D, nc, m,
-    # W, head, Rp, nbin, sub, log2m, stream
-    "detex_spec_ds_fold": [_P] * 12 + [_I] * 11 + [_P],
+    # ur, ui, fr, fi, a, power, su, nv, stage, tw, ds, pyr, hist, B, S, D,
+    # nc, m, W, head, Rp, nbin, sub, log2m, stream
+    "detex_spec_ds_fold": [_P] * 13 + [_I] * 11 + [_P],
     # x, stage, tw, out, N, Lp, m, W, log2m, stream
     "detex_rfft_ct": [_P] * 4 + [_LL, _LL, _I, _I, _I, _P],
     # spec, tw, out, N, log2m, stream

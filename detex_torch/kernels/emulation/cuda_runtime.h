@@ -2,8 +2,9 @@
 // (../*.cuh) so their arithmetic and indexing can be checked on a machine
 // without a GPU. One thread block runs as kThreads std::threads:
 // __syncthreads is a std::barrier, warp shuffles exchange through a
-// per-warp buffer behind a 32-thread barrier, shared memory is one global
-// buffer (blocks run one after another, see emulate.cpp). Not a model of
+// per-warp buffer behind a 32-thread barrier, a named barrier (bar.sync id,
+// count) is one std::barrier per equal group of the block, shared memory is
+// one global buffer (blocks run one after another, see emulate.cpp). Not a model of
 // timing or of the memory system.
 #pragma once
 #include <atomic>
@@ -12,10 +13,12 @@
 #include <cstdint>
 #include <cstring>
 
+#define DETEX_HOST_EMULATION 1
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(x) __attribute__((aligned(x)))
@@ -23,6 +26,9 @@
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 struct dim3e { unsigned x, y, z; };
 
 extern thread_local dim3e threadIdx;
@@ -34,7 +40,12 @@ struct EmuWarp {
 };
 extern EmuWarp emu_warps[32];
 
+extern std::barrier<>* emu_group_barriers[16];   // [id], id >= 1
+
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline void named_barrier_sync(int id, int) {
+  emu_group_barriers[id]->arrive_and_wait();
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
@@ -62,4 +73,26 @@ template <class T> T __shfl_up_sync(unsigned, T v, int o) {
 template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
   return emu_shuffle(v, (threadIdx.x & 31) ^ o, true);
 }
+// lanes of the warp holding the same value as this one
+inline unsigned __match_any_sync(unsigned, int v) {
+  const int lane = threadIdx.x & 31;
+  EmuWarp& w = emu_warps[threadIdx.x >> 5];
+  std::memcpy(w.v[lane], &v, sizeof(int));
+  w.bar->arrive_and_wait();
+  unsigned mask = 0u;
+  for (int l = 0; l < 32; ++l) {
+    int u;
+    std::memcpy(&u, w.v[l], sizeof(int));
+    if (u == v) mask |= 1u << l;
+  }
+  w.bar->arrive_and_wait();
+  return mask;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  unsigned v = pred ? 1u << (threadIdx.x & 31) : 0u;
+  for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }

@@ -1,12 +1,13 @@
 // Shared device helpers of the block-transform kernels: an in-place
-// mixed-radix Stockham FFT over shared memory, the split (forward) and
-// pack (inverse) passes between a real block and its half-length complex
-// transform, and a block-wide exclusive scan.
+// mixed-radix Stockham FFT over shared memory (irfft_ct runs on it; the
+// other transforms on the register-resident core of fft_regs.cuh), the
+// pack pass from a half spectrum to the half-length complex transform of a
+// real block, and a block-wide exclusive scan.
 //
 // A real block of n = 2M samples is transformed as M complex points
-// z[j] = x[2j] + i*x[2j+1] plus a post-pass (forward) or pre-pass (inverse),
-// so one transform of a 16384-sample block needs M = 8192 complex values,
-// 64 KiB of shared memory. Roots of unity come from a float32 table
+// z[j] = x[2j] + i*x[2j+1] plus a pre-pass (inverse; the forward post-pass
+// is fft_regs.cuh's), so one transform of a 16384-sample block needs
+// M = 8192 complex values, 64 KiB of shared memory. Roots of unity come from a float32 table
 // tw[k] = exp(-2*pi*i*k/n), k < n/2, built in float64 on the host
 // (detex_torch/ops/dft.py twiddles).
 #pragma once
@@ -16,9 +17,9 @@
 
 namespace detex {
 
-// Threads per block. On an H100 (700 W) 1024 threads beat 512 by 11% on
-// spec_ds_fold at the subspace-scan shape and tied on fwd_prep_fold;
-// asking for two resident 512-thread blocks (64 registers) was slower.
+// Threads per block of the shared-memory FFT (irfft_ct). On an H100
+// (700 W) 1024 threads beat 512 by 11% on the scan kernel that first ran on
+// it; asking for two resident 512-thread blocks (64 registers) was slower.
 constexpr int kThreads = 1024;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -161,30 +162,9 @@ __device__ __forceinline__ void fft_smem(float2* z,
   stockham_pass<(LOG2M == 13 ? 2 : 4), M, INV>(z, tw, 4096);
 }
 
-// Bin k (0 <= k <= M) of the real DFT of a 2M-sample block from Z, the
-// M-point forward transform of z[j] = x[2j] + i x[2j+1] in shared memory:
-// X[k] = Xe[k] + W_N^k Xo[k], Xe = (Z[k] + conj Z[M-k]) / 2,
-// Xo = (Z[k] - conj Z[M-k]) / 2i; X[0] and X[M] come from Z[0].
-template <int M>
-__device__ __forceinline__ float2 rfft_split(const float2* z,
-                                             const float2* __restrict__ tw,
-                                             int k) {
-  if (k == 0 || k == M) {
-    const float2 z0 = z[0];
-    return make_float2(k == 0 ? z0.x + z0.y : z0.x - z0.y, 0.f);
-  }
-  const float2 p = z[k];
-  const float2 q = z[M - k];
-  const float er = 0.5f * (p.x + q.x);
-  const float ei = 0.5f * (p.y - q.y);
-  const float orr = 0.5f * (p.y + q.y);
-  const float oi = -0.5f * (p.x - q.x);
-  const float2 w = __ldg(&tw[k]);
-  return make_float2(er + w.x * orr - w.y * oi, ei + w.x * oi + w.y * orr);
-}
-
-// Pre-pass of the inverse real DFT, the converse of rfft_split: from the
-// half spectrum V (already scaled by 1/N), with a = V[k], b = V[M-k] and
+// Pre-pass of the inverse real DFT, the converse of the forward split
+// (fft_regs.cuh rfft_split_pairs): from the half spectrum V (already scaled
+// by 1/N), with a = V[k], b = V[M-k] and
 // w = tw[k] = e^{-2 pi i k/N},
 // Z'[k] = (a + conj b) + i e^{+2 pi i k/N} (a - conj b);
 // the inverse M-point FFT of Z' is z[j] = x[2j] + i x[2j+1].

@@ -1,11 +1,13 @@
-// Register-resident forward FFT core of the block transforms rfft_ct and
-// rfft_ct_half: a row of n = 2M real samples (M = 8192 or 16384) is
-// transformed as M complex points z[j] = x[2j] + i x[2j+1] by a block of
-// T = M/32 threads, each holding 32 complex points in registers, in three
-// Stockham passes (radix 16, 16, 32 at M = 8192; 16, 32, 32 at 16384) with
-// two exchanges through shared memory between them, then the split pass
-// from Z to the real DFT's bins 0..M, which handles bins k and M-k in one
-// thread.
+// Register-resident FFT core of the block transforms rfft_ct, rfft_ct_half,
+// fwd_prep_fold (forward) and spec_ds_fold (inverse): a row of n = 2M real
+// samples (M = 8192 or 16384) is transformed as M complex points
+// z[j] = x[2j] + i x[2j+1] by T = M/32 threads, each holding 32 complex
+// points in registers, in three Stockham passes (radix 16, 16, 32 at
+// M = 8192; 16, 32, 32 at 16384) with two exchanges through shared memory
+// between them. Forward, the split pass then makes the real DFT's bins 0..M
+// from Z, bins k and M-k in one thread. Inverse (irfft_regs_row, below), the
+// pack pre-pass runs in registers before pass 1 and the last pass leaves the
+// samples in registers; the roots are the forward tables' conjugates.
 //
 // What the layout does for the card:
 //  - pass 1 reads the row from device memory, 16 bytes a lane (two work
@@ -58,30 +60,36 @@ __device__ __forceinline__ float cos32(int k) {
   }
 }
 
-// v * exp(-2 pi i k / 32), 0 <= k < 16 known at compile time: the trivial
-// roots cost no multiply, the odd eighths two
+// v * exp(-2 pi i k / 32) (INV: exp(+2 pi i k / 32)), 0 <= k < 16 known at
+// compile time: the trivial roots cost no multiply, the odd eighths two
+template <bool INV>
 __device__ __forceinline__ float2 mul_root32(float2 v, int k) {
   if (k == 0) return v;
-  if (k == 8) return make_float2(v.y, -v.x);
-  if (k == 4) {
+  if (INV) v.y = -v.y;                // conj(conj(v) w) = v conj(w)
+  float2 p;
+  if (k == 8) {
+    p = make_float2(v.y, -v.x);
+  } else if (k == 4) {
     const float c = cos32(4);
-    return make_float2(c * (v.x + v.y), c * (v.y - v.x));
-  }
-  if (k == 12) {
+    p = make_float2(c * (v.x + v.y), c * (v.y - v.x));
+  } else if (k == 12) {
     const float c = cos32(4);
-    return make_float2(c * (v.y - v.x), -c * (v.x + v.y));
+    p = make_float2(c * (v.y - v.x), -c * (v.x + v.y));
+  } else {
+    const float c = k < 8 ? cos32(k) : -cos32(16 - k);
+    const float s = k < 8 ? cos32(8 - k) : cos32(k - 8);
+    p = make_float2(v.x * c + v.y * s, v.y * c - v.x * s);
   }
-  const float c = k < 8 ? cos32(k) : -cos32(16 - k);
-  const float s = k < 8 ? cos32(8 - k) : cos32(k - 8);
-  return make_float2(v.x * c + v.y * s, v.y * c - v.x * s);
+  if (INV) p.y = -p.y;
+  return p;
 }
 
-// Forward R-point DFT (R = 16 or 32) of values held in registers: radix-2
-// decimation in time, every index and root known at compile time. Every
-// loop counts up to a constant, so that the compiler unrolls all of them
-// and the values stay in registers.
-template <int R>
-__device__ __forceinline__ void dft_fwd(float2 (&v)[R]) {
+// R-point DFT (R = 16 or 32; INV: sign +1, unscaled) of values held in
+// registers: radix-2 decimation in time, every index and root known at
+// compile time. Every loop counts up to a constant, so that the compiler
+// unrolls all of them and the values stay in registers.
+template <int R, bool INV>
+__device__ __forceinline__ void dft_radix(float2 (&v)[R]) {
   constexpr int LR = R == 16 ? 4 : 5;
   static_assert((1 << LR) == R, "radix must be 16 or 32");
 #pragma unroll
@@ -102,12 +110,95 @@ __device__ __forceinline__ void dft_fwd(float2 (&v)[R]) {
       const int p = b & ((1 << l) - 1);
       const int lo = ((b >> l) << (l + 1)) + p;
       const int hi = lo + (1 << l);
-      const float2 t = mul_root32(v[hi], p * (16 >> l));
+      const float2 t = mul_root32<INV>(v[hi], p * (16 >> l));
       const float2 u = v[lo];
       v[lo] = make_float2(u.x + t.x, u.y + t.y);
       v[hi] = make_float2(u.x - t.x, u.y - t.y);
     }
   }
+}
+
+// Barrier of the threads that share one transform: the whole block, or
+// one group of a block that runs several transforms side by side (named
+// barrier ``id`` >= 1 over ``count`` threads, a multiple of 32).
+struct BlockBarrier {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+#ifndef DETEX_HOST_EMULATION
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
+struct GroupBarrier {
+  int id, count;
+  __device__ __forceinline__ void operator()() const {
+    named_barrier_sync(id, count);
+  }
+};
+
+// Pass 2 of either direction (radix R2 after 16 points): work item j reads
+// z[j + r NW2], multiplies by W_{16 R2}^{r (j mod 16)} (INV: its conjugate)
+// and writes z[(j - j mod 16) R2 + j mod 16 + 16 r]; a thread's items
+// j = t, t + T share j mod 16 and so their roots. Pass 1 left logical index
+// i at z[i ^ ((i >> SWZ) & 15)]; the writes here are in natural order,
+// consecutive lanes on consecutive points. One barrier between the reads
+// and the writes; the caller puts one before and one after.
+template <int LOG2M, bool INV, int SWZ, class Bar>
+__device__ __forceinline__ void regs_pass2(int t,
+                                           const float2* __restrict__ stage,
+                                           float2* z, Bar bar) {
+  using P = RegsFft<LOG2M>;
+  constexpr int T = P::T, R2 = P::R2, NW2 = P::NW2;
+  constexpr int IT = NW2 / T;
+  float2 v[IT][R2];
+  const int jm = t & 15;
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+#pragma unroll
+    for (int r = 0; r < R2; ++r) {
+      const int i = t + it * T + r * NW2;
+      v[it][r] = z[i ^ ((i >> SWZ) & 15)];
+    }
+  }
+  bar();
+#pragma unroll
+  for (int r = 1; r < R2; ++r) {
+    float2 w = __ldg(&stage[r * 16 + jm]);
+    if (INV) w.y = -w.y;
+#pragma unroll
+    for (int it = 0; it < IT; ++it) v[it][r] = cmul(v[it][r], w);
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    dft_radix<R2, INV>(v[it]);
+    const int j = t + it * T;
+    float2* zb = z + (j - jm) * R2 + jm;
+#pragma unroll
+    for (int r = 0; r < R2; ++r) zb[r * 16] = v[it][r];
+  }
+}
+
+// Pass 3 of either direction (radix 32 after T = M/32 points): thread t
+// reads z[t + r T], multiplies by W_M^{r t} (INV: its conjugate) and ends
+// with the transform's points t + r T in v[r].
+template <int LOG2M>
+__device__ __forceinline__ void regs_pass3_load(int t, const float2* z,
+                                                float2 (&v)[32]) {
+  constexpr int T = RegsFft<LOG2M>::T;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) v[r] = z[t + r * T];
+}
+template <int LOG2M, bool INV>
+__device__ __forceinline__ void regs_pass3_dft(
+    int t, const float2* __restrict__ stage, float2 (&v)[32]) {
+  using P = RegsFft<LOG2M>;
+#pragma unroll
+  for (int r = 1; r < 32; ++r) {
+    float2 w = __ldg(&stage[P::TAB2 + r * P::T + t]);
+    if (INV) w.y = -w.y;
+    v[r] = cmul(v[r], w);
+  }
+  dft_radix<32, INV>(v);
 }
 
 // Forward FFT of the M complex points behind ``src`` (the row's 2M floats
@@ -121,7 +212,7 @@ __device__ __forceinline__ void fft_regs_row(const float4* __restrict__ src,
                                              const float2* __restrict__ stage,
                                              float2* z) {
   using P = RegsFft<LOG2M>;
-  constexpr int T = P::T, R2 = P::R2, NW2 = P::NW2;
+  constexpr int T = P::T;
   const int t = threadIdx.x;
   {
     // pass 1 (radix 16, no roots): work items j = 2t and 2t + 1 read
@@ -133,8 +224,8 @@ __device__ __forceinline__ void fft_regs_row(const float4* __restrict__ src,
       v0[r] = make_float2(q.x, q.y);
       v1[r] = make_float2(q.z, q.w);
     }
-    dft_fwd<16>(v0);
-    dft_fwd<16>(v1);
+    dft_radix<16, false>(v0);
+    dft_radix<16, false>(v1);
     float2* zt = z + 32 * t;
     const int sw = t & 15;
 #pragma unroll
@@ -144,54 +235,101 @@ __device__ __forceinline__ void fft_regs_row(const float4* __restrict__ src,
     }
   }
   __syncthreads();
-  {
-    // pass 2 (radix R2 after 16 points): work item j reads z[j + r NW2],
-    // multiplies by W_{16 R2}^{r (j mod 16)} and writes
-    // z[(j - j mod 16) R2 + j mod 16 + 16 r]; a thread's items j = t,
-    // t + T share j mod 16 and so their roots
-    constexpr int IT = NW2 / T;
-    float2 v[IT][R2];
-    const int jm = t & 15;
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-#pragma unroll
-      for (int r = 0; r < R2; ++r) {
-        const int i = t + it * T + r * NW2;
-        v[it][r] = z[i ^ ((i >> 5) & 15)];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 1; r < R2; ++r) {
-      const float2 w = __ldg(&stage[r * 16 + jm]);
-#pragma unroll
-      for (int it = 0; it < IT; ++it) v[it][r] = cmul(v[it][r], w);
-    }
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      dft_fwd<R2>(v[it]);
-      const int j = t + it * T;
-      float2* zb = z + (j - jm) * R2 + jm;
-#pragma unroll
-      for (int r = 0; r < R2; ++r) zb[r * 16] = v[it][r];
-    }
-  }
+  regs_pass2<LOG2M, false, 5>(t, stage, z, BlockBarrier{});
   __syncthreads();
   {
-    // pass 3 (radix 32 after T = M/32 points): thread t reads z[t + r T],
-    // multiplies by W_M^{r t} and writes the same places
+    // pass 3 writes the places it read
     float2 v[32];
-#pragma unroll
-    for (int r = 0; r < 32; ++r) v[r] = z[t + r * T];
-#pragma unroll
-    for (int r = 1; r < 32; ++r) {
-      v[r] = cmul(v[r], __ldg(&stage[P::TAB2 + r * T + t]));
-    }
-    dft_fwd<32>(v);
+    regs_pass3_load<LOG2M>(t, z, v);
+    regs_pass3_dft<LOG2M, false>(t, stage, v);
 #pragma unroll
     for (int r = 0; r < 32; ++r) z[t + r * T] = v[r];
   }
   __syncthreads();
+}
+
+// Inverse real DFT of one row, the converse of fft_regs_row +
+// rfft_split_pairs: from the half spectrum V[0..M] behind ``src`` (already
+// scaled by 1/n; src(k) gives V[k] for 0 < k < M, src.edge(k) the real
+// part of V[0] or V[M], whose imaginary parts do not count) to the row's
+// samples, x[r] = (x[2j], x[2j + 1]) at j = t + r T, left in registers.
+// Called by the T threads (t = 0..T-1) that share ``bar`` and the exchange
+// buffer z[0..M); its last barrier follows its last read of z, so z is
+// free when it returns.
+//
+// Pack pre-pass, in registers: Z'[k] = (V[k] + conj V[M-k]) + i e^{+2 pi i
+// k/2M} (V[k] - conj V[M-k]) (irfft_pack, fft.cuh), and with (A, E) the two
+// terms of Z'[k], Z'[M-k] = conj A + i conj E: one read of the pair and one
+// root give both. Pass 1's work item j holds points j + r M/16; its mirror
+// points M - k belong to work item M/16 - j, so thread t takes items t and
+// M/16 - t and finds every pair in its own registers. Items 0 and M/32 are
+// their own mirrors: thread 0 takes both, pairs them inside each item, and
+// moves the results to the registers the other threads use. Pass 1 writes
+// logical index i at z[i ^ ((i >> 4) & 15)]: 16 consecutive points a work
+// item, free of bank conflicts there and in pass 2's reads.
+template <int LOG2M, class Src, class Bar>
+__device__ __forceinline__ void irfft_regs_row(
+    int t, Src src, const float2* __restrict__ tw,
+    const float2* __restrict__ stage, float2* z, Bar bar, float2 (&x)[32]) {
+  using P = RegsFft<LOG2M>;
+  constexpr int M = P::M, T = P::T;
+  {
+    float2 v0[16], v1[16];      // items ja = t and jb = 2T - t (T at t = 0)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // slot i: k = t + i 2T -> v0[i], M - k -> v1[15 - i]. Thread 0 loads
+      // item T's pairs (i, 15 - i) in slots 0..7 and item 0's pairs
+      // (i - 7, 23 - i) in slots 8..14, and moves them into place below;
+      // its slot 15 is redone there
+      const int k0 = i < 8 ? T + i * 2 * T : i < 15 ? (i - 7) * 2 * T : T;
+      const int k = t ? t + i * 2 * T : k0;
+      const float2 a = src(k);
+      const float2 b = src(M - k);
+      const float2 w = __ldg(&tw[k]);
+      const float ar = a.x + b.x, ai = a.y - b.y;
+      const float dr = a.x - b.x, di = a.y + b.y;
+      const float er = w.x * dr + w.y * di;
+      const float ei = w.x * di - w.y * dr;
+      v0[i] = make_float2(ar - ei, ai + er);
+      v1[15 - i] = make_float2(ar + ei, er - ai);
+    }
+    if (t == 0) {
+      // item 0's mirror halves wait in v1[1..7], item T's first half in
+      // v0[0..7]; v1[8..15] is in place
+      float2 lo[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lo[i] = v0[i];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) v0[i] = v0[i + 7];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) v0[i + 8] = v1[i];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v1[i] = lo[i];
+      // Z'[0] from the real V[0] and V[M]; Z'[M/2] = 2 conj V[M/2]
+      const float e0 = src.edge(0), eM = src.edge(M);
+      const float2 h = src(M / 2);
+      v0[0] = make_float2(e0 + eM, e0 - eM);
+      v0[8] = make_float2(2.f * h.x, -2.f * h.y);
+    }
+    // pass 1 (radix 16, no roots): item j writes z[16 j + r]
+    dft_radix<16, true>(v0);
+    dft_radix<16, true>(v1);
+    const int jb = t ? 2 * T - t : T;
+    float2* za = z + 16 * t;
+    float2* zb = z + 16 * jb;
+    const int swa = t & 15, swb = jb & 15;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      za[r ^ swa] = v0[r];
+      zb[r ^ swb] = v1[r];
+    }
+  }
+  bar();
+  regs_pass2<LOG2M, true, 4>(t, stage, z, bar);
+  bar();
+  regs_pass3_load<LOG2M>(t, z, x);
+  bar();
+  regs_pass3_dft<LOG2M, true>(t, stage, x);
 }
 
 // The split pass after fft_regs_row: bins 0..M of the real DFT of the
@@ -234,6 +372,16 @@ __device__ __forceinline__ void rfft_split_pairs(const float2* z,
     out(M / 2, make_float2(zh.x, -zh.y));
   }
 }
+
+// Output of rfft_split_pairs as the float pair (fr, fi)
+struct StorePair {
+  float* fr;
+  float* fi;
+  __device__ __forceinline__ void operator()(int k, float2 v) const {
+    fr[k] = v.x;
+    fi[k] = v.y;
+  }
+};
 
 // Start of row ``row`` of a framed source: rows of ``Lp`` floats behind
 // ``x``, each cut into ``m`` frames at stride ``W`` (row r m + f starts at

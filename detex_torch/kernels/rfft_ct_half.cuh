@@ -25,15 +25,6 @@
 
 namespace detex {
 
-struct StorePair {
-  float* fr;
-  float* fi;
-  __device__ __forceinline__ void operator()(int k, float2 v) const {
-    fr[k] = v.x;
-    fi[k] = v.y;
-  }
-};
-
 template <int LOG2M>
 __global__ void __launch_bounds__(RegsFft<LOG2M>::T,
                                   RegsFft<LOG2M>::kRowsPerSm)

@@ -7,7 +7,11 @@ tensors go to the kernel's plain PyTorch twin (ops/reference.py), CUDA
 tensors to the kernel, built at first use (kernels/build.py). A build or
 launch failure raises; nothing falls back to the twin. ``LAUNCHES`` counts
 kernel launches (twin calls are not counted) so a run can show that its main
-path went through the kernels.
+path went through the kernels. The two kernels of the fused scan run their
+block transforms on the register-resident FFT core of kernels/fft_regs.cuh
+(fwd_prep_fold the forward one, spec_ds_fold its inverse), as rfft_ct_fused
+and rfft_ct_half do; irfft_ct_fused on the shared-memory FFT of
+kernels/fft.cuh.
 
 Kernels, the TPU kernel each replaces, and sources:
 
@@ -88,14 +92,21 @@ def fwd_prep_fold(xq, nc, n_c, blk, out_len):
     D0 = n_c - 1 + pad0
     W = blk - D0
     B, nc_, Lp = xq.shape
-    _require(xq.dtype == torch.float32 and xq.is_contiguous(),
-             "xq must be contiguous float32")
+    _require(xq.dtype == torch.float32 and xq.is_contiguous()
+             and xq.data_ptr() % 16 == 0,
+             "xq must be contiguous float32 on a 16-byte boundary")
     _require(nc_ == nc, "xq has %d channels, expected %d" % (nc_, nc))
     _require(W >= 128 and W % 128 == 0 and n_c <= W,
              "geometry n_c=%d blk=%d not supported" % (n_c, blk))
     _require((Lp - D0) % W == 0 and Lp > D0,
              "Lp = %d is not m*W + D0 (W=%d, D0=%d)" % (Lp, W, D0))
     m = (Lp - D0) // W
+    # the transforms read every channel's frames in place, 16 bytes a lane:
+    # rows of Lp = m*W + D0 floats start on 16-byte boundaries because W
+    # and D0 are multiples of 128
+    _require(Lp % 4 == 0 and W % 4 == 0,
+             "row length %d and stride %d must be multiples of 4 samples"
+             % (Lp, W))
     Rp = _dft.half_rp(blk)
     dev = xq.device
     fr = torch.empty((B * nc, m * Rp), dtype=torch.float32, device=dev)
@@ -103,10 +114,11 @@ def fwd_prep_fold(xq, nc, n_c, blk, out_len):
     a = torch.empty((B, m * W), dtype=torch.float32, device=dev)
     power = torch.empty_like(a)
     tw = _dft.twiddles(blk, dev)
+    stage = _dft.stage_twiddles(blk, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         rc = lib.detex_fwd_prep_fold(
-            _ptr(xq), _ptr(tw), _ptr(fr), _ptr(fi), _ptr(a), _ptr(power),
+            _ptr(xq), _ptr(stage), _ptr(tw), _ptr(fr), _ptr(fi), _ptr(a), _ptr(power),
             B, nc, Lp, m, W, D0, pad0, n_c, int(out_len), Rp, log2m,
             _stream(dev))
     _build.check(lib, rc, "fwd_prep_fold")
@@ -131,6 +143,7 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
     Rp = _dft.half_rp(blk)
     _require(head + W == blk and W % 128 == 0 and W // 128 <= 128,
              "geometry W=%d head=%d blk=%d not supported" % (W, head, blk))
+    _require(D >= 1, "sum_u must hold at least one basis dim")
     _require(fr.shape[0] == B * nc and fr.shape[1] % Rp == 0,
              "fr shape %s does not match B=%d nc=%d Rp=%d"
              % (tuple(fr.shape), B, nc, Rp))
@@ -144,6 +157,9 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
                  "spectra, stats and sum_u must be contiguous float32")
     _require(nv.dtype == torch.int32 and nv.is_contiguous(),
              "nv must be contiguous int32")
+    # the kernel reads the stats four positions a load
+    _require(a.data_ptr() % 16 == 0 and power.data_ptr() % 16 == 0,
+             "a and power must start on 16-byte boundaries")
     dev = fr.device
     BS = B * S
     ds = (torch.empty((BS, m * W), dtype=torch.float32, device=dev)
@@ -152,11 +168,12 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
     hist = (torch.zeros((BS, nbin), dtype=torch.int32, device=dev)
             if nbin else None)
     tw = _dft.twiddles(blk, dev)
+    stage = _dft.stage_twiddles(blk, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         rc = lib.detex_spec_ds_fold(
             _ptr(ur), _ptr(ui), _ptr(fr), _ptr(fi), _ptr(a), _ptr(power),
-            _ptr(sum_u), _ptr(nv), _ptr(tw), _ptr(ds), _ptr(pyr), _ptr(hist),
+            _ptr(sum_u), _ptr(nv), _ptr(stage), _ptr(tw), _ptr(ds), _ptr(pyr), _ptr(hist),
             B, S, D, nc, m, W, head, Rp, int(nbin), int(mode == "sub"),
             log2m, _stream(dev))
     _build.check(lib, rc, "spec_ds_fold")

@@ -4,18 +4,21 @@ Block-transform geometry and twiddle tables for the CUDA kernels.
 Namesake of detex_tpu/ops/dft.py. The TPU package splits each 16384-point
 transform into two 128 x 128 matrix stages (``_split``, ``_ct_mats_half``)
 because its matrix unit is the fast path there. The CUDA kernels instead run
-an FFT of the real signal packed as n/2 complex points. The forward block
-transforms (rfft_ct_fused, rfft_ct_half) keep 32 points a thread in
-registers over three Stockham passes (radix 16, 16, 32 at n = 16384; 16,
-32, 32 at 32768) with two exchanges through shared memory, two rows
-resident per SM at 16384, and read overlapping frames in place
-(kernels/fft_regs.cuh); the inverse transform and the fused scan kernels
-run four radix-8 passes and one radix-2 or radix-4 pass in shared memory
-(kernels/fft.cuh). What they need from this module is the split (still the
+an FFT of the real signal packed as n/2 complex points, 32 points a thread
+in registers over three Stockham passes (radix 16, 16, 32 at n = 16384; 16,
+32, 32 at 32768) with two exchanges through shared memory
+(kernels/fft_regs.cuh): the forward block transforms (rfft_ct_fused,
+rfft_ct_half, and the frames of fwd_prep_fold) with two rows resident per
+SM at 16384, reading overlapping frames in place; its inverse (the pack
+pre-pass in registers, the conjugate roots, samples handed over from
+registers) inside spec_ds_fold. irfft_ct_fused still runs four radix-8
+passes and one radix-2 or radix-4 pass in shared memory (kernels/fft.cuh).
+What they need from this module is the split (still the
 legality rule of the block kernels, n1 == 128), the padded spectrum width
 ``half_rp`` and the tables of roots of unity, built in float64 on the host
 and cast to float32 (``twiddles`` for every kernel, ``stage_twiddles`` laid
-out per pass and lane for the forward transforms). ``rfft_ct`` /
+out per pass and lane for the register-resident core; the inverse
+conjugates them). ``rfft_ct`` /
 ``rfft_frames`` / ``irfft_ct`` are the block transforms of the dense
 re-verify and the per-chunk route (ops/ds.py os_prep_batch,
 os_block_scan_batch, _os_block), ``rfft_pair`` / ``rfft_pair_frames`` the
@@ -81,8 +84,9 @@ _STAGE_TWIDDLES = {}
 
 
 def stage_twiddles(n, device):
-    """Roots of unity of the forward kernels' second and third pass
-    (kernels/fft_regs.cuh), float32 [16*R2 + n//2, 2] as (re, im) pairs
+    """Roots of unity of the second and third pass of the register-resident
+    FFT core (kernels/fft_regs.cuh; forward as stored, inverse by
+    conjugation in the kernel), float32 [16*R2 + n//2, 2] as (re, im) pairs
     with M = n//2 points, T = M//32 threads and R2 = 16 (n = 16384) or 32
     (n = 32768): first exp(-2*pi*i*r*j/(16*R2)) at [r*16 + j], r < R2,
     j < 16, then exp(-2*pi*i*r*t/M) at [16*R2 + r*T + t], r < 32, t < T,

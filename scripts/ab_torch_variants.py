@@ -4,9 +4,14 @@ A/B timing of copies of detex_torch on one CUDA card: for each tree given
 a ``git archive`` of another commit), in the order given and each in a
 process of its own, build its kernels and time
 
-  - fwd_prep_fold and the summary-only phase-A scan at chip_smoke's phase-A
-    shape (256 two-hour chunks at 100 Hz on three channels, one 4-dim
-    subspace of 30 s templates);
+  - fwd_prep_fold, spec_ds_fold (summary-only, mode "sub") and the
+    summary-only phase-A scan at chip_smoke's phase-A shape (256 two-hour
+    chunks at 100 Hz on three channels, one 4-dim subspace of 30 s
+    templates); spec_ds_fold also at phase B's shape (mode "net", 128
+    one-dim templates of 30 s on 8 chunks of 3720 s, the DS array written);
+  - the card's L2 rate, as the yardstick of spec_ds_fold's second floor: a
+    16 MiB device-to-device copy repeated in place, which stays in the 50 MB
+    L2 (bytes read plus bytes written over the time);
   - the forward block transforms rfft_ct_fused and rfft_ct_half on
     contiguous rows: rfft_ct_fused at the dense re-verify's 1,296 rows of
     16,384, at the per-chunk route's 84 rows of 16,384 and 42 rows of
@@ -17,8 +22,9 @@ process of its own, build its kernels and time
     at stride 7,296 of 16 x 3 rows), through dft.rfft_frames /
     dft.rfft_pair_frames where the tree has them and through the tree's
     unfold + copy + transform otherwise;
-  - the tree's own chip_smoke phases C (scan + dense re-verify) and D3
-    (the fused scan behind the unfused prep).
+  - the tree's own chip_smoke phases C (scan + dense re-verify), D3 (the
+    fused scan behind the unfused prep), B (serving) and E1 (raw-chunk
+    serving with the device prep).
 
 Kernels by CUDA events (mean of ``reps`` launches after a 0.5 s warm-up);
 shapes under one wave of the card (fewer rows than SMs), where the host's
@@ -27,10 +33,11 @@ replay of a CUDA graph of 50 launches; phases by the host clock (best of 3
 or 2 after a warm-up). irfft_ct_fused at the re-verify's 1,728 rows is
 timed as a control that shares nothing with the forward transforms.
 
-    python3 scripts/ab_torch_variants.py [--transforms] \\
+    python3 scripts/ab_torch_variants.py [--transforms | --scan-kernels] \\
         TREE_A TREE_B TREE_B TREE_A
 
-``--transforms`` times the forward block transforms only. Give the trees in
+``--transforms`` times the forward block transforms only, ``--scan-kernels``
+fwd_prep_fold, spec_ds_fold and the L2 copy only. Give the trees in
 turns (A, B, B, A) so that drift on the card shows: two commits compare
 only inside one command on one card. The other commit is unpacked into a
 directory that .gitignore lists:
@@ -43,6 +50,7 @@ directory that .gitignore lists:
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 NC = 3
@@ -137,7 +145,59 @@ def transforms(torch, ck, dft, tds, dev, say):
         del xq
 
 
-def one(root, transforms_only):
+def l2_copy_gbs(torch, dev, mib=16, reps=200):
+    """GB/s (read + written) of a device-to-device copy of ``mib`` MiB
+    repeated in place: source and destination stay in L2."""
+    src = torch.empty(mib << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(torch, lambda: dst.copy_(src), reps)
+    return 2 * src.numel() / (ms * 1e-3) / 1e9
+
+
+def scan_kernels(torch, np, ck, tds, dev, say):
+    """fwd_prep_fold and spec_ds_fold at phase A's shape, spec_ds_fold at
+    phase B's; returns what the phase-A scan needs (X, bank)."""
+    q, _ = np.linalg.qr(np.random.default_rng(1).standard_normal((N, 4)))
+    bank = tds.build_bank([np.ascontiguousarray(q.T)], NC, LC, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((256, LC), generator=g, device=dev)
+    n_c, blk = N // NC, bank["blk_fft"]
+    xq, out_len = tds.standardize_demux(X, n_c, NC, blk)
+    prep_ms = cuda_ms(torch, lambda: ck.fwd_prep_fold(xq, NC, n_c, blk,
+                                                      out_len), 5)
+    Fr, Fi, a, power = ck.fwd_prep_fold(xq, NC, n_c, blk, out_len)
+    del xq
+    _, _, D0, W, _ = tds._os_geometry(LC // NC, n_c, blk)
+    ur, ui = tds.bank_spec_pair(bank)
+    su = bank["sum_u"].T.contiguous()
+    nv = torch.full((256,), out_len, dtype=torch.int32, device=dev)
+    spec_a = cuda_ms(torch, lambda: ck.spec_ds_fold(
+        ur, ui, Fr, Fi, a, power, su, nv, "sub", NC, W, D0, blk, nbin=400,
+        emit_ds=False), 5)
+    del Fr, Fi, a, power
+    torch.cuda.empty_cache()
+    # phase B: 128 one-dim templates, 8 chunks of 3720 s, DS written
+    Lb = 3720 * 100 * NC
+    rng = np.random.default_rng(2)
+    Us = [np.ascontiguousarray(np.linalg.qr(
+        rng.standard_normal((N, 1)))[0].T) for _ in range(128)]
+    bank_b = tds.build_bank(Us, NC, Lb, dev)
+    Xb = torch.randn((8, Lb), generator=g, device=dev)
+    Fr, Fi, a, power = tds.os_prep_batch_fused(Xb, n_c, NC, blk)
+    out_b, _, D0, W, _ = tds._os_geometry(Lb // NC, n_c, blk)
+    ur, ui = tds.bank_spec_pair(bank_b)
+    su = bank_b["sum_u"].T.contiguous()
+    nv = torch.full((8,), out_b, dtype=torch.int32, device=dev)
+    spec_b = cuda_ms(torch, lambda: ck.spec_ds_fold(
+        ur, ui, Fr, Fi, a, power, su, nv, "net", NC, W, D0, blk, nbin=400,
+        emit_ds=True), 5)
+    say("fwd_prep_fold %.3f ms; spec_ds_fold phase-A shape %.3f ms, phase-B "
+        "shape (emit_ds) %.3f ms; L2 copy %.0f GB/s"
+        % (prep_ms, spec_a, spec_b, l2_copy_gbs(torch, dev)))
+    return X, bank
+
+
+def one(root, only):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -157,19 +217,22 @@ def one(root, transforms_only):
         print("%s: %s" % (root, msg), flush=True)
 
     dev = torch.device("cuda")
-    build.load_library()
-    transforms(torch, ck, dft, tds, dev, say)
-    if transforms_only:
+    lib = build.load_library()
+    with open(os.path.splitext(lib._name)[0] + ".log") as f:
+        report = f.read().splitlines()
+    for i, line in enumerate(report):       # ptxas: registers, stack, spills
+        if "entry function" in line and ("fwd_prep_fold" in line
+                                         or "spec_ds_fold" in line):
+            say("ptxas %s: %s; %s" % (
+                line.split("'")[1], report[i + 2].strip(),
+                report[i + 3].replace("ptxas info    :", "").strip()))
+    if only != "--scan-kernels":
+        transforms(torch, ck, dft, tds, dev, say)
+    if only == "--transforms":
         return
-    q, _ = np.linalg.qr(np.random.default_rng(1).standard_normal((N, 4)))
-    bank = tds.build_bank([np.ascontiguousarray(q.T)], NC, LC, dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    X = torch.randn((256, LC), generator=g, device=dev)
-    n_c, blk = N // NC, bank["blk_fft"]
-    xq, out_len = tds.standardize_demux(X, n_c, NC, blk)
-    prep_ms = cuda_ms(torch, lambda: ck.fwd_prep_fold(xq, NC, n_c, blk,
-                                                      out_len), 5)
-    del xq
+    X, bank = scan_kernels(torch, np, ck, tds, dev, say)
+    if only == "--scan-kernels":
+        return
     th = np.full(1, 0.5, np.float32)
     scan = []
     for _ in range(4):                              # first run warms up
@@ -178,8 +241,8 @@ def one(root, transforms_only):
                           calc_triggers=False)
         torch.cuda.synchronize()
         scan.append(1e3 * (time.perf_counter() - t0))
-    say("fwd_prep_fold %.3f ms; phase-A scan best %.3f ms %s"
-        % (prep_ms, min(scan[1:]), [round(t, 3) for t in scan[1:]]))
+    say("phase-A scan best %.3f ms %s"
+        % (min(scan[1:]), [round(t, 3) for t in scan[1:]]))
     del X, bank
     torch.cuda.empty_cache()
     pc = cs.phase_c(dev, 256 * 2.0 / 24.0 / (min(scan[1:]) * 1e-3))
@@ -188,17 +251,25 @@ def one(root, transforms_only):
     torch.cuda.empty_cache()
     d3 = cs.phase_d3(dev, cs.phase_d3_setup(dev))
     say("phase D3 best %.3f ms" % (1e3 * d3["s_per_launch"]))
+    del d3
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pb = cs.phase_b(dev, tmp)
+        say("phase B best %.3f ms" % (1e3 * pb["s_per_request"]))
+        e1 = cs.phase_e1(cs.phase_e1_setup(dev, tmp))
+        say("phase E1 best %.3f ms" % (1e3 * e1["s_per_request"]))
 
 
 def main():
-    args = [a for a in sys.argv[1:] if a != "--transforms"]
-    only = len(args) < len(sys.argv) - 1
+    flags = ("--transforms", "--scan-kernels")
+    only = [a for a in sys.argv[1:] if a in flags]
+    args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) > 1 and args[0] == "--one":
-        one(args[1], only)
+        one(args[1], only[0] if only else None)
         return
     for root in args:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        root] + ["--transforms"] * only, check=True)
+                        root] + only[:1], check=True)
 
 
 if __name__ == "__main__":

@@ -120,6 +120,81 @@ def test_spec_ds_kernel_matches_twin(cuda, mode, S, B, geom, emit_ds):
         assert dk is None and dr is None
 
 
+def _spec_args(cuda, mode, S, D, B, blk, n_c, L_c, seed):
+    """spec_ds_fold's arguments from the fused prep of B chunks of noise
+    against S templates of D dims each; chunk 0 ragged."""
+    rng = np.random.default_rng(seed)
+    U_list = [np.ascontiguousarray(np.linalg.qr(
+        rng.standard_normal((NC * n_c, D)))[0].T) for _ in range(S)]
+    bank = tds.build_bank(U_list, NC, NC * L_c, cuda, block_fft=blk)
+    X = torch.as_tensor(rng.standard_normal((B, NC * L_c)).astype(
+        np.float32), device=cuda)
+    _, _, D0, W, _ = tds._os_geometry(L_c, n_c, blk)
+    Fr, Fi, a, p = tds.os_prep_batch_fused(X, n_c, NC, blk)
+    ur, ui = tds.bank_spec_pair(bank)
+    su = bank["sum_u"].T.contiguous()
+    nv = torch.full((B,), L_c - n_c + 1, dtype=torch.int32, device=cuda)
+    nv[0] -= n_c                                # ragged chunk
+    return (ur, ui, Fr, Fi, a, p, su, nv, mode, NC, W, D0, blk)
+
+
+# (mode, S, D, B, L_c): one thread block (one template leaves the second
+# transform of the block without work); a grid of 144 blocks, one wave of
+# the card's 132 SMs and a ragged second, with dims paired (D = 3, the last
+# step half empty) and with templates paired (D = 1)
+SPEC_WAVES = [("net", 1, 1, 1, 8000), ("sub", 1, 2, 1, 8000),
+              ("sub", 3, 3, 16, 35000), ("net", 8, 1, 12, 35000)]
+
+
+@pytest.mark.parametrize("mode,S,D,B,L_c", SPEC_WAVES)
+def test_spec_ds_kernel_waves_and_repeatable_bits(cuda, mode, S, D, B, L_c):
+    """spec_ds_fold at one block of work and at a ragged last wave against
+    its twin, and two launches on the same inputs give identical bits (the
+    sums inside a block are ordered by barriers, never by atomics on
+    floats)."""
+    args = _spec_args(cuda, mode, S, D, B, BLK, 560, L_c, S + D + B)
+    d1, p1, h1 = ck.spec_ds_fold(*args, nbin=400, emit_ds=True)
+    d2, p2, h2 = ck.spec_ds_fold(*args, nbin=400, emit_ds=True)
+    dr, pr, hr = ref.spec_ds_fold_ref(*args, nbin=400, emit_ds=True)
+    torch.cuda.synchronize()
+    # equal bits, -inf and all: compare the words
+    for u, v in ((d1, d2), (p1, p2)):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    assert torch.equal(h1, h2)
+    for k, r in ((d1, dr), (p1, pr)):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        assert fin.any() and (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    assert torch.equal(h1.sum(1), hr.sum(1))
+    assert (h1 - hr).abs().sum().item() <= max(1, hr.sum().item() // 200000)
+
+
+@pytest.mark.parametrize("B,L_c", [(1, 8000), (100, 35000)])
+def test_fwd_prep_kernel_waves(cuda, B, L_c):
+    """fwd_prep_fold at one thread block (one chunk of one frame) and at
+    300 blocks, one wave of 264 resident blocks and a ragged second,
+    against its twin."""
+    n_c = 560
+    xq, out_len = _xq(np.random.default_rng(B), B, BLK, n_c, L_c, cuda)
+    k = ck.fwd_prep_fold(xq, NC, n_c, BLK, out_len)
+    r = ref.fwd_prep_fold_ref(xq, NC, n_c, BLK, out_len)
+    torch.cuda.synchronize()
+    R = BLK // 2 + 1
+    m = k[0].shape[1] // dft.half_rp(BLK)
+    assert B * m == (1 if B == 1 else 300)
+    for u, v in zip(k[:2], r[:2]):
+        u = u.reshape(u.shape[0], m, -1)
+        v = v.reshape(v.shape[0], m, -1)
+        assert (u[..., :R] - v[..., :R]).abs().max().item() <= 2e-3
+        assert bool((u[..., R:] == 0).all())
+    assert torch.allclose(k[2][:, :out_len], r[2][:, :out_len], rtol=0,
+                          atol=1e-4)
+    assert torch.allclose(k[3][:, :out_len], r[3][:, :out_len], rtol=1e-4,
+                          atol=1e-3)
+    assert bool((k[2][:, out_len:] == 0).all())
+    assert bool((k[3][:, out_len:] == 1).all())
+
+
 @pytest.mark.parametrize("geom", ["560", "16300"])
 def test_scan_runs_the_kernels(cuda, geom):
     """scan_chunks on the card launches both kernels and agrees with the

@@ -45,11 +45,12 @@ def emu(tmp_path_factory):
                     "-lpthread"], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.emu_fwd_prep_fold.argtypes = [P] * 6 + [I, I, LL, I, I, I, I, I, LL,
+    lib.emu_fwd_prep_fold.argtypes = [P] * 7 + [I, I, LL, I, I, I, I, I, LL,
                                                 I, I]
-    lib.emu_spec_ds_fold.argtypes = [P] * 12 + [I] * 11
+    lib.emu_spec_ds_fold.argtypes = [P] * 13 + [I] * 11
     lib.emu_rfft_ct.argtypes = [P] * 4 + [LL, LL, I, I, I]
     lib.emu_fft_regs.argtypes = [P] * 3 + [LL, I]
+    lib.emu_ifft_regs.argtypes = [P] * 4 + [LL, I]
     lib.emu_irfft_ct.argtypes = [P] * 3 + [LL, I]
     lib.emu_ds_finalize_os_fold.argtypes = [P] * 8 + [LL] + [I] * 7
     lib.emu_ds_finalize_os_scan.argtypes = [P] * 8 + [LL] + [I] * 6
@@ -64,14 +65,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _prep_inputs(blk, n_c, L_c, B, seed):
+def _prep_inputs(blk, n_c, L_c, B, seed, nc=NC):
     """Chunks of noise; the last one ragged, its data ending late in frame
     0 (where the frame's prefix sums are large) at ``cut`` samples."""
     out_len, pad0, D0, W, m = tds._os_geometry(L_c, n_c, blk)
     rng = np.random.default_rng(seed)
-    xq = torch.zeros((B, NC, m * W + D0), dtype=torch.float32)
+    xq = torch.zeros((B, nc, m * W + D0), dtype=torch.float32)
     xq[:, :, pad0:pad0 + L_c] = torch.from_numpy(
-        rng.standard_normal((B, NC, L_c)).astype(np.float32))
+        rng.standard_normal((B, nc, L_c)).astype(np.float32))
     cut = W - n_c // 2
     xq[-1, :, pad0 + cut:] = 0.0                 # ragged chunk
     return xq, out_len, pad0, D0, W, m, cut
@@ -88,7 +89,8 @@ def test_fwd_prep_fold_source_matches_twin(emu, geom):
     a = torch.empty((B, m * W))
     pw = torch.empty_like(a)
     rc = emu.emu_fwd_prep_fold(
-        _ptr(xq), _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
+        _ptr(xq), _ptr(dft.stage_twiddles(blk, "cpu")),
+        _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
         _ptr(a), _ptr(pw), B, NC, xq.shape[2], m, W, D0, pad0, n_c, out_len,
         Rp, blk.bit_length() - 2)
     assert rc == 0
@@ -130,7 +132,8 @@ def test_fwd_prep_fold_source_zero_power_rule(emu, blk, L_c):
     a = torch.empty((2, m * W))
     pw = torch.empty_like(a)
     rc = emu.emu_fwd_prep_fold(
-        _ptr(xq), _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
+        _ptr(xq), _ptr(dft.stage_twiddles(blk, "cpu")),
+        _ptr(dft.twiddles(blk, "cpu")), _ptr(fr), _ptr(fi),
         _ptr(a), _ptr(pw), 2, NC, xq.shape[2], m, W, D0, pad0, n_c, out_len,
         Rp, blk.bit_length() - 2)
     assert rc == 0
@@ -146,8 +149,13 @@ def test_fwd_prep_fold_source_zero_power_rule(emu, blk, L_c):
 
 @pytest.mark.parametrize("geom,mode,S,D,emit_ds", [
     ("560", "sub", 1, 2, True), ("560", "net", 2, 1, False),
-    ("16300", "sub", 1, 1, True)])
+    ("16300", "sub", 1, 1, True), ("560", "net", 1, 1, True),
+    ("560", "net", 2, 3, True), ("560", "sub", 3, 1, False)])
 def test_spec_ds_fold_source_matches_twin(emu, geom, mode, S, D, emit_ds):
+    """spec_ds_fold (B1) against its twin. At blk 16384 a block runs two
+    transforms side by side: two dims of a row (D = 2; D = 3 leaves one
+    side idle in the last step) or, at D = 1, two templates of a chunk
+    (S = 2; S = 1 and S = 3 leave one side without a template)."""
     blk, n_c, L_c = GEOMS[geom]
     B = 2
     xq, out_len, pad0, D0, W, m, cut = _prep_inputs(blk, n_c, L_c, B, 7)
@@ -166,7 +174,8 @@ def test_spec_ds_fold_source_matches_twin(emu, geom, mode, S, D, emit_ds):
     hist = torch.zeros((BS, 400), dtype=torch.int32)
     rc = emu.emu_spec_ds_fold(
         _ptr(ur), _ptr(ui), _ptr(Fr), _ptr(Fi), _ptr(a), _ptr(pw), _ptr(su),
-        _ptr(nv), _ptr(dft.twiddles(blk, "cpu")), _ptr(ds), _ptr(pyr),
+        _ptr(nv), _ptr(dft.stage_twiddles(blk, "cpu")),
+        _ptr(dft.twiddles(blk, "cpu")), _ptr(ds), _ptr(pyr),
         _ptr(hist), B, S, D, NC, m, W, D0, dft.half_rp(blk), 400,
         int(mode == "sub"), blk.bit_length() - 2)
     assert rc == 0
@@ -182,6 +191,64 @@ def test_spec_ds_fold_source_matches_twin(emu, geom, mode, S, D, emit_ds):
         assert torch.equal(torch.isfinite(ds), torch.isfinite(d0))
         fin = torch.isfinite(d0)
         assert (ds[fin] - d0[fin]).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4])
+def test_scan_kernel_sources_channel_counts(emu, nc):
+    """fwd_prep_fold and spec_ds_fold at channel counts other than three:
+    fwd_prep_fold sweeps the channels in groups of three (nc = 4: a full
+    group and one channel more), spec_ds_fold runs its general form where
+    the channel loop is not unrolled. One chunk, ragged (a zero tail), with
+    a stretch where every channel holds one constant (power inf);
+    tolerances as above."""
+    blk, n_c, L_c = GEOMS["560"]
+    xq, out_len, pad0, D0, W, m, _ = _prep_inputs(blk, n_c, L_c, 1, 40 + nc,
+                                                  nc=nc)
+    xq[0, :, pad0 + 2000:pad0 + 2000 + 2 * n_c] = 0.25
+    Rp = dft.half_rp(blk)
+    fr = torch.empty((nc, m * Rp))
+    fi = torch.empty_like(fr)
+    a = torch.empty((1, m * W))
+    pw = torch.empty_like(a)
+    stage, tw = dft.stage_twiddles(blk, "cpu"), dft.twiddles(blk, "cpu")
+    log2m = blk.bit_length() - 2
+    assert emu.emu_fwd_prep_fold(
+        _ptr(xq), _ptr(stage), _ptr(tw), _ptr(fr), _ptr(fi), _ptr(a),
+        _ptr(pw), 1, nc, xq.shape[2], m, W, D0, pad0, n_c, out_len, Rp,
+        log2m) == 0
+    Fr, Fi, a0, p0 = ref.fwd_prep_fold_ref(xq, nc, n_c, blk, out_len)
+    R = blk // 2 + 1
+    for k, r in ((fr, Fr), (fi, Fi)):
+        k, r = k.reshape(-1, m, Rp), r.reshape(-1, m, Rp)
+        assert (k[..., :R] - r[..., :R]).abs().max().item() <= 2e-3
+    assert torch.allclose(a[:, :out_len], a0[:, :out_len], rtol=0, atol=1e-4)
+    k, r = pw[:, :out_len], p0[:, :out_len]
+    assert torch.equal(torch.isinf(k), torch.isinf(r))
+    assert bool(torch.isinf(r[0, 2000:2000 + n_c + 1]).all())
+    assert bool(torch.isfinite(r[0, :1400]).all())
+    fin = torch.isfinite(r)
+    assert torch.allclose(k[fin], r[fin], rtol=1e-4, atol=1e-3)
+    rng = np.random.default_rng(nc)
+    D = 2
+    U = np.linalg.qr(rng.standard_normal((nc * n_c, D)))[0].T
+    bank = tds.build_bank([U], nc, nc * L_c, "cpu", block_fft=blk)
+    ur, ui = tds.bank_spec_pair(bank)
+    su = bank["sum_u"].T.contiguous()
+    nv = torch.tensor([out_len], dtype=torch.int32)
+    ds = torch.empty((1, m * W))
+    pyr = torch.empty((1, m * (W // 128)))
+    hist = torch.zeros((1, 400), dtype=torch.int32)
+    assert emu.emu_spec_ds_fold(
+        _ptr(ur), _ptr(ui), _ptr(Fr), _ptr(Fi), _ptr(a0), _ptr(p0), _ptr(su),
+        _ptr(nv), _ptr(stage), _ptr(tw), _ptr(ds), _ptr(pyr), _ptr(hist), 1,
+        1, D, nc, m, W, D0, Rp, 400, 1, log2m) == 0
+    d0, y0, h0 = ref.spec_ds_fold_ref(ur, ui, Fr, Fi, a0, p0, su, nv, "sub",
+                                      nc, W, D0, blk, nbin=400)
+    assert torch.equal(torch.isfinite(ds), torch.isfinite(d0))
+    fin = torch.isfinite(d0)
+    assert (ds[fin] - d0[fin]).abs().max().item() <= 2e-5
+    assert (pyr - y0)[torch.isfinite(y0)].abs().max().item() <= 2e-5
+    assert torch.equal(hist.sum(1), h0.sum(1))
 
 
 @pytest.mark.parametrize("blk", [16384, 32768])
@@ -299,6 +366,36 @@ def test_fft_regs_core_matches_numpy_fft(emu, M):
     want = np.fft.fft(zin.numpy().astype(np.complex128), axis=1)
     err = np.abs(zout.numpy() - want).max()
     assert np.isfinite(err) and err <= 2e-3
+
+
+@pytest.mark.parametrize("M", [8192, 16384])
+def test_ifft_regs_core_matches_numpy_ifft(emu, M):
+    """The inverse register-resident core (fft_regs.cuh irfft_regs_row)
+    alone: the pack pre-pass in registers, three passes and the samples
+    handed over from registers, on three half spectra of 2M real samples:
+    noise; a row whose only nonzero bins are 0, M/2 and M (thread 0's own
+    pairs) with imaginary parts at bins 0 and M, which must not count; and
+    noise's transform, which must come back as the noise. Against
+    numpy.fft.irfft in float64. Tolerance: 2e-5 of the row's largest value
+    (the inverse transforms' gate); measured ~3e-7."""
+    n = 2 * M
+    rng = np.random.default_rng(M + 1)
+    spec = rng.standard_normal((3, M + 1)) + 1j * rng.standard_normal(
+        (3, M + 1))
+    spec[1] = 0.0
+    spec[1, [0, M // 2, M]] = [3.0 + 2.0j, 1.0 - 4.0j, -2.0 + 1.0j]
+    x2 = rng.standard_normal(n)
+    spec[2] = np.fft.rfft(x2)
+    sp = torch.from_numpy(spec.astype(np.complex64))
+    out = torch.full((3, n), float("nan"))
+    assert emu.emu_ifft_regs(_ptr(sp), _ptr(dft.stage_twiddles(n, "cpu")),
+                             _ptr(dft.twiddles(n, "cpu")), _ptr(out), 3,
+                             n.bit_length() - 2) == 0
+    want = np.fft.irfft(sp.numpy().astype(np.complex128), n=n, axis=1)
+    err = np.abs(out.numpy() - want).max(axis=1)
+    scale = np.abs(want).max(axis=1)
+    assert np.isfinite(err).all() and (err <= 2e-5 * scale).all()
+    assert np.abs(out[2].numpy() - x2).max() <= 1e-5
 
 
 def _framed_source(blk, R, m, W, seed):
