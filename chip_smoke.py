@@ -12,9 +12,11 @@ card at both block lengths and, after the main-path run, at phase A's
 full shape;
 the dense re-verify kernels at the small geometry, at blk 32768 and, after
 the main-path run, at phase C's re-verify shape; the per-chunk kernels and
-rfft_ct_half at phase D's shapes, before phase D's runs; the two forward
-transforms also on one row, under one wave of the card, at n = 32768 and
-reading overlapping frames in place), then drives the
+rfft_ct_half at phase D's shapes, before phase D's runs, the per-chunk
+finalize ds_finalize_os_scan timed with and without its histogram; the two
+forward transforms also on one row, under one wave of the card, at n =
+32768 and reading overlapping frames in place; the inverse transform at the
+per-chunk route's shapes, on one row and under one wave), then drives the
 port's paths through the entry points a user calls:
 
   phase A  the engine's summary-only scan (parallel/scan.scan_chunks with
@@ -65,10 +67,11 @@ port's paths through the entry points a user calls:
            E3  E2's bank shape at 50 Hz, scan_chunks_raw on raw
                [8, 3, 372000] chunks at decimate 2, one ragged: route
                "raw-demux+devicePrep" with ds_finalize; then run_bank_raw;
-           E4  small: a multiplexed bank (run_bank, scan_chunks) and the
-               raw path with the complex filter response at decimate 2,
-               each against the CPU twins; ds_finalize against its twin at
-               E2's shape before the counted runs.
+           E4  small: a multiplexed bank (run_bank, scan_chunks), the
+               raw path with the complex filter response at decimate 2 and
+               scan_chunks_raw on a full-length bank of 129 templates (two
+               template blocks), each against the CPU twins; ds_finalize
+               against its twin at E2's shape before the counted runs.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -123,9 +126,10 @@ KERNEL_INFO = {
                     "detex_tpu/ops/pallas_kernels.py:104"),
 }
 DENSE_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os_fold")
-# launches per timing of the block transforms, which take under 0.3 ms: a
-# mean of 3 would hold the first launch's start-up
-TRANSFORM_REPS = 20
+# launches per timing of the kernels that take under 0.35 ms (the block
+# transforms, the finalize kernels, the histogram): a mean of 3 would hold
+# the first launch's start-up
+SHORT_REPS = 20
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
 # the tensor cores, the rate every kernel here computes at
 HBM_BYTES_PER_S = 3.35e12
@@ -193,9 +197,9 @@ def graph_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def transform_ms(fn):
-    """cuda_ms over TRANSFORM_REPS launches."""
-    return cuda_ms(fn, reps=TRANSFORM_REPS)
+def short_ms(fn):
+    """cuda_ms over SHORT_REPS launches."""
+    return cuda_ms(fn, reps=SHORT_REPS)
 
 
 def bound(nbytes, flops):
@@ -421,10 +425,10 @@ def compare_rfft(frames, blk, timing=False):
     need(err <= 2e-3, "rfft_ct_fused spectra err %g > 2e-3" % err)
     out = dict(err=err)
     if timing:
-        out["ms"] = transform_ms(lambda: ck.rfft_ct_fused(frames, blk))
-        out["plain_ms"] = transform_ms(
+        out["ms"] = short_ms(lambda: ck.rfft_ct_fused(frames, blk))
+        out["plain_ms"] = short_ms(
             lambda: ref.rfft_ct_fused_ref(frames, blk))
-        out["library_ms"] = transform_ms(lambda: torch.fft.rfft(frames, n=blk))
+        out["library_ms"] = short_ms(lambda: torch.fft.rfft(frames, n=blk))
         N = frames.shape[0]
         out["bound"] = bound(N * blk * 4 + N * (blk // 2 + 1) * 8,
                              N * rfft_flops(blk))
@@ -442,10 +446,10 @@ def compare_irfft(spec, blk, timing=False):
     need(rel <= 2e-5, "irfft_ct_fused err %g of the row max > 2e-5" % rel)
     out = dict(err=diff.max().item(), rel=rel)
     if timing:
-        out["ms"] = transform_ms(lambda: ck.irfft_ct_fused(spec, blk))
-        out["plain_ms"] = transform_ms(
+        out["ms"] = short_ms(lambda: ck.irfft_ct_fused(spec, blk))
+        out["plain_ms"] = short_ms(
             lambda: ref.irfft_ct_fused_ref(spec, blk))
-        out["library_ms"] = transform_ms(lambda: torch.fft.irfft(spec, n=blk))
+        out["library_ms"] = short_ms(lambda: torch.fft.irfft(spec, n=blk))
         N = spec.shape[0]
         out["bound"] = bound(N * (blk // 2 + 1) * 8 + N * blk * 4,
                              N * rfft_flops(blk))
@@ -472,7 +476,7 @@ def compare_finalize(fin, nbin, timing=False):
         need(moves <= allowed, "histogram moves %d > %d" % (moves, allowed))
     out = dict(err=err, moves=moves, allowed=allowed)
     if timing:
-        out["ms"] = cuda_ms(lambda: ck.ds_finalize_os_fold(*fin, nbin=nbin))
+        out["ms"] = short_ms(lambda: ck.ds_finalize_os_fold(*fin, nbin=nbin))
         out["plain_ms"] = cuda_ms(lambda: ref.ds_finalize_os_fold_ref(
             *fin, nbin=nbin))
         cb, a, _, _, _, _, D, W, _ = fin
@@ -816,9 +820,9 @@ def compare_half(frames, blk):
     del k, r
     N = frames.shape[0]
     return dict(
-        err=err, ms=transform_ms(lambda: ck.rfft_ct_half(frames, blk)),
-        plain_ms=transform_ms(lambda: ref.rfft_ct_half_ref(frames, blk)),
-        library_ms=transform_ms(lambda: torch.fft.rfft(frames, n=blk)),
+        err=err, ms=short_ms(lambda: ck.rfft_ct_half(frames, blk)),
+        plain_ms=short_ms(lambda: ref.rfft_ct_half_ref(frames, blk)),
+        library_ms=short_ms(lambda: torch.fft.rfft(frames, n=blk)),
         bound=bound(N * blk * 4 + 2 * N * dft.half_rp(blk) * 4,
                     N * rfft_flops(blk)))
 
@@ -861,7 +865,7 @@ def forward_extras(dev):
         x = torch.randn((N, blk), generator=g, device=dev)
         fn = getattr(ck, name)
         err = held(name, fn(x, blk), x, blk)
-        timer = graph_ms if N < 132 else transform_ms
+        timer = graph_ms if N < 132 else short_ms
         say("  %s %d x %d: max_abs_err %.3g; kernel %.4f ms, torch.fft.rfft "
             "%.4f ms%s" % (name, N, blk, err, timer(lambda: fn(x, blk)),
                            timer(lambda: torch.fft.rfft(x, n=blk)),
@@ -888,7 +892,7 @@ def forward_extras(dev):
         err = held(name, got.reshape(-1, blk // 2 + 1)
                    if name == "rfft_ct_fused" else got, rows, blk)
         del got, rows
-        timer = graph_ms if B * NC * m < 132 else transform_ms
+        timer = graph_ms if B * NC * m < 132 else short_ms
         say("  %s framed (%s): %d frames of %d at stride %d in %d rows: "
             "max_abs_err %.3g; kernel, frames read in place %.4f ms; "
             "contiguous() + torch.fft.rfft %.4f ms; kernel on the copied "
@@ -901,6 +905,51 @@ def forward_extras(dev):
                timer(lambda: xq.unfold(2, blk, W).contiguous())))
         del xq
     return {k: dict(err=v) for k, v in errs.items()}
+
+
+def inverse_extras(dev):
+    """irfft_ct_fused (B5) beyond phase C's re-verify shape of the
+    ``kernels`` line, each held against its twin first (2e-5 of each row's
+    largest value; an all-zero row exactly 0) and timed beside
+    torch.fft.irfft and its bound: the per-chunk route's rows, 3,584 of
+    16,384 (one D2 chunk: 128 templates x 28 blocks) and 1,792 of 32,768
+    (one D1 chunk: 128 x 14); one row and under one wave of the card (84
+    rows of 16,384, 42 of 32,768), timed by graph replay."""
+    g = torch.Generator(device=dev).manual_seed(78)
+    err = 0.0
+    for N, blk in ((1, 16384), (84, 16384), (3584, 16384), (1, 32768),
+                   (42, 32768), (1792, 32768)):
+        spec = torch.view_as_complex(torch.randn(
+            (N, blk // 2 + 1, 2), generator=g, device=dev))
+        # real end bins, as every caller's spectra have them (cuFFT's C2R,
+        # the twin on the card, does not promise to ignore their imaginary
+        # parts; the kernel does)
+        torch.view_as_real(spec)[:, [0, -1], 1] = 0.0
+        if N > 1:
+            spec[N // 2] = 0
+        k = ck.irfft_ct_fused(spec, blk)
+        r = ref.irfft_ct_fused_ref(spec, blk)
+        torch.cuda.synchronize()
+        scale = r.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        rel = ((k - r).abs() / scale).max().item()
+        need(rel <= 2e-5, "irfft_ct_fused %d x %d err %g of the row max > "
+             "2e-5" % (N, blk, rel))
+        if N > 1:
+            need(bool((k[N // 2] == 0).all()),
+                 "irfft_ct_fused zero row not exactly 0")
+        err = max(err, (k - r).abs().max().item())
+        del k, r
+        timer = graph_ms if N < 132 else short_ms
+        ms = timer(lambda: ck.irfft_ct_fused(spec, blk))
+        lib = timer(lambda: torch.fft.irfft(spec, n=blk))
+        bnd = bound(N * (blk // 2 + 1) * 8 + N * blk * 4,
+                    N * rfft_flops(blk))[0]
+        say("  irfft_ct_fused %d x %d: %.3g of the row max; kernel %.4f ms, "
+            "torch.fft.irfft %.4f ms, bound %.4f ms%s"
+            % (N, blk, rel, ms, lib, bnd,
+               " (graph replay of 50)" if N < 132 else ""))
+        del spec
+    return {"irfft_ct_fused": dict(err=err)}
 
 
 def compare_os_scan(fin, nv, nbin):
@@ -925,7 +974,7 @@ def compare_os_scan(fin, nv, nbin):
     del dk, pk, hk, dr, pr, hr
     return dict(
         err=err, moves=moves, allowed=allowed,
-        ms=cuda_ms(lambda: ck.ds_finalize_os_scan(*args, nbin=nbin)),
+        ms=short_ms(lambda: ck.ds_finalize_os_scan(*args, nbin=nbin)),
         plain_ms=cuda_ms(lambda: ref.ds_finalize_os_scan_ref(
             *args, nbin=nbin)),
         bound=finalize_bound(fin, True, nbin))
@@ -940,7 +989,7 @@ def compare_os(fin):
     err = (dk - dr).abs().max().item()
     need(err <= 2e-5, "ds_finalize_os err %g > 2e-5" % err)
     del dk
-    out = dict(err=err, ms=cuda_ms(lambda: ck.ds_finalize_os(*args)),
+    out = dict(err=err, ms=short_ms(lambda: ck.ds_finalize_os(*args)),
                plain_ms=cuda_ms(lambda: ref.ds_finalize_os_ref(*args)),
                bound=finalize_bound(fin, False, 0))
     return out, dr
@@ -953,7 +1002,7 @@ def compare_hist(v, nbin):
     need(torch.equal(hk, hr), "hist_uniform counts differ from the twin")
     S, L = v.shape
     return dict(err=float((hk - hr).abs().max().item()),
-                ms=cuda_ms(lambda: ck.hist_uniform(v, nbin)),
+                ms=short_ms(lambda: ck.hist_uniform(v, nbin)),
                 plain_ms=cuda_ms(lambda: ref.hist_uniform_ref(v, nbin)),
                 bound=bound(S * L * 4 + S * nbin * 4, S * L * 4))
 
@@ -1001,9 +1050,11 @@ def phase_d_kernels(dev, d1, d2, d3):
     for nbin in (0, NBIN):
         r = compare_os_scan(fin, nv, nbin)
         say("  ds_finalize_os_scan cb %s nbin %d (D2): max_abs_err %.3g, "
-            "hist moves %d (allowed %d)" % (tuple(fin[0].shape), nbin,
-                                            r["err"], r["moves"],
-                                            r["allowed"]))
+            "hist moves %d (allowed %d); kernel %.4f ms, twin %.3f ms, bound "
+            "%.4f ms" % (tuple(fin[0].shape), nbin, r["err"], r["moves"],
+                         r["allowed"], r["ms"], r["plain_ms"],
+                         r["bound"][0]))
+        # the kernels line keeps nbin NBIN's times, the main path's
         agg = res.setdefault("ds_finalize_os_scan", dict(err=0.0))
         agg.update(r, err=max(agg["err"], r["err"]))
     fin = chunk_finalize_inputs(d1["bank"], torch.as_tensor(d1["X"][0],
@@ -1422,15 +1473,20 @@ def phase_e3(dev, e3):
 def phase_e4(dev, seed=44):
     """E4, small, each on the card and on the CPU twins with the same
     inputs: a multiplexed bank (template length 1681, not a multiple of 3)
-    through run_bank and scan_chunks (route "plain"), and the raw path at
+    through run_bank and scan_chunks (route "plain"), the raw path at
     decimate 2 with the complex (one-pass) filter response through
-    run_bank_raw and scan_chunks_raw on a full-length bank."""
+    run_bank_raw and scan_chunks_raw on a full-length bank, and
+    scan_chunks_raw on a full-length bank of 129 templates (route
+    "raw-demux+devicePrep" in two template blocks)."""
     rng = np.random.default_rng(seed)
     L_c = 40000
     Um = [basis(rng, 2, 1681) for _ in range(3)]
     X = rng.standard_normal((3, NC * L_c)).astype(np.float32)
     X[1, NC * 9000:NC * 9000 + 1681] += 3.0 * np.sqrt(1681) * Um[0][0]
     Ur = [basis(rng, 2, NC * 500) for _ in range(3)]
+    # past one template block (TEMPLATE_BLOCK = 128): the raw-demux route
+    # in blocks of 128
+    Ub = [basis(rng, 1, NC * 500) for _ in range(129)]
     L_raw = DEC * L_c
     Xr = raw_chunks(rng, 2, L_raw, [(0, 30000)])
     lens = [L_raw, L_raw - 7000]
@@ -1452,9 +1508,16 @@ def phase_e4(dev, seed=44):
             + [t.cpu() for t in tscan.scan_chunks_raw(
                 Xr, lens, H, full, np.full(3, 0.5, np.float32), NC,
                 int(20 * SR / DEC), max_trig=8, dec=DEC)])
+        wide = tds.build_bank(Ub, NC, NC * L_c, d, prefer_os=False)
+        need(tds.bank_kind(wide) == "demux"
+             and wide["nfft2"] == full["nfft2"],
+             "phase E4 129-template bank is not the full-length form")
+        outs[str(d)] += [t.cpu() for t in tscan.scan_chunks_raw(
+            Xr, lens, H, wide, np.full(129, 0.5, np.float32), NC,
+            int(20 * SR / DEC), max_trig=8, dec=DEC)]
     g, c = outs[str(dev)], outs["cpu"]
     errs = [float(np.abs(g[0] - c[0]).max()), float(np.abs(g[6] - c[6]).max())]
-    for i in (1, 7):                   # hist, maxds, idx, val, count
+    for i in (1, 7, 12):               # hist, maxds, idx, val, count
         need(torch.equal(g[i].sum(1), c[i].sum(1)),
              "phase E4 histogram totals differ from the CPU's")
         moves = int((g[i] - c[i]).abs().sum().item())
@@ -1468,9 +1531,11 @@ def phase_e4(dev, seed=44):
     ds64 = tds.ds_numpy(X[1].astype(np.float64), Um[0], NC)
     need(int(g[5][1, 0]) == 1 and int(g[3][1, 0, 0]) ==
          int(np.nanargmax(ds64)), "phase E4 multiplexed planted trigger")
-    say("phase E4: multiplexed bank and the complex-H raw path at decimate "
-        "%d: max err vs CPU %.2e (run_bank, run_bank_raw, maxds)"
-        % (DEC, max(errs)))
+    need(g[13].shape == (2, 129), "phase E4 129-template maxds shape %s"
+         % (tuple(g[13].shape),))
+    say("phase E4: multiplexed bank, the complex-H raw path at decimate %d "
+        "and the raw-demux route at S = 129: max err vs CPU %.2e (run_bank, "
+        "run_bank_raw, maxds)" % (DEC, max(errs)))
     return dict(err=max(errs))
 
 
@@ -1489,7 +1554,7 @@ def phase_e_kernels(dev, e2):
     err = (k - r).abs().max().item()
     need(err <= 1e-5, "ds_finalize err %g > 1e-5" % err)
     S, D, L = parts[0].shape
-    res = dict(err=err, ms=cuda_ms(lambda: ck.ds_finalize(*parts)),
+    res = dict(err=err, ms=short_ms(lambda: ck.ds_finalize(*parts)),
                plain_ms=cuda_ms(lambda: ref.ds_finalize_ref(*parts)),
                bound=bound((S * D * L + S * L + 2 * L + S * D) * 4,
                            S * L * (3 * D + 1)))
@@ -1653,6 +1718,9 @@ def main():
     say("phase D: the forward transforms at small N, at n = 32768 and in "
         "the framed form")
     checks.append(forward_extras(dev))
+    say("phase D: the inverse transform at the per-chunk shapes, one row "
+        "and under one wave")
+    checks.append(inverse_extras(dev))
     torch.cuda.empty_cache()
     counted("D1", phase_d1, dev, d1)
     del d1

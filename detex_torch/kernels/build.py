@@ -48,8 +48,8 @@ _ARGTYPES = {
     "detex_spec_ds_fold": [_P] * 13 + [_I] * 11 + [_P],
     # x, stage, tw, out, N, Lp, m, W, log2m, stream
     "detex_rfft_ct": [_P] * 4 + [_LL, _LL, _I, _I, _I, _P],
-    # spec, tw, out, N, log2m, stream
-    "detex_irfft_ct": [_P] * 3 + [_LL, _I, _P],
+    # spec, stage, tw, out, N, log2m, stream
+    "detex_irfft_ct": [_P] * 4 + [_LL, _I, _P],
     # cb, a, pw, su, nv, ds, pyr, hist, BS, D, m, blk, W, head, group,
     # nbin, stream
     "detex_ds_finalize_os_fold": [_P] * 8 + [_LL] + [_I] * 7 + [_P],

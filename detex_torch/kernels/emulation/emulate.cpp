@@ -200,16 +200,19 @@ extern "C" int emu_ifft_regs(const float* spec, const float* stage,
   return 0;
 }
 
-extern "C" int emu_irfft_ct(const float* spec, const float* tw, float* out,
-                            long long N, int log2m) {
+extern "C" int emu_irfft_ct(const float* spec, const float* stage,
+                            const float* tw, float* out, long long N,
+                            int log2m) {
   const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const float2* st2 = reinterpret_cast<const float2*>(stage);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   if (log2m != 13 && log2m != 14) return 1;
-  run_grid(N, detex::kThreads, [=] {
+  run_grid(N, log2m == 13 ? detex::RegsFft<13>::T : detex::RegsFft<14>::T,
+           [=] {
     if (log2m == 13) {
-      detex::irfft_ct_kernel<13>(spec2, tw2, out);
+      detex::irfft_ct_kernel<13>(spec2, st2, tw2, out);
     } else {
-      detex::irfft_ct_kernel<14>(spec2, tw2, out);
+      detex::irfft_ct_kernel<14>(spec2, st2, tw2, out);
     }
   });
   return 0;
@@ -233,9 +236,16 @@ extern "C" int emu_ds_finalize_os_scan(const float* cb, const float* a,
                                        const int* nv, float* ds, float* pyr,
                                        int* hist, long long S, int D, int m,
                                        int blk, int W, int head, int nbin) {
-  run_grid(S * m, detex::kFinThreads, [=] {
-    detex::ds_finalize_os_scan_kernel(cb, a, pw, su, nv, ds, pyr, hist, D,
-                                      m, blk, W, head, nbin);
+  const detex::OsScanArgs args{cb, a, pw, su, nv, ds, pyr, hist,
+                               S,  D, m,  blk, W, head, nbin};
+  run_grid(S * m, detex::kScanFinThreads, [=] {
+    switch (D) {
+      case 1: detex::ds_finalize_os_scan_kernel<1>(args); break;
+      case 2: detex::ds_finalize_os_scan_kernel<2>(args); break;
+      case 3: detex::ds_finalize_os_scan_kernel<3>(args); break;
+      case 4: detex::ds_finalize_os_scan_kernel<4>(args); break;
+      default: detex::ds_finalize_os_scan_kernel<0>(args); break;
+    }
   });
   return 0;
 }

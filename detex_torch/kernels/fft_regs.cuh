@@ -1,6 +1,6 @@
 // Register-resident FFT core of the block transforms rfft_ct, rfft_ct_half,
-// fwd_prep_fold (forward) and spec_ds_fold (inverse): a row of n = 2M real
-// samples (M = 8192 or 16384) is transformed as M complex points
+// fwd_prep_fold (forward), irfft_ct and spec_ds_fold (inverse): a row of
+// n = 2M real samples (M = 8192 or 16384) is transformed as M complex points
 // z[j] = x[2j] + i x[2j+1] by T = M/32 threads, each holding 32 complex
 // points in registers, in three Stockham passes (radix 16, 16, 32 at
 // M = 8192; 16, 32, 32 at 16384) with two exchanges through shared memory
@@ -258,13 +258,14 @@ __device__ __forceinline__ void fft_regs_row(const float4* __restrict__ src,
 // free when it returns.
 //
 // Pack pre-pass, in registers: Z'[k] = (V[k] + conj V[M-k]) + i e^{+2 pi i
-// k/2M} (V[k] - conj V[M-k]) (irfft_pack, fft.cuh), and with (A, E) the two
-// terms of Z'[k], Z'[M-k] = conj A + i conj E: one read of the pair and one
-// root give both. Pass 1's work item j holds points j + r M/16; its mirror
-// points M - k belong to work item M/16 - j, so thread t takes items t and
-// M/16 - t and finds every pair in its own registers. Items 0 and M/32 are
-// their own mirrors: thread 0 takes both, pairs them inside each item, and
-// moves the results to the registers the other threads use. Pass 1 writes
+// k/2M} (V[k] - conj V[M-k]), the converse of the forward split, and with
+// (A, E) the two terms of Z'[k], Z'[M-k] = conj A + i conj E: one read of
+// the pair and one root give both. Pass 1's work item j holds points
+// j + r M/16; its mirror points M - k belong to work item M/16 - j, so
+// thread t takes items t and M/16 - t and finds every pair in its own
+// registers. Items 0 and M/32 are their own mirrors: thread 0 takes both,
+// pairs them inside each item, and moves the results to the registers the
+// other threads use. Pass 1 writes
 // logical index i at z[i ^ ((i >> 4) & 15)]: 16 consecutive points a work
 // item, free of bank conflicts there and in pass 2's reads.
 template <int LOG2M, class Src, class Bar>

@@ -1,5 +1,6 @@
-// finalize_os_block: the body the three overlap-save finalize kernels share
-// (ds_finalize_os.cuh, ds_finalize_os_scan.cuh, ds_finalize_os_fold.cuh):
+// finalize_os_block: the body two overlap-save finalize kernels share
+// (ds_finalize_os.cuh, ds_finalize_os_fold.cuh; ds_finalize_os_scan.cuh has
+// a body of its own):
 // DS finalize of block i of one DS row r from its raw overlap-save inverse
 // blocks. Row r has D basis rows r*D + d of cb [rows*D, m, blk]; block i
 // covers DS positions p = i*W + t, t < W:

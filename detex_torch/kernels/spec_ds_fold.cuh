@@ -110,31 +110,6 @@ __device__ __forceinline__ void spec_ds_squares(
   }
 }
 
-// Histogram counts of one thread: noise puts nearly every sample of a block
-// into one bin, where shared-memory atomics would queue, so a thread counts
-// a run of equal bins in a register and adds it once.
-struct BinRun {
-  int* hs;
-  int nbin;
-  int bin = -1, run = 0;
-  __device__ __forceinline__ BinRun(int* hs_, int nbin_)
-      : hs(hs_), nbin(nbin_) {}
-  __device__ __forceinline__ void count(float v) {
-    float b = floorf(v * (float)nbin);
-    if (v == 1.0f) b = (float)(nbin - 1);
-    const int ib = b >= 0.f && b < (float)nbin ? (int)b : -1;
-    if (ib != bin) {
-      flush();
-      bin = ib;
-    }
-    run += ib >= 0;
-  }
-  __device__ __forceinline__ void flush() {
-    if (run) atomicAdd(&hs[bin], run);
-    run = 0;
-  }
-};
-
 // buf[0..W) holds the finished DS of row r's block i (divided, masked,
 // counted in hs): the G threads gt = 0..G-1 write DS, the 128-sample
 // maxima and the row's counts. Every thread's writes to buf and hs must be

@@ -7,11 +7,10 @@ tensors go to the kernel's plain PyTorch twin (ops/reference.py), CUDA
 tensors to the kernel, built at first use (kernels/build.py). A build or
 launch failure raises; nothing falls back to the twin. ``LAUNCHES`` counts
 kernel launches (twin calls are not counted) so a run can show that its main
-path went through the kernels. The two kernels of the fused scan run their
-block transforms on the register-resident FFT core of kernels/fft_regs.cuh
-(fwd_prep_fold the forward one, spec_ds_fold its inverse), as rfft_ct_fused
-and rfft_ct_half do; irfft_ct_fused on the shared-memory FFT of
-kernels/fft.cuh.
+path went through the kernels. Every block transform runs on the
+register-resident FFT core of kernels/fft_regs.cuh: forward in
+rfft_ct_fused, rfft_ct_half and fwd_prep_fold, inverse in irfft_ct_fused
+and spec_ds_fold.
 
 Kernels, the TPU kernel each replaces, and sources:
 
@@ -253,10 +252,11 @@ def irfft_ct_fused(spec, n):
     if N == 0:
         return out
     tw = _dft.twiddles(n, spec.device)
+    stage = _dft.stage_twiddles(n, spec.device)
     lib = _build.load_library()
     with torch.cuda.device(spec.device):
-        rc = lib.detex_irfft_ct(_ptr(spec), _ptr(tw), _ptr(out), N, log2m,
-                                _stream(spec.device))
+        rc = lib.detex_irfft_ct(_ptr(spec), _ptr(stage), _ptr(tw), _ptr(out),
+                                N, log2m, _stream(spec.device))
     _build.check(lib, rc, "irfft_ct_fused")
     LAUNCHES["irfft_ct_fused"] += 1
     return out
@@ -367,6 +367,11 @@ def ds_finalize_os_scan(cb, a, power, sum_u, nv, head, D, W, nbin=0):
     S, m = _check_os_block(cb, a, power, sum_u, D, W, head)
     _require(nv.numel() == 1 and nv.dtype == torch.int32
              and nv.is_contiguous(), "nv must be one contiguous int32")
+    # the kernel reads cb and the stats four positions a load
+    _require(head % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in (cb, a, power)),
+             "head must be a multiple of 4 and cb, a, power start on "
+             "16-byte boundaries")
     dev = cb.device
     ds = torch.empty((S, m * W), dtype=torch.float32, device=dev)
     pyr = torch.empty((S, m * (W // 128)), dtype=torch.float32, device=dev)

@@ -11,9 +11,8 @@ in registers over three Stockham passes (radix 16, 16, 32 at n = 16384; 16,
 rfft_ct_half, and the frames of fwd_prep_fold) with two rows resident per
 SM at 16384, reading overlapping frames in place; its inverse (the pack
 pre-pass in registers, the conjugate roots, samples handed over from
-registers) inside spec_ds_fold. irfft_ct_fused still runs four radix-8
-passes and one radix-2 or radix-4 pass in shared memory (kernels/fft.cuh).
-What they need from this module is the split (still the
+registers) in irfft_ct_fused, two rows per SM at 16384, and inside
+spec_ds_fold. What they need from this module is the split (still the
 legality rule of the block kernels, n1 == 128), the padded spectrum width
 ``half_rp`` and the tables of roots of unity, built in float64 on the host
 and cast to float32 (``twiddles`` for every kernel, ``stage_twiddles`` laid
@@ -93,7 +92,7 @@ def stage_twiddles(n, device):
     so that the lanes of a warp load neighbouring entries. Built in float64
     on the host, cast once and cached per (n, device)."""
     if not kernel_block(n):
-        raise ValueError("no forward transform kernel for n = %d" % n)
+        raise ValueError("no block transform kernel for n = %d" % n)
     device = torch.device(device)
     key = (int(n), str(device))
     if key not in _STAGE_TWIDDLES:

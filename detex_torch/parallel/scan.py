@@ -24,11 +24,12 @@ least PYRAMID_MIN_LEN) or extract_triggers_topk.
 scan_chunks_raw scans raw channel chunks with the device prep
 (ops/prep.py): on an overlap-save bank prep_multiplex_batch and then
 scan_chunks (route name + "+devicePrep"); on a full-length demuxed bank
-route "raw-demux+devicePrep", one ds_bank_demux_raw per chunk.
+route "raw-demux+devicePrep", one ds_bank_demux_raw per chunk and block
+of TEMPLATE_BLOCK templates (any S).
 
 The caps that send a batch down the list are detex_tpu's (ops/ds.py
 FUSED_DS_BYTES, FOLD_CB_BYTES); its Pallas tile budgets have no
-counterpart here (ROADMAP C20). The template-blocked route
+counterpart here (ROADMAP C20). scan_chunks' template-blocked route
 (S > TEMPLATE_BLOCK) and the multi-device scan raise NotImplementedError
 naming their ROADMAP items.
 """
@@ -47,8 +48,9 @@ from detex_torch.ops import triggers as _triggers
 
 DEFAULT_BINS = np.linspace(0, 1, 401)
 
-# templates per block of detex_tpu's template-blocked route; larger banks
-# take that route, which is not ported yet (ROADMAP A3)
+# templates per block of detex_tpu's template-blocked route; larger
+# overlap-save banks take that route, which is not ported yet (ROADMAP A3).
+# The raw-demux route runs its templates in blocks of this size.
 TEMPLATE_BLOCK = 128
 
 # Kernel-route observability: every scan records the route it dispatched
@@ -418,10 +420,16 @@ def _chunk_fn_raw(xc, Lv, H, arrs, thresholds, bins, n_c, nc, nfft2,
                   buff_samps, max_trig, dec, calc_hist, uniform_nbin,
                   calc_triggers):
     """One raw chunk of the "raw-demux" route (detex_tpu _chunk_fn_raw):
-    xc [nc, L_raw], Lv its true raw sample count (int). ds_bank_demux_raw,
-    then _finish with nv = Lv // dec - n_c + 1."""
-    ds = _prep.ds_bank_demux_raw(xc, Lv, H, arrs[0], arrs[1], arrs[2], n_c,
-                                 nc, nfft2, dec)
+    xc [nc, L_raw], Lv its true raw sample count (int). ds_bank_demux_raw
+    over blocks of TEMPLATE_BLOCK templates, so that its cross-spectra
+    never hold more than one block (the DS values do not depend on the
+    blocking), then _finish with nv = Lv // dec - n_c + 1."""
+    Ufd2, sum_u, d_mask = arrs
+    parts = [_prep.ds_bank_demux_raw(
+        xc, Lv, H, Ufd2[s:s + TEMPLATE_BLOCK], sum_u[s:s + TEMPLATE_BLOCK],
+        d_mask[s:s + TEMPLATE_BLOCK], n_c, nc, nfft2, dec)
+        for s in range(0, sum_u.shape[0], TEMPLATE_BLOCK)]
+    ds = parts[0] if len(parts) == 1 else torch.cat(parts)
     return _finish(ds, int(Lv) // dec - n_c + 1, thresholds, bins,
                    buff_samps, max_trig, calc_hist, uniform_nbin,
                    calc_triggers)
@@ -438,8 +446,9 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
 
     On an overlap-save bank: prep_multiplex_batch, then scan_chunks on the
     multiplexed chunks with valid lengths (lens // dec) * nc. On a
-    full-length demuxed bank: route "raw-demux", ds_bank_demux_raw per
-    chunk. A multiplexed bank raises ValueError, as in detex_tpu."""
+    full-length demuxed bank of any number of templates: route
+    "raw-demux", ds_bank_demux_raw per chunk and template block. A
+    multiplexed bank raises ValueError, as in detex_tpu."""
     if mesh is not None:
         raise NotImplementedError("multi-device scan: ROADMAP A11")
     dev = bank["sum_u"].device
@@ -457,10 +466,6 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
     if kind != "demux":
         raise ValueError("scan_chunks_raw requires a demuxed bank")
     S = int(bank["sum_u"].shape[0])
-    if S > TEMPLATE_BLOCK:
-        raise NotImplementedError(
-            "template-blocked route (S = %d > %d): ROADMAP A3"
-            % (S, TEMPLATE_BLOCK))
     if bins is None:
         bins = DEFAULT_BINS
     _note_route("raw-demux", device_prep=True)

@@ -22,22 +22,32 @@ process of its own, build its kernels and time
     at stride 7,296 of 16 x 3 rows), through dft.rfft_frames /
     dft.rfft_pair_frames where the tree has them and through the tree's
     unfold + copy + transform otherwise;
+  - the per-chunk route's kernels: irfft_ct_fused at the dense
+    re-verify's 1,728 rows of 16,384, at one D2 chunk's 3,584 rows of
+    16,384 and at one D1 chunk's 1,792 rows of 32,768, beside
+    torch.fft.irfft; ds_finalize_os_scan at one D2 chunk (128 one-dim 30 s
+    templates on a 3720 s noise chunk, made by the tree's chip_smoke as
+    phase D2 makes them) with nbin 0 and 400; and, as controls,
+    ds_finalize_os_fold at phase C's re-verify shape (cb [32, 54, 16384],
+    nbin 0) and ds_finalize_os at one D1 chunk's (cb [128, 14, 32768]) on
+    seeded noise;
   - the tree's own chip_smoke phases C (scan + dense re-verify), D3 (the
-    fused scan behind the unfused prep), B (serving) and E1 (raw-chunk
-    serving with the device prep).
+    fused scan behind the unfused prep), D2 and D1 (the per-chunk route),
+    B (serving) and E1 (raw-chunk serving with the device prep).
 
 Kernels by CUDA events (mean of ``reps`` launches after a 0.5 s warm-up);
 shapes under one wave of the card (fewer rows than SMs), where the host's
 launch rate and not the kernel would be timed, by CUDA events around the
 replay of a CUDA graph of 50 launches; phases by the host clock (best of 3
-or 2 after a warm-up). irfft_ct_fused at the re-verify's 1,728 rows is
-timed as a control that shares nothing with the forward transforms.
+or 2 after a warm-up).
 
-    python3 scripts/ab_torch_variants.py [--transforms | --scan-kernels] \\
+    python3 scripts/ab_torch_variants.py \\
+        [--transforms | --scan-kernels | --chunk-kernels] \\
         TREE_A TREE_B TREE_B TREE_A
 
 ``--transforms`` times the forward block transforms only, ``--scan-kernels``
-fwd_prep_fold, spec_ds_fold and the L2 copy only. Give the trees in
+fwd_prep_fold, spec_ds_fold and the L2 copy only, ``--chunk-kernels`` the
+per-chunk route's kernels and their controls only. Give the trees in
 turns (A, B, B, A) so that drift on the card shows: two commits compare
 only inside one command on one card. The other commit is unpacked into a
 directory that .gitignore lists:
@@ -115,11 +125,6 @@ def transforms(torch, ck, dft, tds, dev, say):
             % (name, rows, n, ms, lib,
                " [graph replay]" if rows < 132 else ""))
         del x
-    spec = torch.randn((1728, 8193, 2), generator=g, device=dev)
-    spec = torch.view_as_complex(spec)
-    say("irfft_ct_fused 1728 x 16384 (control): %.4f ms"
-        % cuda_ms(torch, lambda: ck.irfft_ct_fused(spec, 16384), 20))
-    del spec
     blk = 16384
     Rp = dft.half_rp(blk)
     for name, B, n_c in (("rfft_ct_fused", 8, 3000), ("rfft_ct_half", 16,
@@ -143,6 +148,52 @@ def transforms(torch, ck, dft, tds, dev, say):
             "(contiguous() + torch.fft.rfft %.4f ms)"
             % (name, B * NC * m, W, B * NC, ms, lib))
         del xq
+
+
+def chunk_kernels(torch, ck, cs, dev, say, tmp):
+    """irfft_ct_fused at three shapes, ds_finalize_os_scan at one D2 chunk
+    (nbin 0 and 400), the controls ds_finalize_os_fold and ds_finalize_os;
+    returns the D2 setup (chip_smoke.serving_setup) for phase D2."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    for rows, n in ((1728, 16384), (3584, 16384), (1792, 32768)):
+        spec = torch.view_as_complex(torch.randn((rows, n // 2 + 1, 2),
+                                                 generator=g, device=dev))
+        say("irfft_ct_fused %d x %d: %.4f ms (torch.fft.irfft %.4f ms)"
+            % (rows, n, cuda_ms(torch, lambda: ck.irfft_ct_fused(spec, n),
+                                20),
+               cuda_ms(torch, lambda: torch.fft.irfft(spec, n=n), 20)))
+        del spec
+    d2 = cs.serving_setup(dev, tmp, "d2", 128, 64, 30.0, 9)
+    fin = cs.chunk_finalize_inputs(d2["bank"],
+                                   torch.as_tensor(d2["X"][0], device=dev))
+    nv = torch.tensor([fin[-1]], dtype=torch.int32, device=dev)
+    args = fin[:4] + (nv,) + fin[4:7]
+    for nbin in (0, 400):
+        say("ds_finalize_os_scan cb %s (D2 chunk) nbin %d: %.4f ms"
+            % (tuple(fin[0].shape), nbin, cuda_ms(
+                torch, lambda: ck.ds_finalize_os_scan(*args, nbin=nbin), 20)))
+    del fin, args
+    torch.cuda.empty_cache()
+    W = 13312
+    cb = 0.01 * torch.randn((32, 54, 16384), generator=g, device=dev)
+    a = torch.randn((8, 54 * W), generator=g, device=dev)
+    pw = 0.5 + torch.rand((8, 54 * W), generator=g, device=dev)
+    su = torch.randn(32, generator=g, device=dev)
+    nvf = torch.full((8,), 717001, dtype=torch.int32, device=dev)
+    say("ds_finalize_os_fold cb %s nbin 0 (control): %.4f ms"
+        % (tuple(cb.shape), cuda_ms(torch, lambda: ck.ds_finalize_os_fold(
+            cb, a, pw, su, nvf, 3072, 4, W), 20)))
+    W = 26752
+    cb = 0.01 * torch.randn((128, 14, 32768), generator=g, device=dev)
+    a = torch.randn(14 * W, generator=g, device=dev)
+    pw = 0.5 + torch.rand(14 * W, generator=g, device=dev)
+    su = torch.randn(128, generator=g, device=dev)
+    say("ds_finalize_os cb %s (control): %.4f ms"
+        % (tuple(cb.shape), cuda_ms(torch, lambda: ck.ds_finalize_os(
+            cb, a, pw, su, 6016, 1, W), 20)))
+    del cb, a, pw, su
+    torch.cuda.empty_cache()
+    return d2
 
 
 def l2_copy_gbs(torch, dev, mib=16, reps=200):
@@ -221,18 +272,26 @@ def one(root, only):
     with open(os.path.splitext(lib._name)[0] + ".log") as f:
         report = f.read().splitlines()
     for i, line in enumerate(report):       # ptxas: registers, stack, spills
-        if "entry function" in line and ("fwd_prep_fold" in line
-                                         or "spec_ds_fold" in line):
+        if "entry function" in line and any(
+                k in line for k in ("fwd_prep_fold", "spec_ds_fold",
+                                    "irfft_ct", "ds_finalize_os_scan")):
             say("ptxas %s: %s; %s" % (
                 line.split("'")[1], report[i + 2].strip(),
                 report[i + 3].replace("ptxas info    :", "").strip()))
-    if only != "--scan-kernels":
+    if only in (None, "--transforms"):
         transforms(torch, ck, dft, tds, dev, say)
-    if only == "--transforms":
-        return
-    X, bank = scan_kernels(torch, np, ck, tds, dev, say)
-    if only == "--scan-kernels":
-        return
+    with tempfile.TemporaryDirectory() as tmp:
+        if only in (None, "--chunk-kernels"):
+            d2 = chunk_kernels(torch, ck, cs, dev, say, tmp)
+        if only in (None, "--scan-kernels"):
+            X, bank = scan_kernels(torch, np, ck, tds, dev, say)
+        if only is None:
+            phases(torch, np, cs, tscan, dev, say, tmp, X, bank, d2)
+
+
+def phases(torch, np, cs, tscan, dev, say, tmp, X, bank, d2):
+    """The summary-only phase-A scan and the tree's chip_smoke phases C,
+    D3, D2, D1, B and E1 (host clock, best of the runs after a warm-up)."""
     th = np.full(1, 0.5, np.float32)
     scan = []
     for _ in range(4):                              # first run warms up
@@ -253,15 +312,24 @@ def one(root, only):
     say("phase D3 best %.3f ms" % (1e3 * d3["s_per_launch"]))
     del d3
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        pb = cs.phase_b(dev, tmp)
-        say("phase B best %.3f ms" % (1e3 * pb["s_per_request"]))
-        e1 = cs.phase_e1(cs.phase_e1_setup(dev, tmp))
-        say("phase E1 best %.3f ms" % (1e3 * e1["s_per_request"]))
+    say("phase D2 best %.3f ms"
+        % (1e3 * cs.serve_and_check("D2", d2)["s_per_request"]))
+    del d2
+    torch.cuda.empty_cache()
+    d1 = cs.serving_setup(dev, tmp, "d1", 128, 32, 60.0, 8,
+                          amp=3.0 * np.sqrt(60 * 100.0 * NC))
+    say("phase D1 best %.3f ms"
+        % (1e3 * cs.serve_and_check("D1", d1)["s_per_request"]))
+    del d1
+    torch.cuda.empty_cache()
+    pb = cs.phase_b(dev, tmp)
+    say("phase B best %.3f ms" % (1e3 * pb["s_per_request"]))
+    e1 = cs.phase_e1(cs.phase_e1_setup(dev, tmp))
+    say("phase E1 best %.3f ms" % (1e3 * e1["s_per_request"]))
 
 
 def main():
-    flags = ("--transforms", "--scan-kernels")
+    flags = ("--transforms", "--scan-kernels", "--chunk-kernels")
     only = [a for a in sys.argv[1:] if a in flags]
     args = [a for a in sys.argv[1:] if a not in flags]
     if len(args) > 1 and args[0] == "--one":

@@ -236,6 +236,32 @@ def test_block_transform_kernels_match_twins(cuda, blk):
     assert ((back - want).abs() / scale).max().item() <= 2e-5
 
 
+@pytest.mark.parametrize("N,blk", [(1, 16384), (3584, 16384), (1, 32768),
+                                   (1792, 32768)])
+def test_irfft_ct_kernel_rows_match_twin(cuda, N, blk):
+    """irfft_ct_fused (B5, on the register core's inverse) on one row and
+    at the per-chunk route's rows (one D2 chunk: 3,584 of 16,384; one D1
+    chunk: 1,792 of 32,768), an all-zero row among them: within 2e-5 of
+    the twin relative to each row's largest value, the zero row exactly 0,
+    one launch."""
+    g = torch.Generator(device=cuda).manual_seed(N + blk)
+    spec = torch.view_as_complex(torch.randn((N, blk // 2 + 1, 2),
+                                             generator=g, device=cuda))
+    # real end bins, as every caller's spectra have them
+    torch.view_as_real(spec)[:, [0, -1], 1] = 0.0
+    if N > 1:
+        spec[7] = 0
+    ck.reset_launches()
+    back = ck.irfft_ct_fused(spec, blk)
+    assert ck.LAUNCHES == dict(_NONE, irfft_ct_fused=1)
+    want = ref.irfft_ct_fused_ref(spec, blk)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    assert ((back - want).abs() / scale).max().item() <= 2e-5
+    if N > 1:
+        assert bool((back[7] == 0).all())
+
+
 @pytest.mark.parametrize("geom,nbin", [("560", 0), ("560", 400),
                                        ("16300", 400)])
 def test_ds_finalize_kernel_matches_twin(cuda, geom, nbin):
@@ -391,6 +417,34 @@ def test_ds_finalize_os_scan_kernel_matches_twin(cuda, nbin, ragged):
                                                    2)
     else:
         assert hk is None and hr is None
+
+
+def test_ds_finalize_os_scan_kernel_d2_shape_repeatable_bits(cuda):
+    """ds_finalize_os_scan (B7) at one D2 chunk's shape (128 one-dim 30 s
+    templates, 28 blocks of 16,384, W 13,312) on noise, whose DS puts
+    nearly every sample into bin 0: against its twin, and two launches
+    give identical bits (every sample is one thread's; the counts are
+    integer atomics)."""
+    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, BLK, 3000, 372000,
+                                                  128, 1, 3)
+    assert tuple(cb.shape) == (128, 28, BLK) and W == 13312
+    nv = torch.tensor([out_len], dtype=torch.int32, device=cuda)
+    args = (cb, a, p, su, nv, D0, 1, W)
+    d1, p1, h1 = ck.ds_finalize_os_scan(*args, nbin=400)
+    d2, p2, h2 = ck.ds_finalize_os_scan(*args, nbin=400)
+    dr, pr, hr = ref.ds_finalize_os_scan_ref(*args, nbin=400)
+    torch.cuda.synchronize()
+    for u, v in ((d1, d2), (p1, p2)):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    assert torch.equal(h1, h2)
+    for k, r in ((d1, dr), (p1, pr)):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    assert torch.equal(h1.sum(1), hr.sum(1))
+    assert int(h1.sum(1)[0]) == out_len
+    assert (h1 - hr).abs().sum().item() <= max(hr.sum().item() // 200000, 2)
+    assert int(hr[:, 0].sum()) >= 0.9 * int(hr.sum())
 
 
 @pytest.mark.parametrize("blk", [16384, 32768])

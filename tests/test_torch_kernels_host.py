@@ -51,7 +51,7 @@ def emu(tmp_path_factory):
     lib.emu_rfft_ct.argtypes = [P] * 4 + [LL, LL, I, I, I]
     lib.emu_fft_regs.argtypes = [P] * 3 + [LL, I]
     lib.emu_ifft_regs.argtypes = [P] * 4 + [LL, I]
-    lib.emu_irfft_ct.argtypes = [P] * 3 + [LL, I]
+    lib.emu_irfft_ct.argtypes = [P] * 4 + [LL, I]
     lib.emu_ds_finalize_os_fold.argtypes = [P] * 8 + [LL] + [I] * 7
     lib.emu_ds_finalize_os_scan.argtypes = [P] * 8 + [LL] + [I] * 6
     lib.emu_ds_finalize_os.argtypes = [P] * 5 + [LL] + [I] * 5
@@ -253,30 +253,39 @@ def test_scan_kernel_sources_channel_counts(emu, nc):
 
 @pytest.mark.parametrize("blk", [16384, 32768])
 def test_block_transforms_source_match_twins(emu, blk):
-    """rfft_ct (B4) and irfft_ct (B5): three rows, one of them a short
-    signal in zeros; the inverse also gets nonzero imaginary parts at bins
-    0 and n/2, which it must ignore as torch.fft.irfft does."""
+    """rfft_ct (B4) and irfft_ct (B5, on the register core's inverse):
+    four rows, one of them a short signal in zeros and one all zeros; the
+    inverse also gets nonzero imaginary parts at bins 0 and n/2, which it
+    must ignore as torch.fft.irfft does, comes back exactly 0 on the zero
+    row, and takes a single row (N = 1) alike."""
     rng = np.random.default_rng(blk)
-    x = torch.from_numpy(rng.standard_normal((3, blk)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, blk)).astype(np.float32))
     x[2, 100:] = 0.0
+    x[3] = 0.0
     tw = dft.twiddles(blk, "cpu")
+    stage = dft.stage_twiddles(blk, "cpu")
     log2m = blk.bit_length() - 2
     R = blk // 2 + 1
-    out = torch.empty((3, R), dtype=torch.complex64)
-    assert emu.emu_rfft_ct(_ptr(x), _ptr(dft.stage_twiddles(blk, "cpu")),
-                           _ptr(tw), _ptr(out), 3, blk, 1, blk, log2m) == 0
+    out = torch.empty((4, R), dtype=torch.complex64)
+    assert emu.emu_rfft_ct(_ptr(x), _ptr(stage), _ptr(tw), _ptr(out), 4,
+                           blk, 1, blk, log2m) == 0
     ref_f = ref.rfft_ct_fused_ref(x, blk)
     assert (out - ref_f).abs().max().item() <= 2e-3
     spec = ref_f.clone()
-    spec[:, 0] += 0.5j
-    spec[:, -1] -= 0.25j
-    back = torch.empty((3, blk))
-    assert emu.emu_irfft_ct(_ptr(spec), _ptr(tw), _ptr(back), 3,
-                            log2m) == 0
+    spec[:3, 0] += 0.5j
+    spec[:3, -1] -= 0.25j
+    back = torch.full((4, blk), float("nan"))
+    assert emu.emu_irfft_ct(_ptr(spec), _ptr(stage), _ptr(tw), _ptr(back),
+                            4, log2m) == 0
     want = ref.irfft_ct_fused_ref(spec, blk)
-    scale = want.abs().amax(dim=1, keepdim=True)
-    assert ((back - want).abs() / scale).max().item() <= 2e-5
+    scale = want[:3].abs().amax(dim=1, keepdim=True)
+    assert ((back[:3] - want[:3]).abs() / scale).max().item() <= 2e-5
     assert (back - x).abs().max().item() <= 1e-5
+    assert bool((back[3] == 0).all())
+    one = torch.full((1, blk), float("nan"))
+    assert emu.emu_irfft_ct(_ptr(spec[1:2].contiguous()), _ptr(stage),
+                            _ptr(tw), _ptr(one), 1, log2m) == 0
+    assert torch.equal(one[0], back[1])
 
 
 @pytest.mark.parametrize("blk,nbin,grouped", [
@@ -478,6 +487,33 @@ def _os_block_inputs(blk, S, D, m, seed):
     return cb, a, pw, su, head, W
 
 
+def _run_os_scan(emu, cb, a, pw, su, nv, head, D, W, nbin):
+    """ds_finalize_os_scan's source and its twin: ((ds, pyr, hist),
+    (twin's ds, pyr, hist))."""
+    S, m = cb.shape[0] // D, cb.shape[1]
+    nvt = torch.tensor([nv], dtype=torch.int32)
+    ds = torch.full((S, m * W), float("nan"))
+    pyr = torch.full((S, m * W // 128), float("nan"))
+    hist = torch.zeros((S, max(nbin, 1)), dtype=torch.int32)
+    rc = emu.emu_ds_finalize_os_scan(
+        _ptr(cb), _ptr(a), _ptr(pw), _ptr(su), _ptr(nvt), _ptr(ds),
+        _ptr(pyr), _ptr(hist), S, D, m, cb.shape[2], W, head, nbin)
+    assert rc == 0
+    return (ds, pyr, hist), ref.ds_finalize_os_scan_ref(
+        cb, a, pw, su, nvt, head, D, W, nbin=nbin)
+
+
+def _check_os_scan(got, want, nbin):
+    for k, r in zip(got[:2], want[:2]):
+        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
+        fin = torch.isfinite(r)
+        if fin.any():
+            assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    if nbin:
+        assert torch.equal(got[2].sum(1), want[2].sum(1))
+        assert (got[2] - want[2]).abs().sum().item() <= 2
+
+
 @pytest.mark.parametrize("blk,nbin,nv", [
     (16384, 0, 20000), (16384, 400, -3), (16384, 400, 20000),
     (32768, 400, 20000)])
@@ -489,21 +525,9 @@ def test_ds_finalize_os_scan_source_matches_twin(emu, blk, nbin, nv):
     cb, a, pw, su, head, W = _os_block_inputs(blk, S, D, m, nbin + blk)
     if nv > 0:
         nv = W + 1000
-    nvt = torch.tensor([nv], dtype=torch.int32)
-    ds = torch.empty((S, m * W))
-    pyr = torch.empty((S, m * W // 128))
-    hist = torch.zeros((S, max(nbin, 1)), dtype=torch.int32)
-    rc = emu.emu_ds_finalize_os_scan(
-        _ptr(cb), _ptr(a), _ptr(pw), _ptr(su), _ptr(nvt), _ptr(ds),
-        _ptr(pyr), _ptr(hist), S, D, m, blk, W, head, nbin)
-    assert rc == 0
-    d0, p0, h0 = ref.ds_finalize_os_scan_ref(cb, a, pw, su, nvt, head, D, W,
-                                             nbin=nbin)
-    for k, r in ((ds, d0), (pyr, p0)):
-        assert torch.equal(torch.isfinite(k), torch.isfinite(r))
-        fin = torch.isfinite(r)
-        if fin.any():
-            assert (k[fin] - r[fin]).abs().max().item() <= 2e-5
+    got, want = _run_os_scan(emu, cb, a, pw, su, nv, head, D, W, nbin)
+    _check_os_scan(got, want, nbin)
+    ds, pyr, hist = got
     if nv <= 0:
         assert bool(torch.isneginf(ds).all()) and bool(
             torch.isneginf(pyr).all())
@@ -512,11 +536,43 @@ def test_ds_finalize_os_scan_source_matches_twin(emu, blk, nbin, nv):
         assert bool((ds[0, [130, W + 7]] == 1.0).all())
         assert float(ds[0, 300]) == 9.0
         assert bool(torch.isneginf(ds[:, nv:]).all())
-    if nbin:
-        assert torch.equal(hist.sum(1), h0.sum(1))
-        assert (hist - h0).abs().sum().item() <= 2
-        if nv > 0:
-            assert int(hist[0, -1]) >= 2 and int(h0[0, -1]) >= 2
+    if nbin and nv > 0:
+        assert int(hist[0, -1]) >= 2 and int(want[2][0, -1]) >= 2
+
+
+@pytest.mark.parametrize("D", [1, 3, 5])
+def test_ds_finalize_os_scan_source_dims(emu, D):
+    """ds_finalize_os_scan (B7) at D = 1 and 3 (compile-time dims) and 5
+    (the general form, four dims a load step), ragged: the twin within
+    2e-5, histogram totals exact."""
+    S, m = 3, 2
+    cb, a, pw, su, head, W = _os_block_inputs(16384, S, D, m, 40 + D)
+    got, want = _run_os_scan(emu, cb, a, pw, su, W + 3000, head, D, W, 400)
+    _check_os_scan(got, want, 400)
+    assert bool((got[0][:, 5:9] == 0).all())
+    assert bool(torch.isneginf(got[0][:, W + 3000:]).all())
+
+
+@pytest.mark.parametrize("blk", [16384, 32768])
+def test_ds_finalize_os_scan_source_noise_in_bin0(emu, blk):
+    """ds_finalize_os_scan (B7) on noise-like inputs whose DS (~3e-4) puts
+    nearly every sample into bin 0, where the per-thread run counts carry
+    the histogram: counts equal to the twin's, bin 0 holding nearly all."""
+    S, D, m = 2, 1, 2
+    rng = np.random.default_rng(blk + 9)
+    head = 3072 if blk == 16384 else 16384
+    W = blk - head
+    cb = torch.from_numpy(
+        rng.standard_normal((S * D, m, blk)).astype(np.float32) * 1.7e-2)
+    a = torch.from_numpy(rng.standard_normal(m * W).astype(np.float32))
+    pw = torch.from_numpy(rng.uniform(0.9, 1.1, m * W).astype(np.float32))
+    su = torch.from_numpy(rng.standard_normal(S * D).astype(np.float32)
+                          * 1e-3)
+    got, want = _run_os_scan(emu, cb, a, pw, su, m * W - 500, head, D, W,
+                             400)
+    _check_os_scan(got, want, 400)
+    assert torch.equal(got[2], want[2])
+    assert int(want[2][:, 0].sum()) >= 0.95 * S * (m * W - 500)
 
 
 @pytest.mark.parametrize("blk", [16384, 32768])

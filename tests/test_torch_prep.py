@@ -243,6 +243,41 @@ def test_scan_chunks_raw_matches_jax(jax_pallas, form):
     assert np.all(np.isneginf(m_t[2]))
 
 
+@pytest.mark.parametrize("S", [129, 256])
+def test_scan_chunks_raw_demux_past_one_template_block(jax_pallas, S):
+    """scan_chunks_raw on a full-length demuxed bank of more than
+    TEMPLATE_BLOCK templates (route "raw-demux+devicePrep", its templates
+    in blocks of 128) against detex_tpu's scan_chunks_raw, which scans any
+    S in one piece: two chunks at dec 2, one ragged; histogram totals
+    exact, maxima within 2e-5, trigger indices exact, the planted event's
+    template at the float64 oracle's maximum."""
+    dec = 2
+    rng = np.random.default_rng(60 + S)
+    X = _raw(rng, 2, [(0, 2500)])
+    lens = [L_RAW, L_RAW - 1500]
+    X[1, :, lens[1]:] = 0.0
+    jb0 = jds.build_bank([np.ones((1, NC * N_C))], NC, L_RAW // dec * NC,
+                         block_fft=0)
+    H = tprep.butter_response(FILT, SR * dec, dec * jb0["nfft2"],
+                              device="cpu")
+    U_list, xs = _templates(X, lens, [(0, 2500)], H, jb0["nfft2"], dec, S=S)
+    jb = jds.build_bank(U_list, NC, L_RAW // dec * NC, block_fft=0)
+    tb = tds.bank_from_numpy(_as_np(jb), "cpu")
+    assert tds.bank_kind(tb) == "demux" and tb["sum_u"].shape[0] == S
+    th = np.full(S, 0.5, np.float32)
+    tscan.ROUTE_COUNTS.clear()
+    out_t = tscan.scan_chunks_raw(X, lens, H, tb, th, NC, 250, max_trig=4,
+                                  dec=dec)
+    out_j = jscan.scan_chunks_raw(X, lens, H.numpy(), jb, th, NC, 250,
+                                  max_trig=4, dec=dec)
+    assert dict(tscan.ROUTE_COUNTS) == {"raw-demux+devicePrep": 1}
+    m_t, ti_t, tc_t = _check_scan(out_t, out_j)
+    assert m_t.shape == (2, S)
+    o = tds.ds_numpy(xs[0], U_list[0], NC)
+    assert abs(float(m_t[0, 0]) - float(np.nanmax(o))) <= 2e-5
+    assert int(tc_t[0, 0]) == 1 and int(ti_t[0, 0, 0]) == np.nanargmax(o)
+
+
 def test_scan_station_raw_matches_jax(jax_pallas, tmp_path):
     """serving.scan_station_raw on a tiny artifact with filt and decimate 2
     (the port builds overlap-save banks, detex_tpu on the CPU full-length
