@@ -13,9 +13,10 @@ full shape;
 the dense re-verify kernels at the small geometry, at blk 32768 and, after
 the main-path run, at phase C's re-verify shape; the per-chunk kernels and
 rfft_ct_half at phase D's shapes, before phase D's runs, the per-chunk
-finalize ds_finalize_os_scan timed with and without its histogram; the two
-forward transforms also on one row, under one wave of the card, at n =
-32768 and reading overlapping frames in place; the inverse transform at the
+finalize ds_finalize_os_scan timed with and without its histogram,
+ds_finalize_os also in its general form (D = 5) and on one thread block;
+the two forward transforms also on one row, under one wave of the card, at
+n = 32768 and reading overlapping frames in place; the inverse transform at the
 per-chunk route's shapes, on one row and under one wave), then drives the
 port's paths through the entry points a user calls:
 
@@ -866,10 +867,14 @@ def forward_extras(dev):
         fn = getattr(ck, name)
         err = held(name, fn(x, blk), x, blk)
         timer = graph_ms if N < 132 else short_ms
+        out_bytes = (N * (blk // 2 + 1) * 8 if name == "rfft_ct_fused"
+                     else N * dft.half_rp(blk) * 8)
         say("  %s %d x %d: max_abs_err %.3g; kernel %.4f ms, torch.fft.rfft "
-            "%.4f ms%s" % (name, N, blk, err, timer(lambda: fn(x, blk)),
-                           timer(lambda: torch.fft.rfft(x, n=blk)),
-                           " (graph replay of 50)" if N < 132 else ""))
+            "%.4f ms, bound %.4f ms%s"
+            % (name, N, blk, err, timer(lambda: fn(x, blk)),
+               timer(lambda: torch.fft.rfft(x, n=blk)),
+               bound(N * blk * 4 + out_bytes, N * rfft_flops(blk))[0],
+               " (graph replay of 50)" if N < 132 else ""))
         del x
     L_c = int(7200 * SR)
     for name, tag, B, L, n_c, blk in (
@@ -995,6 +1000,33 @@ def compare_os(fin):
     return out, dr
 
 
+def os_extras(dev):
+    """ds_finalize_os (B8) beyond one D1 chunk, each held against its twin
+    (2e-5) and timed: the general form (D > 4: basis rows loaded four at a
+    time), eight 5-dim subspaces of 60 s templates on a 3720 s chunk (cb
+    [40, 14, 32768]); and one thread block of work, one 60 s template on a
+    300 s chunk (cb [1, 1, 32768]: 209 groups of 128 over 8 warps)."""
+    rng = np.random.default_rng(79)
+    g = torch.Generator(device=dev).manual_seed(79)
+    n = int(60 * SR * NC)
+    err = 0.0
+    for tag, Us, seconds in (("D5", [basis(rng, 5, n) for _ in range(8)],
+                              3720),
+                             ("one block", [basis(rng, 1, n)], 300)):
+        Lc = int(seconds * SR * NC)
+        bank = tds.build_bank(Us, NC, Lc, dev, block_fft=32768)
+        fin = chunk_finalize_inputs(
+            bank, torch.randn(Lc, generator=g, device=dev))
+        r, _ = compare_os(fin)
+        err = max(err, r["err"])
+        say("  ds_finalize_os cb %s (%s): max_abs_err %.3g; kernel %.4f ms, "
+            "twin %.3f ms, bound %.4f ms"
+            % (tuple(fin[0].shape), tag, r["err"], r["ms"], r["plain_ms"],
+               r["bound"][0]))
+        del fin, bank
+    return err
+
+
 def compare_hist(v, nbin):
     hk = ck.hist_uniform(v, nbin)
     hr = ref.hist_uniform_ref(v, nbin)
@@ -1030,9 +1062,9 @@ def phase_d3_setup(dev, B=16, hours=2.0, seed=6):
 def phase_d_kernels(dev, d1, d2, d3):
     """B6-B9 held against their twins at phase D's shapes, outside the
     counted runs, and timed: rfft_ct_half on D3's frames, ds_finalize_os_scan
-    (nbin NBIN and 0) on one D2 chunk, ds_finalize_os on one D1 chunk and
-    hist_uniform on its DS rows (-inf past the valid length, as
-    os_block_scan masks them)."""
+    (nbin NBIN and 0) on one D2 chunk, ds_finalize_os on one D1 chunk (and
+    os_extras' shapes) and hist_uniform on its DS rows (-inf past the valid
+    length, as os_block_scan masks them)."""
     res = {}
     X3, bank3 = d3["X"], d3["bank"]
     n_c, blk = bank3["n_c"], bank3["blk_fft"]
@@ -1069,6 +1101,10 @@ def phase_d_kernels(dev, d1, d2, d3):
     say("  ds_finalize_os cb %s (D1): max_abs_err %.3g; hist_uniform %s: "
         "counts equal to the twin's" % (cb_shape, res["ds_finalize_os"]["err"],
                                         tuple(v.shape)))
+    del v
+    # the kernels line keeps the D1 chunk's times, the main path's
+    res["ds_finalize_os"]["err"] = max(res["ds_finalize_os"]["err"],
+                                       os_extras(dev))
     for k, r in res.items():
         say("  %s at phase-D shape: kernel %.3f ms, twin %.3f ms, library "
             "call %s ms, bound %.3f ms (%s) (SM clock %s)"

@@ -5,26 +5,26 @@
 // Replaces detex_tpu/ops/pallas_kernels.py ds_finalize_os (:701, kernel body
 // :375-385), the finalize of ds_bank_demux_os (run_bank, run_bank_rows, the
 // dense re-verify's per-chunk fallback) and of the per-chunk scan where the
-// block is too wide for the scan form (W // 128 > 128). The arithmetic is
-// finalize_os.cuh's without SCAN, with the one stats row a, power [m*W]
-// every template row of the chunk shares.
+// block is too wide for the scan form (W // 128 > 128). It computes
+// ds_finalize_os_scan's function without its mask, maxima and histogram,
+// so it runs on that kernel's body (os_finalize_block in
+// ds_finalize_os_scan.cuh) with SCAN = false: the one stats row a, power
+// [m*W] every template row of the chunk shares, 16-byte loads issued
+// before use, D a compile-time constant for 1..4, no shared memory, DS
+// written with streaming stores (a D1 chunk's 192 MB of DS leaves the
+// 50 MB L2 before the mask, maxima and histogram read it again).
 //
-// Bound on the card and design: as finalize_os.cuh.
+// Bound on the card and design: as ds_finalize_os_scan.cuh.
 #pragma once
 
-#include "finalize_os.cuh"
+#include "ds_finalize_os_scan.cuh"
 
 namespace detex {
 
-__global__ void __launch_bounds__(kFinThreads)
-ds_finalize_os_kernel(const float* __restrict__ cb,
-                      const float* __restrict__ a,
-                      const float* __restrict__ pw,
-                      const float* __restrict__ su, float* __restrict__ ds,
-                      int D, int m, int blk, int W, int head) {
-  finalize_os_block<false>(cb, a, pw, su, 0, ds, nullptr, nullptr,
-                           blockIdx.x / m, 0, blockIdx.x % m, D, m, blk, W,
-                           head, 0);
+template <int DC>
+__global__ void __launch_bounds__(kOsFinThreads)
+ds_finalize_os_kernel(const OsFinArgs p) {
+  os_finalize_block<DC, false>(p);
 }
 
 }  // namespace detex

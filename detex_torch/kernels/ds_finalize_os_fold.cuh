@@ -4,7 +4,7 @@
 //
 // Replaces detex_tpu/ops/pallas_kernels.py ds_finalize_os_fold (:575,
 // kernel body :499-550). Row r is a (chunk, template) pair; the arithmetic
-// is finalize_os.cuh's scan form, with stats row c = r / group of a,
+// is finalize_os.cuh's (its only user), with stats row c = r / group of a,
 // power [BS/group, m*W] and valid length nv[c] [BS/group]: group = 1 gives
 // every row its own stats, group = S lets a chunk's S template rows share
 // one.
@@ -27,8 +27,8 @@ ds_finalize_os_fold_kernel(const float* __restrict__ cb,
                            int W, int head, int group, int nbin) {
   const long long r = blockIdx.x / m;
   const long long c = r / group;
-  finalize_os_block<true>(cb, a, pw, su, nv[c], ds, pyr, hist, r, c,
-                          blockIdx.x % m, D, m, blk, W, head, nbin);
+  finalize_os_block(cb, a, pw, su, nv[c], ds, pyr, hist, r, c, blockIdx.x % m,
+                    D, m, blk, W, head, nbin);
 }
 
 }  // namespace detex

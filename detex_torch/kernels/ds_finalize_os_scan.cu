@@ -8,14 +8,14 @@
 namespace {
 
 template <int DC>
-int launch_os_scan(const detex::OsScanArgs& args, cudaStream_t stream) {
+int launch_os_scan(const detex::OsFinArgs& args, cudaStream_t stream) {
   const size_t smem = (size_t)args.nbin * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       detex::ds_finalize_os_scan_kernel<DC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   detex::ds_finalize_os_scan_kernel<DC>
-      <<<(unsigned)(args.S * args.m), detex::kScanFinThreads, smem,
+      <<<(unsigned)(args.S * args.m), detex::kOsFinThreads, smem,
          stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -26,7 +26,7 @@ extern "C" int detex_ds_finalize_os_scan(
     const float* cb, const float* a, const float* pw, const float* su,
     const int* nv, float* ds, float* pyr, int* hist, long long S, int D,
     int m, int blk, int W, int head, int nbin, void* stream) {
-  const detex::OsScanArgs args{cb, a, pw, su, nv, ds, pyr, hist,
+  const detex::OsFinArgs args{cb, a, pw, su, nv, ds, pyr, hist,
                                S,  D, m,  blk, W, head, nbin};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {

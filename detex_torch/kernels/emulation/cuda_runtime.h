@@ -47,6 +47,7 @@ inline void named_barrier_sync(int id, int) {
   emu_group_barriers[id]->arrive_and_wait();
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) {

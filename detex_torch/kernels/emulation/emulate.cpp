@@ -236,9 +236,9 @@ extern "C" int emu_ds_finalize_os_scan(const float* cb, const float* a,
                                        const int* nv, float* ds, float* pyr,
                                        int* hist, long long S, int D, int m,
                                        int blk, int W, int head, int nbin) {
-  const detex::OsScanArgs args{cb, a, pw, su, nv, ds, pyr, hist,
+  const detex::OsFinArgs args{cb, a, pw, su, nv, ds, pyr, hist,
                                S,  D, m,  blk, W, head, nbin};
-  run_grid(S * m, detex::kScanFinThreads, [=] {
+  run_grid(S * m, detex::kOsFinThreads, [=] {
     switch (D) {
       case 1: detex::ds_finalize_os_scan_kernel<1>(args); break;
       case 2: detex::ds_finalize_os_scan_kernel<2>(args); break;
@@ -254,8 +254,16 @@ extern "C" int emu_ds_finalize_os(const float* cb, const float* a,
                                   const float* pw, const float* su, float* ds,
                                   long long S, int D, int m, int blk, int W,
                                   int head) {
-  run_grid(S * m, detex::kFinThreads, [=] {
-    detex::ds_finalize_os_kernel(cb, a, pw, su, ds, D, m, blk, W, head);
+  const detex::OsFinArgs args{cb, a, pw, su, nullptr, ds, nullptr, nullptr,
+                              S,  D, m,  blk, W, head, 0};
+  run_grid(S * m, detex::kOsFinThreads, [=] {
+    switch (D) {
+      case 1: detex::ds_finalize_os_kernel<1>(args); break;
+      case 2: detex::ds_finalize_os_kernel<2>(args); break;
+      case 3: detex::ds_finalize_os_kernel<3>(args); break;
+      case 4: detex::ds_finalize_os_kernel<4>(args); break;
+      default: detex::ds_finalize_os_kernel<0>(args); break;
+    }
   });
   return 0;
 }

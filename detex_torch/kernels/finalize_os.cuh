@@ -1,6 +1,6 @@
-// finalize_os_block: the body two overlap-save finalize kernels share
-// (ds_finalize_os.cuh, ds_finalize_os_fold.cuh; ds_finalize_os_scan.cuh has
-// a body of its own):
+// finalize_os_block: the body of ds_finalize_os_fold (ds_finalize_os_fold.cuh;
+// ds_finalize_os_scan and ds_finalize_os run on os_finalize_block in
+// ds_finalize_os_scan.cuh):
 // DS finalize of block i of one DS row r from its raw overlap-save inverse
 // blocks. Row r has D basis rows r*D + d of cb [rows*D, m, blk]; block i
 // covers DS positions p = i*W + t, t < W:
@@ -10,13 +10,12 @@
 //
 // with stats row c of a, power [rows, m*W] (the callers pad them with
 // a = 0, power = 1 past the valid output length, as detex_tpu's _os_block
-// does). The scan form (SCAN = true) also sets ds = -inf where p >= nv,
-// writes the maximum of every 128-sample block to pyr and, for nbin > 0,
-// adds floor-rule counts to hist (zeroed by the caller): bin
-// floor(v * nbin) in float32, v == 1.0 in the last bin, values outside
-// [0, 1] and -inf dropped. A row's m blocks run as separate thread blocks;
-// counts go to shared memory and then to the row's global counts with
-// integer atomics (exact, order-free).
+// does), ds = -inf where p >= nv, the maximum of every 128-sample block in
+// pyr and, for nbin > 0, floor-rule counts added to hist (zeroed by the
+// caller): bin floor(v * nbin) in float32, v == 1.0 in the last bin,
+// values outside [0, 1] and -inf dropped. A row's m blocks run as separate
+// thread blocks; counts go to shared memory and then to the row's global
+// counts with integer atomics (exact, order-free).
 //
 // Bound on the card: device-memory traffic (read D*W floats of cb and the
 // two stats rows, write W DS values per block; ~3D + 2 flops a sample).
@@ -32,8 +31,7 @@ namespace detex {
 constexpr int kFinThreads = 256;
 
 // Block i of DS row r, reading stats row c (a, pw [rows, m*W]) and valid
-// length nvc. Without SCAN, nvc, pyr, hist and nbin are not read.
-template <bool SCAN>
+// length nvc.
 __device__ __forceinline__ void finalize_os_block(
     const float* __restrict__ cb, const float* __restrict__ a,
     const float* __restrict__ pw, const float* __restrict__ su,
@@ -44,10 +42,8 @@ __device__ __forceinline__ void finalize_os_block(
   int* hs = reinterpret_cast<int*>(smem);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  if (SCAN) {
-    for (int k = tid; k < nbin; k += nthr) hs[k] = 0;
-    __syncthreads();
-  }
+  for (int k = tid; k < nbin; k += nthr) hs[k] = 0;
+  __syncthreads();
   const long long mW = (long long)m * W;
   const float* arow = a + c * mW + (long long)i * W;
   const float* prow = pw + c * mW + (long long)i * W;
@@ -69,25 +65,21 @@ __device__ __forceinline__ void finalize_os_block(
       }
       const float p = prow[t];
       float v = acc / (p == 0.f ? INFINITY : p);
-      if (SCAN) {
-        if ((long long)i * W + t >= nvc) v = -INFINITY;
-        if (nbin) {
-          float bin = floorf(v * (float)nbin);
-          if (v == 1.0f) bin = (float)(nbin - 1);
-          if (bin >= 0.f && bin < (float)nbin) atomicAdd(&hs[(int)bin], 1);
-        }
-        mx = fmaxf(mx, v);
+      if ((long long)i * W + t >= nvc) v = -INFINITY;
+      if (nbin) {
+        float bin = floorf(v * (float)nbin);
+        if (v == 1.0f) bin = (float)(nbin - 1);
+        if (bin >= 0.f && bin < (float)nbin) atomicAdd(&hs[(int)bin], 1);
       }
+      mx = fmaxf(mx, v);
       drow[t] = v;
     }
-    if (SCAN) {
-      for (int o = 16; o > 0; o >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      }
-      if (lane == 0) pyr[r * m * (long long)nb + (long long)i * nb + g] = mx;
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     }
+    if (lane == 0) pyr[r * m * (long long)nb + (long long)i * nb + g] = mx;
   }
-  if (SCAN && nbin) {
+  if (nbin) {
     __syncthreads();
     for (int k = tid; k < nbin; k += nthr) {
       if (hs[k]) atomicAdd(&hist[r * nbin + k], hs[k]);

@@ -352,6 +352,11 @@ def _check_os_block(cb, a, power, sum_u, D, W, head):
     for t in (cb, a, power, sum_u):
         _require(t.dtype == torch.float32 and t.is_contiguous(),
                  "cb, stats and sum_u must be contiguous float32")
+    # the kernels read cb and the stats four positions a load
+    _require(head % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in (cb, a, power)),
+             "head must be a multiple of 4 and cb, a, power start on "
+             "16-byte boundaries")
     return SD // D, m
 
 
@@ -367,11 +372,6 @@ def ds_finalize_os_scan(cb, a, power, sum_u, nv, head, D, W, nbin=0):
     S, m = _check_os_block(cb, a, power, sum_u, D, W, head)
     _require(nv.numel() == 1 and nv.dtype == torch.int32
              and nv.is_contiguous(), "nv must be one contiguous int32")
-    # the kernel reads cb and the stats four positions a load
-    _require(head % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                   for t in (cb, a, power)),
-             "head must be a multiple of 4 and cb, a, power start on "
-             "16-byte boundaries")
     dev = cb.device
     ds = torch.empty((S, m * W), dtype=torch.float32, device=dev)
     pyr = torch.empty((S, m * (W // 128)), dtype=torch.float32, device=dev)
@@ -393,8 +393,9 @@ def ds_finalize_os_scan(cb, a, power, sum_u, nv, head, D, W, nbin=0):
 def ds_finalize_os(cb, a, power, sum_u, head, D, W):
     """Per-chunk DS finalize without mask, maxima or histogram: ds
     [S, m*W] from cb [S*D, m, blk], a, power [m*W] (a = 0, power = 1 past
-    the valid length) and sum_u [S*D]. Semantics:
-    reference.ds_finalize_os_ref."""
+    the valid length) and sum_u [S*D]; on the card head % 4 == 0 and cb,
+    a, power start on 16-byte boundaries, as for ds_finalize_os_scan.
+    Semantics: reference.ds_finalize_os_ref."""
     if not _on_cuda(cb, a, power, sum_u):
         return _ref.ds_finalize_os_ref(cb, a, power, sum_u, head, D, W)
     S, m = _check_os_block(cb, a, power, sum_u, D, W, head)

@@ -27,10 +27,10 @@ process of its own, build its kernels and time
     16,384 and at one D1 chunk's 1,792 rows of 32,768, beside
     torch.fft.irfft; ds_finalize_os_scan at one D2 chunk (128 one-dim 30 s
     templates on a 3720 s noise chunk, made by the tree's chip_smoke as
-    phase D2 makes them) with nbin 0 and 400; and, as controls,
-    ds_finalize_os_fold at phase C's re-verify shape (cb [32, 54, 16384],
-    nbin 0) and ds_finalize_os at one D1 chunk's (cb [128, 14, 32768]) on
-    seeded noise;
+    phase D2 makes them) with nbin 0 and 400; ds_finalize_os_fold at phase
+    C's re-verify shape (cb [32, 54, 16384], nbin 0); and ds_finalize_os
+    on seeded noise at one D1 chunk's shape (cb [128, 14, 32768]) and at
+    D = 2 and 5 on the same blocks (cb [128, ...] and [160, ...]);
   - the tree's own chip_smoke phases C (scan + dense re-verify), D3 (the
     fused scan behind the unfused prep), D2 and D1 (the per-chunk route),
     B (serving) and E1 (raw-chunk serving with the device prep).
@@ -152,8 +152,11 @@ def transforms(torch, ck, dft, tds, dev, say):
 
 def chunk_kernels(torch, ck, cs, dev, say, tmp):
     """irfft_ct_fused at three shapes, ds_finalize_os_scan at one D2 chunk
-    (nbin 0 and 400), the controls ds_finalize_os_fold and ds_finalize_os;
-    returns the D2 setup (chip_smoke.serving_setup) for phase D2."""
+    (nbin 0 and 400), ds_finalize_os_fold at phase C's re-verify shape,
+    ds_finalize_os at one D1 chunk (alone and with what the chunk does
+    next, d1_tail) and at D = 2 and 5 (its bound from chip_smoke's peaks
+    beside it); returns the D2 setup
+    (chip_smoke.serving_setup) for phase D2."""
     g = torch.Generator(device=dev).manual_seed(6)
     for rows, n in ((1728, 16384), (3584, 16384), (1792, 32768)):
         spec = torch.view_as_complex(torch.randn((rows, n // 2 + 1, 2),
@@ -180,20 +183,44 @@ def chunk_kernels(torch, ck, cs, dev, say, tmp):
     pw = 0.5 + torch.rand((8, 54 * W), generator=g, device=dev)
     su = torch.randn(32, generator=g, device=dev)
     nvf = torch.full((8,), 717001, dtype=torch.int32, device=dev)
-    say("ds_finalize_os_fold cb %s nbin 0 (control): %.4f ms"
+    say("ds_finalize_os_fold cb %s nbin 0: %.4f ms"
         % (tuple(cb.shape), cuda_ms(torch, lambda: ck.ds_finalize_os_fold(
             cb, a, pw, su, nvf, 3072, 4, W), 20)))
-    W = 26752
-    cb = 0.01 * torch.randn((128, 14, 32768), generator=g, device=dev)
-    a = torch.randn(14 * W, generator=g, device=dev)
-    pw = 0.5 + torch.rand(14 * W, generator=g, device=dev)
-    su = torch.randn(128, generator=g, device=dev)
-    say("ds_finalize_os cb %s (control): %.4f ms"
-        % (tuple(cb.shape), cuda_ms(torch, lambda: ck.ds_finalize_os(
-            cb, a, pw, su, 6016, 1, W), 20)))
-    del cb, a, pw, su
+    del cb, a, pw, su, nvf
+    W, m = 26752, 14
+    a = torch.randn(m * W, generator=g, device=dev)
+    pw = 0.5 + torch.rand(m * W, generator=g, device=dev)
+    for S, D in ((128, 1), (64, 2), (32, 5)):
+        cb = 0.01 * torch.randn((S * D, m, 32768), generator=g, device=dev)
+        su = torch.randn(S * D, generator=g, device=dev)
+        samples = S * m * W
+        bound = max((samples * (D + 1) + 2 * m * W + S * D) * 4 / 3.35e12,
+                    samples * (3 * D + 1) / 67e12) * 1e3
+        say("ds_finalize_os cb %s (D = %d%s): %.4f ms (bound %.4f ms)"
+            % (tuple(cb.shape), D, ", one D1 chunk" if D == 1 else "",
+               cuda_ms(torch, lambda: ck.ds_finalize_os(
+                   cb, a, pw, su, 6016, D, W), 20), bound))
+        if D == 1:
+            say("ds_finalize_os + mask + maxima + hist_uniform (one D1 "
+                "chunk, as os_block_scan and the scan's histogram): %.4f ms"
+                % cuda_ms(torch, lambda: d1_tail(torch, ck, cb, a, pw, su,
+                                                 W), 20))
+        del cb, su
+    del a, pw
     torch.cuda.empty_cache()
     return d2
+
+
+def d1_tail(torch, ck, cb, a, pw, su, W):
+    """What a D1 chunk does with B8's output: the -inf mask past the valid
+    length and the 128-sample maxima (ops/ds.os_block_scan), then the
+    histogram (hist_uniform), which all read the DS rows again."""
+    ds = ck.ds_finalize_os(cb, a, pw, su, 6016, 1, W)
+    pos = torch.arange(ds.shape[1], device=ds.device)
+    ds = torch.where(pos[None, :] < ds.shape[1] - 5000, ds,
+                     torch.full_like(ds, float("-inf")))
+    ds.reshape(ds.shape[0], -1, 128).amax(dim=-1)
+    ck.hist_uniform(ds, 400)
 
 
 def l2_copy_gbs(torch, dev, mib=16, reps=200):
@@ -274,7 +301,7 @@ def one(root, only):
     for i, line in enumerate(report):       # ptxas: registers, stack, spills
         if "entry function" in line and any(
                 k in line for k in ("fwd_prep_fold", "spec_ds_fold",
-                                    "irfft_ct", "ds_finalize_os_scan")):
+                                    "irfft_ct", "ds_finalize_os")):
             say("ptxas %s: %s; %s" % (
                 line.split("'")[1], report[i + 2].strip(),
                 report[i + 3].replace("ptxas info    :", "").strip()))

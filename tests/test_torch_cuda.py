@@ -447,14 +447,23 @@ def test_ds_finalize_os_scan_kernel_d2_shape_repeatable_bits(cuda):
     assert int(hr[:, 0].sum()) >= 0.9 * int(hr.sum())
 
 
-@pytest.mark.parametrize("blk", [16384, 32768])
-def test_ds_finalize_os_and_hist_kernels_match_twins(cuda, blk):
+# (blk, n_c, L_c, S, D): the ids "16384" and "32768" are the cases the test
+# had before the others; "d1-chunk" is one D1 chunk (128 one-dim 60 s
+# templates on 3720 s, cb [128, 14, 32768]); "D5" the general form
+OS_CASES = {"16384": (16384, 560, 60000, 4, 2),
+            "32768": (32768, 560, 60000, 4, 2),
+            "d1-chunk": (32768, 6000, 372000, 128, 1),
+            "D5": (16384, 560, 60000, 3, 5)}
+
+
+@pytest.mark.parametrize("case", list(OS_CASES))
+def test_ds_finalize_os_and_hist_kernels_match_twins(cuda, case):
     """ds_finalize_os on one chunk's inverse blocks, then hist_uniform on
     its DS rows with a ragged -inf tail and exact 1.0 values (counts
     equal to the twin's: the same float32 floor rule)."""
-    S, D = 4, 2
-    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, blk, 560, 60000, S,
-                                                  D, blk)
+    blk, n_c, L_c, S, D = OS_CASES[case]
+    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, blk, n_c, L_c, S,
+                                                  D, blk + D - 2)
     dk = ck.ds_finalize_os(cb, a, p, su, D0, D, W)
     dr = ref.ds_finalize_os_ref(cb, a, p, su, D0, D, W)
     torch.cuda.synchronize()
@@ -466,6 +475,38 @@ def test_ds_finalize_os_and_hist_kernels_match_twins(cuda, blk):
     hr = ref.hist_uniform_ref(v, 400)
     torch.cuda.synchronize()
     assert torch.equal(hk, hr) and int(hk[0, -1]) >= 64
+
+
+def test_ds_finalize_os_kernel_d1_shape_repeatable_bits(cuda):
+    """ds_finalize_os (B8) at one D1 chunk's shape: two launches give
+    identical bits (every sample is one thread's), both within 2e-5 of
+    the twin."""
+    cb, a, p, su, D0, W, _ = _os_block_args(cuda, 32768, 6000, 372000, 128,
+                                            1, 8)
+    assert tuple(cb.shape) == (128, 14, 32768) and W == 26752
+    d1 = ck.ds_finalize_os(cb, a, p, su, D0, 1, W)
+    d2 = ck.ds_finalize_os(cb, a, p, su, D0, 1, W)
+    dr = ref.ds_finalize_os_ref(cb, a, p, su, D0, 1, W)
+    torch.cuda.synchronize()
+    assert torch.equal(d1.view(torch.int32), d2.view(torch.int32))
+    assert (d1 - dr).abs().max().item() <= 2e-5
+
+
+def test_os_finalize_kernels_refuse_misaligned_loads(cuda):
+    """ds_finalize_os and ds_finalize_os_scan load four positions at
+    once: a head that is not a multiple of 4, or stats off a 16-byte
+    boundary, raise; nothing falls back to the twin."""
+    cb, a, p, su, D0, W, out_len = _os_block_args(cuda, BLK, 560, 60000, 2,
+                                                  1, 4)
+    nv = torch.tensor([out_len], dtype=torch.int32, device=cuda)
+    a_off = torch.empty(a.numel() + 1, device=cuda)[1:]
+    a_off.copy_(a)
+    assert a_off.is_contiguous() and a_off.data_ptr() % 16 != 0
+    for head, av in ((D0 - 2, a), (D0, a_off)):
+        with pytest.raises(ValueError):
+            ck.ds_finalize_os(cb, av, p, su, head, 1, W)
+        with pytest.raises(ValueError):
+            ck.ds_finalize_os_scan(cb, av, p, su, nv, head, 1, W)
 
 
 @pytest.mark.parametrize("case", ["plain-w15744", "plain-w32128", "bins",

@@ -575,12 +575,26 @@ def test_ds_finalize_os_scan_source_noise_in_bin0(emu, blk):
     assert int(want[2][:, 0].sum()) >= 0.95 * S * (m * W - 500)
 
 
-@pytest.mark.parametrize("blk", [16384, 32768])
-def test_ds_finalize_os_source_matches_twin(emu, blk):
-    """ds_finalize_os (B8): no mask, no maxima; DS 0 at zero power, the
-    planted exact values, the twin within 2e-5 everywhere."""
-    S, D, m = 2, 2, 3
-    cb, a, pw, su, head, W = _os_block_inputs(blk, S, D, m, blk + 5)
+# the D = 2 cases keep the ids they had before D was a parameter
+OS_CASES = [pytest.param(blk, D,
+                         id=str(blk) if D == 2 else "%d-D%d" % (blk, D))
+            for blk in (16384, 32768) for D in (1, 2, 3, 4, 5)]
+
+
+@pytest.mark.parametrize("blk,D", OS_CASES)
+def test_ds_finalize_os_source_matches_twin(emu, blk, D):
+    """ds_finalize_os (B8) on the shared body without the scan (D = 1..4
+    compile-time dims, 5 the general form): no mask, no maxima; DS 0 at
+    zero power, the planted exact values, the twin within 2e-5
+    everywhere."""
+    S, m = 2, 3
+    cb, a, pw, su, head, W = _os_block_inputs(blk, S, D, m,
+                                              blk + 5 + 10 * (D - 2))
+    _check_os(emu, cb, a, pw, su, head, D, W)
+
+
+def _check_os(emu, cb, a, pw, su, head, D, W):
+    S, m, blk = cb.shape[0] // D, cb.shape[1], cb.shape[2]
     ds = torch.full((S, m * W), float("nan"))
     rc = emu.emu_ds_finalize_os(_ptr(cb), _ptr(a), _ptr(pw), _ptr(su),
                                 _ptr(ds), S, D, m, blk, W, head)
@@ -588,7 +602,30 @@ def test_ds_finalize_os_source_matches_twin(emu, blk):
     d0 = ref.ds_finalize_os_ref(cb, a, pw, su, head, D, W)
     assert bool(torch.isfinite(ds).all())
     assert (ds - d0).abs().max().item() <= 2e-5
-    assert bool((ds[:, 5:9] == 0).all()) and float(ds[0, 300]) == 9.0
+    assert bool((ds[:, 5:9] == 0).all())
+    assert bool((ds[0, [130, W + 7] if m > 1 else [130]] == 1.0).all())
+    assert float(ds[0, 300]) == 9.0
+
+
+@pytest.mark.parametrize("D", [1, 5])
+def test_ds_finalize_os_source_one_block(emu, D):
+    """ds_finalize_os (B8) on a grid of one thread block (S * m = 1):
+    W // 128 = 209 groups, as at one D1 chunk, over the block's 8 warps
+    (a ragged last step), against the twin."""
+    blk, W = 32768, 26752
+    rng = np.random.default_rng(D + 70)
+    cb = torch.from_numpy(
+        rng.standard_normal((D, 1, blk)).astype(np.float32) * 4)
+    a = torch.from_numpy(rng.standard_normal(W).astype(np.float32))
+    pw = torch.from_numpy(rng.uniform(20, 200, W).astype(np.float32))
+    pw[5:9] = 0.0
+    su = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    head = blk - W
+    for t, v in ((130, 1.0), (300, 3.0)):
+        a[t], pw[t] = 0.0, 1.0
+        cb[:, 0, head + t] = 0.0
+        cb[0, 0, head + t] = v
+    _check_os(emu, cb, a, pw, su, head, D, W)
 
 
 @pytest.mark.parametrize("nbin,L", [(400, 20000), (100, 8192), (1, 3000)])
