@@ -72,7 +72,26 @@ port's paths through the entry points a user calls:
                raw path with the complex filter response at decimate 2 and
                scan_chunks_raw on a full-length bank of 129 templates (two
                template blocks), each against the CPU twins; ds_finalize
-               against its twin at E2's shape before the counted runs.
+               against its twin at E2's shape before the counted runs;
+  phase F  the detection engine, detect.detex, on seeded three-channel
+           chunks of 3720 s at 100 Hz, its SQLite rows held against the
+           float64 oracle (ds_numpy + extract_triggers_np on each planted
+           chunk prepped as the engine preps it: STMP exact, DS within
+           2e-5, no row without a planted event, histogram totals exact):
+           F1  one station-day (24 chunks) of a station of 8 subspace
+               detectors (30 s, D = 4) and one of 8 single templates, six
+               planted events each, batchSize 8, histograms, magnitudes,
+               STA/LTA: route "fused-net+fusedprep", the dense re-verify;
+               station-days/s end to end;
+           F2  the bench.py network station: 1000 single templates (1024
+               rows, 8 template blocks) on 8 chunks, four planted events:
+               route "blocked-fused-net+fusedprep"; then the same bank's
+               summary scan against its eight blocks of 128 through the
+               unblocked route, histograms and maxima bit for bit;
+           F3  devicePrep: a station of F1's subspace shape at 50 Hz on
+               raw 100 Hz chunks, filt [1, 10, 2, true], decimate 2: route
+               "fused-net+fusedprep+devicePrep", its rows held against the
+               same engine's host-filter rows.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -98,8 +117,10 @@ from detex_torch.ops import dft
 from detex_torch.ops import ds as tds
 from detex_torch.ops import prep as tprep
 from detex_torch.ops import reference as ref
+from detex_torch.ops import triggers as ttrig
 from detex_torch.parallel import scan as tscan
-from detex_torch import serving
+from detex_torch import construct, detect, serving, util
+from detex_torch.core import Stream, Trace
 
 NC = 3
 SR = 100.0
@@ -1575,6 +1596,332 @@ def phase_e4(dev, seed=44):
     return dict(err=max(errs))
 
 
+# ---------------------------------------------------------------------------
+# phase F: the detection engine (detect.detex) on the card
+# ---------------------------------------------------------------------------
+
+F_SEC = 3720.0                  # conDatDuration 3600 s + conBuff 120 s
+F_T0 = 1.5e9                    # start of chunk 0 (POSIX seconds)
+
+
+def f_chunk(seed, b, L, planted):
+    """Raw chunk b [NC, L] of a phase-F station: unit noise from (seed, b)
+    plus each planted (signal [NC, k], sample) of the chunk."""
+    x = np.random.default_rng((seed, b)).standard_normal((NC, L))
+    for sig, at in planted.get(b, ()):
+        x[:, at:at + sig.shape[1]] += sig
+    return x
+
+
+def f_stream(x, b, sr):
+    """Chunk b as the engine reads it: a port Stream of NC traces starting
+    at F_T0 + b * F_SEC."""
+    return Stream([Trace(x[c].copy(), dict(
+        network="XX", station="F", channel="BH" + "ENZ"[c],
+        sampling_rate=sr, starttime=F_T0 + b * F_SEC)) for c in range(NC)])
+
+
+def f_station(sta, dets, sr, L, n_chunks, seed, planted, chunk_sr=None):
+    """The engine's plain inputs of one station: {sta: {channels, sr,
+    detectors}} and chunks(sta) over n_chunks fresh chunks (sampled at
+    ``chunk_sr``, default ``sr``)."""
+    def chunks(name):
+        for b in range(n_chunks):
+            yield (f_stream(f_chunk(seed, b, L, planted), b, chunk_sr or sr),
+                   None, None)
+    return {sta: dict(channels=["BHE", "BHN", "BHZ"], sr=sr,
+                      detectors=dets)}, chunks
+
+
+def f_detectors(rng, prefix, count, D, n, issubspace):
+    """``count`` detectors of white orthonormal bases [D, n] (D = 1: single
+    templates) with the fields the engine reads; threshold 0.3."""
+    dets = []
+    for s in range(count):
+        U = basis(rng, D, n)
+        if issubspace:
+            WFs = 20.0 * rng.standard_normal((3, D)) @ U
+            extra = dict(mags=list(rng.uniform(0.5, 2.0, 3)),
+                         events=["e0", "e1", "e2"], offsets=[0.0, 0.35, 0.7])
+        else:
+            WFs = 20.0 * U
+            extra = dict(mags=[1.1], events=["e0"], offsets=[0.0])
+        dets.append(dict(name="%s%03d" % (prefix, s), U=U, WFs=WFs,
+                         threshold=0.3, **extra))
+    return dets
+
+
+def f_plant(dets, events, n):
+    """{chunk: [(signal, channel sample)]} of events (chunk, detector,
+    channel sample): the detector's first basis row demuxed at amplitude
+    sqrt(1.5 n) (DS ~ 0.6 in unit noise)."""
+    planted = {}
+    for b, s, at in events:
+        sig = np.sqrt(1.5 * n) * dets[s]["U"][0].reshape(-1, NC).T
+        planted.setdefault(b, []).append((sig, at))
+    return planted
+
+
+def f_rows(db, table):
+    """The engine's rows of ``table`` with each row's chunk index."""
+    rows = util.loadSQLite(db, table) or []
+    for r in rows:
+        r["chunk"] = int((r["STMP"] - F_T0) // F_SEC)
+    return rows
+
+
+def f_check(tag, rows, dets, events, seed, L, sr, planted, n_chunks, hist,
+            filt=None, dec=None):
+    """Every row against the float64 oracle: the rows come in (chunk,
+    detector) order, only from planted (chunk, detector) pairs, and each
+    pair's STMPs are exactly those of ds_numpy + extract_triggers_np on
+    the chunk prepped as the engine preps it (_applyFilter, multiplex),
+    DS within 2e-5; every detector's histogram total is the chunks' valid
+    DS length. Returns the largest DS error."""
+    by = {d["name"]: d for d in dets}
+    keys = [(r["chunk"], str(r["Name"])) for r in rows]
+    need(keys == sorted(keys), "phase %s rows out of (chunk, detector) "
+         "order" % tag)
+    want = {(b, dets[s]["name"]) for b, s, _ in events}
+    need(set(keys) == want, "phase %s rows at %s, planted %s"
+         % (tag, sorted(set(keys) - want), sorted(want - set(keys))))
+    errs = []
+    n_c = dets[0]["U"].shape[1] // NC
+    for b, name in sorted(want):
+        st = construct._applyFilter(f_stream(f_chunk(seed, b, L, planted), b,
+                                             sr), filt, dec, "single")
+        x64 = construct.multiplex(st, NC).astype(np.float64)
+        srd = st[0].stats.sampling_rate
+        ds64 = tds.ds_numpy(x64, by[name]["U"], NC)
+        idx = ttrig.extract_triggers_np(ds64, by[name]["threshold"],
+                                        int(20 * srd), 4096)
+        got = [r for r in rows if (r["chunk"], str(r["Name"])) == (b, name)]
+        tstamp = st[0].stats.starttime.timestamp
+        need([r["STMP"] for r in got] == [i / srd + tstamp for i in idx],
+             "phase %s (%d, %s) STMP %s, oracle %s" % (
+                 tag, b, name, [r["STMP"] for r in got],
+                 [i / srd + tstamp for i in idx]))
+        errs += [abs(r["DS"] - ds64[i]) for r, i in zip(got, idx)]
+        need(all(np.isfinite(r["SNR"]) for r in got),
+             "phase %s (%d, %s) SNR not finite" % (tag, b, name))
+    need(max(errs) <= 2e-5, "phase %s DS err %g" % (tag, max(errs)))
+    L_d = L // (dec or 1)
+    for name, h in hist.items():
+        need(h.sum() == n_chunks * (L_d - n_c + 1), "phase %s histogram "
+             "total of %s %d != %d" % (tag, name, h.sum(),
+                                       n_chunks * (L_d - n_c + 1)))
+    return max(errs)
+
+
+def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
+    """F1: one station-day (24 chunks of 3720 s at 100 Hz, 3 channels) of a
+    station of 8 subspace detectors (30 s, D = 4) and one of 8 single
+    templates, six planted events each, through detect.detex (batchSize 8,
+    histograms, magnitudes, trigCon 0, STA/LTA 5 s) into one SQLite
+    database; every row against the float64 oracle."""
+    rng = np.random.default_rng(seed)
+    L = int(F_SEC * SR)
+    n = int(30 * SR * NC)
+    dets = {"ss": f_detectors(rng, "ss", 8, 4, n, True),
+            "sg": f_detectors(rng, "sg", 8, 1, n, False)}
+    events = {"ss": [(2, 0, 40000), (5, 1, 200000), (9, 3, 3000),
+                     (13, 4, 360000), (18, 6, 123456), (23, 7, 250000)],
+              "sg": [(1, 0, 50000), (4, 2, 300000), (10, 3, 7000),
+                     (15, 5, 200000), (19, 6, 99999), (22, 7, 333333)]}
+    events = {k: [(b % n_chunks, s, at) for b, s, at in v]
+              for k, v in events.items()}
+    db = os.path.join(tmpdir, "f1.db")
+    hists, inputs = {}, {}
+    t0 = time.perf_counter()
+    for i, (k, issub) in enumerate((("ss", True), ("sg", False))):
+        planted = f_plant(dets[k], events[k], n)
+        stations, chunks = f_station("XX.F1" + k, dets[k], SR, L, n_chunks,
+                                     10 * seed + i, planted)
+        inputs[k] = (planted, 10 * seed + i)
+        hists[k] = detect.detex(stations, chunks, db, issubspace=issub,
+                                batchSize=8, device=dev)["XX.F1" + k]
+    wall = time.perf_counter() - t0
+    errs = []
+    for k, table in (("ss", "ss_df"), ("sg", "sg_df")):
+        planted, sd = inputs[k]
+        errs.append(f_check("F1 " + k, f_rows(db, table), dets[k], events[k],
+                            sd, L, SR, planted, n_chunks, hists[k]))
+    rate = 2 * n_chunks * 3600.0 / 86400.0 / wall
+    say("phase F1: 2 stations x %d chunks (8 subspace detectors D=4, 8 "
+        "single templates, 30 s), %.3f s end to end (host filter, banks, "
+        "scan, re-verify, magnitudes, SQLite): %.3f station-days/s (%s); "
+        "planted DS err vs float64 oracle %.2e"
+        % (n_chunks, wall, rate, card_line(), max(errs)))
+    return dict(wall_s=wall, station_days_per_s=rate, oracle_err=max(errs))
+
+
+def phase_f2(dev, tmpdir, n_chunks=8, seed=62, n_det=1000):
+    """F2: the bench.py network station, 1000 single templates of 30 s
+    (pad_rows: 1024 rows, 8 template blocks) over 8 chunks of 3720 s with
+    four planted events in distinct templates, through detect.detex: the
+    blocked route, rows against the float64 oracle. Returns what the
+    bitwise check against the per-block scans needs."""
+    rng = np.random.default_rng(seed)
+    L = int(F_SEC * SR)
+    n = int(30 * SR * NC)
+    dets = f_detectors(rng, "nw", n_det, 1, n, False)
+    events = [(b % n_chunks, s % n_det, at) for b, s, at in (
+        (0, 3, 40000), (2, 517, 200000), (5, 768, 9000), (7, 999, 300000))]
+    planted = f_plant(dets, events, n)
+    stations, chunks = f_station("XX.F2", dets, SR, L, n_chunks, seed,
+                                 planted)
+    db = os.path.join(tmpdir, "f2.db")
+    t0 = time.perf_counter()
+    hist = detect.detex(stations, chunks, db, issubspace=False, batchSize=8,
+                        device=dev)["XX.F2"]
+    wall = time.perf_counter() - t0
+    need(tscan.ROUTE_COUNTS.get("blocked-fused-net+fusedprep", 0) == 1,
+         "phase F2 routes %s" % dict(tscan.ROUTE_COUNTS))
+    err = f_check("F2", f_rows(db, "sg_df"), dets, events, seed, L, SR,
+                  planted, n_chunks, hist)
+    say("phase F2: %d single templates (%d rows, %d blocks) x %d chunks, "
+        "%.3f s end to end; planted DS err vs float64 oracle %.2e"
+        % (n_det, tds.pad_rows(n_det), -(-tds.pad_rows(n_det) //
+                                         tscan.TEMPLATE_BLOCK),
+           n_chunks, wall, err))
+    return dict(dets=dets, planted=planted, L=L, seed=seed, hist=hist,
+                n_chunks=n_chunks, wall_s=wall, oracle_err=err)
+
+
+def phase_f2_blocks(dev, f2):
+    """F2's summary scan, bit for bit: the engine's bank (build_bank with
+    pad_rows / pad_dims) over the engine's prepped chunks, scanned
+    summary-only through the blocked route and as its eight blocks of 128
+    templates (slices of its arrays) through the unblocked route: equal
+    histograms and maxima, and equal to the engine's histograms."""
+    dets = f2["dets"]
+    X = np.stack([construct.multiplex(construct._applyFilter(
+        f_stream(f_chunk(f2["seed"], b, f2["L"], f2["planted"]), b, SR),
+        None, None, "single"), NC) for b in range(f2["n_chunks"])])
+    bank = tds.build_bank([d["U"] for d in dets], NC, X.shape[1], dev,
+                          pad_S=tds.pad_rows(len(dets)),
+                          min_dmax=tds.pad_dims(1))
+    Sp = int(bank["sum_u"].shape[0])
+    th = np.full(Sp, np.inf, np.float32)
+    th[:len(dets)] = 0.3
+    kw = dict(buff_samps=1, max_trig=1, calc_triggers=False)
+    tscan.ROUTE_COUNTS.clear()
+    hist, maxds = tscan.scan_chunks(X, bank, th, NC, **kw)[:2]
+    parts = []
+    for i in range(0, Sp, tscan.TEMPLATE_BLOCK):
+        sub = {k: v for k, v in bank.items() if not k.startswith("_")}
+        for k in ("Ufd2", "sum_u", "d_mask"):
+            sub[k] = bank[k][i:i + tscan.TEMPLATE_BLOCK]
+        parts.append(tscan.scan_chunks(X, sub, th[i:i + tscan.TEMPLATE_BLOCK],
+                                       NC, **kw)[:2])
+    need(dict(tscan.ROUTE_COUNTS) == {"blocked-fused-net+fusedprep": 1,
+                                      "fused-net+fusedprep": len(parts)},
+         "phase F2 check routes %s" % dict(tscan.ROUTE_COUNTS))
+    same_h = torch.equal(hist, torch.cat([p[0] for p in parts]))
+    same_m = torch.equal(maxds, torch.cat([p[1] for p in parts], dim=1))
+    need(same_h and same_m, "phase F2 blocked scan differs from the "
+         "per-block scans (hist %s, maxds %s)" % (same_h, same_m))
+    h = hist.cpu().numpy()
+    need(all(np.array_equal(f2["hist"][d["name"]], h[s])
+             for s, d in enumerate(dets)),
+         "phase F2 engine histograms differ from the blocked scan's")
+    say("phase F2: blocked summary scan of %d rows equals the %d per-block "
+        "scans bit for bit (hist, maxds) and the engine's histograms"
+        % (Sp, len(parts)))
+    return dict(bitwise=True)
+
+
+def f3_inputs(rng, n_chunks, seed):
+    """F3's station at 50 Hz (decimate 2 of 100 Hz raw chunks): 8 subspace
+    detectors of 30 s (D = 4), each basis from the prepped data (filt
+    [1, 10, 2, true], decimate 2): detectors 0-5 lead with the window of a
+    planted 8 s band-limited event (six events, one a chunk), the rest of
+    the rows from stretches of a quiet chunk that is not scanned."""
+    L = int(F_SEC * RAW_SR)
+    sr = RAW_SR / DEC
+    n = int(30 * sr * NC)
+    chunks_of = sorted({b % n_chunks for b in (3, 6, 10, 14, 17, 21)})
+    planted = {}
+    for b in chunks_of:
+        w = np.stack([np.convolve(rng.standard_normal(800), np.hanning(10),
+                                  "same") for _ in range(NC)])
+        planted[b] = [(8.0 * w * np.hanning(800) / w.std(),
+                       int(rng.integers(20000, L - 20000)))]
+
+    def prepped(b):
+        st = construct._applyFilter(f_stream(f_chunk(seed, b, L, planted), b,
+                                             RAW_SR), FILT, DEC, "single")
+        return construct.multiplex(st, NC).astype(np.float64)
+
+    quiet = prepped(n_chunks)
+    dets = []
+    for s in range(8):
+        rows = []
+        if s < len(chunks_of):
+            b = chunks_of[s]
+            at = planted[b][0][1] // DEC - int(6 * sr)
+            rows.append(prepped(b)[at * NC:at * NC + n])
+        while len(rows) < 4:
+            at = int(rng.integers(0, len(quiet) // NC - n // NC))
+            rows.append(quiet[at * NC:at * NC + n])
+        q, _ = np.linalg.qr(np.stack(rows).T)
+        U = np.ascontiguousarray(q.T)
+        dets.append(dict(name="dp%03d" % s, U=U, WFs=np.stack(rows[:3]),
+                         mags=[1.0, 1.3, 0.8], events=["e0", "e1", "e2"],
+                         offsets=[0.0, 0.4, 0.8], threshold=0.3))
+    return dets, planted, L
+
+
+def phase_f3(dev, tmpdir, n_chunks=24, seed=63):
+    """F3: F1's subspace station shape (8 detectors of 30 s, D = 4) at 50
+    Hz on raw 100 Hz chunks with filt [1, 10, 2, true] and decimate 2:
+    detect.detex with devicePrep (the device prep, route
+    "fused-net+fusedprep+devicePrep", triggered chunks re-filtered on the
+    host). Returns the inputs of the host-filter run it is held
+    against."""
+    dets, planted, L = f3_inputs(np.random.default_rng(seed), n_chunks, seed)
+    stations, raw_chunks = f_station("XX.F3", dets, RAW_SR / DEC, L,
+                                     n_chunks, seed, planted, RAW_SR)
+    db = os.path.join(tmpdir, "f3_dev.db")
+    t0 = time.perf_counter()
+    detect.detex(stations, raw_chunks, db, filt=FILT, decimate=DEC,
+                 devicePrep=True, batchSize=8, estimateMags=False, device=dev)
+    wall = time.perf_counter() - t0
+    need(tscan.ROUTE_COUNTS.get("fused-net+fusedprep+devicePrep", 0) > 0,
+         "phase F3 routes %s" % dict(tscan.ROUTE_COUNTS))
+    return dict(stations=stations, chunks=raw_chunks, db=db, wall_s=wall,
+                n_events=len(planted))
+
+
+def phase_f3_host(dev, tmpdir, f3):
+    """F3's rows against the same engine with the host filter (devicePrep
+    off) on the same raw chunks, as detex_tpu's
+    test_deviceprep_matches_host_detections holds them: the same rows,
+    STMP within 0.2 s, DS within 1e-3; one row for each planted event."""
+    db = os.path.join(tmpdir, "f3_host.db")
+    t0 = time.perf_counter()
+    detect.detex(f3["stations"], f3["chunks"], db, filt=FILT, decimate=DEC,
+                 batchSize=8, estimateMags=False, device=dev)
+    wall = time.perf_counter() - t0
+    dev_rows = util.loadSQLite(f3["db"], "ss_df") or []
+    host_rows = util.loadSQLite(db, "ss_df") or []
+    need(len(host_rows) == f3["n_events"], "phase F3 host path found %d "
+         "rows for %d events" % (len(host_rows), f3["n_events"]))
+    need(len(dev_rows) == len(host_rows), "phase F3 devicePrep rows %d, "
+         "host rows %d" % (len(dev_rows), len(host_rows)))
+    need([r["Name"] for r in dev_rows] == [r["Name"] for r in host_rows],
+         "phase F3 row names differ")
+    dt = max(abs(a["STMP"] - b["STMP"]) for a, b in zip(dev_rows, host_rows))
+    dds = max(abs(a["DS"] - b["DS"]) for a, b in zip(dev_rows, host_rows))
+    need(dt < 0.2 and dds < 1e-3, "phase F3 STMP diff %g, DS diff %g"
+         % (dt, dds))
+    say("phase F3: devicePrep %d rows = host-filter rows (STMP diff %.3g s, "
+        "DS diff %.3g); %.3f s end to end with devicePrep, %.3f s with the "
+        "host filter" % (len(dev_rows), dt, dds, f3["wall_s"], wall))
+    return dict(rows=len(dev_rows), stmp_diff=dt, ds_diff=dds,
+                wall_dev_s=f3["wall_s"], wall_host_s=wall)
+
+
 def phase_e_kernels(dev, e2):
     """ds_finalize (B10) held against its twin on the inputs ds_bank_demux
     gives it for one E2 chunk (S 16, D 4, L 369,001), outside the counted
@@ -1799,12 +2146,31 @@ def main():
         ("E2", ("ds_finalize", "hist_uniform"), ("plain",)),
         ("E3", ("ds_finalize", "hist_uniform"), ("raw-demux+devicePrep",)),
         ("E4", ("ds_finalize",), ("plain", "raw-demux+devicePrep"))))
+    torch.cuda.empty_cache()
+
+    say("phase F: the detection engine (detect.detex) on the card")
+    tmp = tempfile.TemporaryDirectory()
+    counted("F1", phase_f1, dev, tmp.name)
+    f2 = counted("F2", phase_f2, dev, tmp.name)
+    phase_f2_blocks(dev, f2)
+    del f2
+    torch.cuda.empty_cache()
+    f3 = counted("F3", phase_f3, dev, tmp.name)
+    phase_f3_host(dev, tmp.name, f3)
+    tmp.cleanup()
+    check_phases((
+        ("F1", fused + DENSE_KERNELS, ("fused-net+fusedprep",
+                                       "dense-reverify-device")),
+        ("F2", fused + ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os"),
+         ("blocked-fused-net+fusedprep", "dense-reverify-device")),
+        ("F3", fused + DENSE_KERNELS, ("fused-net+fusedprep+devicePrep",
+                                       "dense-reverify-device"))))
 
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
     # kernels), at phase C's re-verify shape (dense kernels), at phase D's
     # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
-    # (ds_finalize)
+    # (ds_finalize); launches: every counted phase, A-F
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]

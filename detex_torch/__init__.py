@@ -1,12 +1,14 @@
 """
-detex_torch: PyTorch + CUDA port of detex_tpu's detection scans (every bank
-form, the device preprocessing of raw chunks, serving) and of the dense
-re-verify of triggered chunks.
+detex_torch: PyTorch + CUDA port of detex_tpu's detection engine
+(``detect.detex``: batched scan, dense re-verify, triggers, magnitudes and
+SQLite rows), its scans over every bank form (template-blocked past 128
+templates), the device preprocessing of raw chunks and serving.
 
-The package mirrors detex_tpu's layout (``ops/ds.py``, ``ops/dft.py``,
+The package mirrors detex_tpu's layout (``detect.py``, ``construct.py``,
+``util.py``, ``serving.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``,
 ``ops/prep.py``, ``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
-``parallel/scan.py``, ``serving.py``) so every ported function has an
-obvious namesake there. Every Pallas kernel of detex_tpu has a
+``parallel/scan.py``) so every ported function has an obvious namesake
+there. Every Pallas kernel of detex_tpu has a
 hand-written CUDA C++ counterpart for Hopper (``kernels/``) with a plain
 PyTorch twin (``ops/reference.py``) that runs when the caller hands CPU
 tensors.
@@ -27,9 +29,21 @@ __version__ = "0.1.0"
 _logger = logging.getLogger("detex_torch")
 
 
-def log(name, msg):
-    """Log ``msg`` at info level under the caller's module ``name``."""
-    _logger.info("%s: %s", name, msg)
+class DetexError(Exception):
+    """An error the engine reports through log(level="error")."""
+
+
+def log(name, msg, level="info"):
+    """Log ``msg`` under the caller's module ``name`` at ``level`` ("info",
+    "warning" or "error"); "error" logs, then raises DetexError, as
+    detex_tpu's log does."""
+    if level == "error":
+        _logger.error("%s: %s", name, msg)
+        raise DetexError(msg)
+    if level == "warning":
+        _logger.warning("%s: %s", name, msg)
+    else:
+        _logger.info("%s: %s", name, msg)
 
 
 def require_cuda():

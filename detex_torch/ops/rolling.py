@@ -9,9 +9,11 @@ window sums over million-sample rows keep ~1e-12 relative accuracy.
 detex_tpu's one-row ``rolling_sum``. The prefix is two-level, as in
 detex_tpu (there a triangular matmul for the TPU's matrix unit): PyTorch's
 cumsum scans each row of a few long rows in one thread block on the card.
+rolling_std is the engine's host float64 form (numpy in, numpy out).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -88,3 +90,18 @@ def window_stats_rows(xc, n_c, n):
     const = steps[:, o + n - 1] == steps[:, o]
     power = torch.where(const, torch.zeros_like(power), power)
     return a.to(torch.float32), power.to(torch.float32)
+
+
+def rolling_std(x, n):
+    """Trailing rolling sample standard deviation (ddof 1) of a host row,
+    in float64: length len(x) - n + 1, empty when x is shorter than n (the
+    SNR noise level of the engine's magnitudes; detex_tpu computes it with
+    native.rolling_std, whose numpy form this is)."""
+    x = np.asarray(x, dtype=np.float64)
+    if len(x) < n:
+        return np.array([])
+    c = np.cumsum(np.insert(x, 0, 0.0))
+    c2 = np.cumsum(np.insert(x * x, 0, 0.0))
+    s = c[n:] - c[:-n]
+    s2 = c2[n:] - c2[:-n]
+    return np.sqrt(np.maximum((s2 - s * s / n) / (n - 1), 0.0))

@@ -3,11 +3,13 @@ STA/LTA of the detection statistic, batched over rows.
 
 Namesake of detex_tpu/ops/stalta.py (``_stalta_kernel``, ``ds_stalta``):
 the centered STA/LTA of the reference (detect.py:501-524) with its NaN edge
-fill (_replaceNanWithMean, detect.py:516-524). The classic STA/LTA of the
-FAS noise veto is not ported yet (ROADMAP A7).
+fill (_replaceNanWithMean, detect.py:516-524), on tensors, and its float64
+host twin ds_stalta_np for the engine's dtype="double" path. The classic
+STA/LTA of the FAS noise veto is not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from detex_torch.ops.rolling import rolling_mean_centered
@@ -43,3 +45,42 @@ def ds_stalta(c, lta_samps, sta_samps):
     sta = max(int(sta_samps), 0) or 1
     lta = max(int(lta_samps), 1)
     return _stalta_kernel(c, sta, lta)
+
+
+def _replace_nan_with_edges(arr):
+    """Host float64 _fill_edges of one row (reference _replaceNanWithMean,
+    detect.py:516-524): leading NaNs take the value at first+1, trailing
+    NaNs the value at last."""
+    arr = np.asarray(arr, dtype=np.float64)
+    ind = np.where(~np.isnan(arr))[0]
+    if len(ind) == 0:
+        return arr
+    first, last = ind[0], ind[-1]
+    arr[:first] = arr[min(first + 1, len(arr) - 1)]
+    arr[last + 1:] = arr[last]
+    return arr
+
+
+def _centered_mean_np(x, n):
+    """float64 centered rolling mean of one row, labeled as
+    rolling.rolling_mean_centered labels it (pandas center=True); NaN at
+    the edges."""
+    x = np.asarray(x, np.float64)
+    c = np.cumsum(np.insert(x, 0, 0.0))
+    mu = (c[n:] - c[:-n]) / n
+    out = np.full(len(x), np.nan)
+    start = (n - 1) - ((n - 1) // 2)
+    out[start:start + len(mu)] = mu
+    return out
+
+
+def ds_stalta_np(c, lta_samps, sta_samps):
+    """Host float64 twin of ds_stalta on one row (numpy in, numpy out), for
+    the engine's dtype="double" path."""
+    ab = np.abs(np.asarray(c, np.float64))
+    sta = max(int(sta_samps), 1)
+    lta = max(int(lta_samps), 1)
+    sta_arr = ab if sta <= 1 else _centered_mean_np(ab, sta)
+    lta_arr = _centered_mean_np(ab, lta)
+    return (_replace_nan_with_edges(sta_arr) /
+            _replace_nan_with_edges(lta_arr))

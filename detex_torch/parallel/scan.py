@@ -1,25 +1,31 @@
 """
 Batched continuous-data scan over a bank of any form.
 
-Namesake of detex_tpu/parallel/scan.py for banks of up to TEMPLATE_BLOCK
-templates on one device. scan_chunks takes detex_tpu's route
-(_os_fold_route), in its order, on an overlap-save bank:
+Namesake of detex_tpu/parallel/scan.py on one device. scan_chunks takes
+detex_tpu's route (_os_fold_route), in its order, on an overlap-save bank:
 
-  fused   one spec_ds_fold launch over the whole chunk batch, prepped by
-          fwd_prep_fold ("fused-net+fusedprep", "fused-sub+fusedprep") or,
-          where that kernel refuses the geometry (n_c > W), by
-          os_prep_batch_pair with rfft_ct_half ("fused-net", "fused-sub");
-  fold    the unfused batch: os_prep_batch + os_block_scan_batch (block
-          transforms, then ds_finalize_os_fold with the histogram);
-  plain   one chunk at a time (_chunk_fn): os_prep + os_block_scan
-          (ds_finalize_os_scan, or ds_finalize_os and hist_uniform where the
-          block is too wide for the scan form), non-uniform bins by sort and
-          search.
+  fused    one spec_ds_fold launch over the whole chunk batch, prepped by
+           fwd_prep_fold ("fused-net+fusedprep", "fused-sub+fusedprep") or,
+           where that kernel refuses the geometry (n_c > W), by
+           os_prep_batch_pair with rfft_ct_half ("fused-net", "fused-sub");
+  fold     the unfused batch: os_prep_batch + os_block_scan_batch (block
+           transforms, then ds_finalize_os_fold with the histogram);
+  blocked  past TEMPLATE_BLOCK templates: the batch's prep once, then a
+           loop over blocks of TEMPLATE_BLOCK templates, each one
+           spec_ds_fold launch in mode "net" ("blocked-fused-net",
+           "+fusedprep" behind fwd_prep_fold) or one os_block_scan_batch
+           ("blocked-fold"); the bank's arrays are padded to whole blocks
+           (zero templates, +inf thresholds) and the outputs cut back to S;
+  plain    one chunk at a time (_chunk_fn): os_prep + os_block_scan
+           (ds_finalize_os_scan, or ds_finalize_os and hist_uniform where the
+           block is too wide for the scan form), non-uniform bins by sort and
+           search; past TEMPLATE_BLOCK templates a loop over the blocks.
 
 A full-length demuxed or multiplexed bank always takes "plain": one chunk
 at a time, ds_bank_demux (kernel ds_finalize) or ds_bank, the pad mask,
 _hist_rows, and trigger extraction by extract_triggers_pyramid (rows of at
-least PYRAMID_MIN_LEN) or extract_triggers_topk.
+least PYRAMID_MIN_LEN) or extract_triggers_topk, in blocks of
+TEMPLATE_BLOCK templates past that many.
 
 scan_chunks_raw scans raw channel chunks with the device prep
 (ops/prep.py): on an overlap-save bank prep_multiplex_batch and then
@@ -29,9 +35,8 @@ of TEMPLATE_BLOCK templates (any S).
 
 The caps that send a batch down the list are detex_tpu's (ops/ds.py
 FUSED_DS_BYTES, FOLD_CB_BYTES); its Pallas tile budgets have no
-counterpart here (ROADMAP C20). scan_chunks' template-blocked route
-(S > TEMPLATE_BLOCK) and the multi-device scan raise NotImplementedError
-naming their ROADMAP items.
+counterpart here (ROADMAP C20). The multi-device scan raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,9 +53,8 @@ from detex_torch.ops import triggers as _triggers
 
 DEFAULT_BINS = np.linspace(0, 1, 401)
 
-# templates per block of detex_tpu's template-blocked route; larger
-# overlap-save banks take that route, which is not ported yet (ROADMAP A3).
-# The raw-demux route runs its templates in blocks of this size.
+# templates per block of the template-blocked routes (the batch route
+# "blocked", the per-chunk route and the raw-demux route past this many)
 TEMPLATE_BLOCK = 128
 
 # Kernel-route observability: every scan records the route it dispatched
@@ -62,11 +66,15 @@ _ROUTES_LOGGED = set()
 def route_name(route, mode):
     """Readable kernel route from _os_fold_route's (route, mode), as
     detex_tpu names it."""
-    if route != "fold":
-        return "plain"
     fp = "+fusedprep" if (mode or "").endswith("+fp") else ""
-    return {"net": "fused-net", "sub": "fused-sub"}.get(
-        (mode or "")[:3], "fold") + fp
+    mode = (mode or "")[:3]
+    if route == "fold":
+        return {"net": "fused-net", "sub": "fused-sub"}.get(mode,
+                                                            "fold") + fp
+    if route == "blocked":
+        return ("blocked-fused-net" if mode == "net"
+                else "blocked-fold") + fp
+    return "plain"
 
 
 def _note_route(name, device_prep=False):
@@ -139,10 +147,62 @@ def _extract(v, th, buff_samps, max_trig):
                                            max_triggers=max_trig)
 
 
-def _specds_arrs(bank):
-    """(ur, ui, sum_u, d_mask) of the fused spec -> DS kernel, unblocked."""
+def _blocks(a, axis):
+    """``a`` zero-padded along ``axis`` to whole blocks of TEMPLATE_BLOCK
+    and split there: [nB, ...] with the block's TEMPLATE_BLOCK rows at
+    ``axis`` of each block (a contiguous view per block)."""
+    SB = TEMPLATE_BLOCK
+    S = a.shape[axis]
+    Sp = -(-S // SB) * SB
+    pad = list(a.shape)
+    pad[axis] = Sp - S
+    a = torch.cat([a, torch.zeros(pad, dtype=a.dtype, device=a.device)],
+                  dim=axis)
+    a = a.reshape(a.shape[:axis] + (Sp // SB, SB) + a.shape[axis + 1:])
+    return a.movedim(axis, 0).contiguous()
+
+
+def _bank_arrays(bank):
+    """The bank's (Ufd2 or Ufd, sum_u, d_mask); past TEMPLATE_BLOCK
+    templates padded and split into blocks [nB, TEMPLATE_BLOCK, ...]
+    (zero templates, masked slots), cached on the bank as detex_tpu
+    caches them (scan.py:149-166)."""
+    raw = (bank["Ufd2" if bank.get("demux") else "Ufd"], bank["sum_u"],
+           bank["d_mask"])
+    if raw[1].shape[0] <= TEMPLATE_BLOCK:
+        return raw
+    if "_blocked_arrs" not in bank:
+        bank["_blocked_arrs"] = tuple(_blocks(a, 0) for a in raw)
+    return bank["_blocked_arrs"]
+
+
+def _specds_arrs(bank, blocked):
+    """(ur, ui, sum_u, d_mask) of the fused spec -> DS kernel (ur / ui
+    [Dmax, S, nc, Rp] from ds.bank_spec_pair). ``blocked`` pads and
+    splits the template axis (axis 1 of ur / ui, axis 0 of sum_u /
+    d_mask) into blocks of TEMPLATE_BLOCK: [nB, Dmax, SB, nc, Rp] and
+    [nB, SB, Dmax], cached on the bank."""
     ur, ui = _ds.bank_spec_pair(bank)
-    return ur, ui, bank["sum_u"], bank["d_mask"]
+    raw = (ur, ui, bank["sum_u"], bank["d_mask"])
+    if not blocked:
+        return raw
+    if "_specds_blocked" not in bank:
+        bank["_specds_blocked"] = (_blocks(ur, 1), _blocks(ui, 1),
+                                   _blocks(raw[2], 0), _blocks(raw[3], 0))
+    return bank["_specds_blocked"]
+
+
+def _blocked_thresholds(thresholds, device):
+    """Thresholds as a float32 tensor shaped to match _bank_arrays'
+    blocking: [nB, TEMPLATE_BLOCK] with +inf in the pad slots past
+    TEMPLATE_BLOCK templates, else flat [S]."""
+    th = np.asarray(thresholds, np.float32)
+    S = len(th)
+    if S > TEMPLATE_BLOCK:
+        SB = TEMPLATE_BLOCK
+        th = np.concatenate([th, np.full(-(-S // SB) * SB - S, np.inf,
+                                         np.float32)]).reshape(-1, SB)
+    return torch.as_tensor(th, device=device)
 
 
 def _valid_lens(bank, nc, X, valid_lens):
@@ -156,46 +216,48 @@ def _valid_lens(bank, nc, X, valid_lens):
 
 
 def _fold_scan_ok(bank, st, B, L_c, unb):
-    """detex_tpu's test for the batch routes (scan.py:351-373): uniform
-    bins, and either the fused kernel's geometry with its DS array under
-    FUSED_DS_BYTES, or the unfused batch's with its inverse blocks under
-    FOLD_CB_BYTES."""
-    if not unb:                 # hist width comes from the uniform bins
+    """detex_tpu's tests for the batch routes on an overlap-save bank with
+    uniform bins (scan.py:351-373, and :475-494 past TEMPLATE_BLOCK
+    templates, for one block of TEMPLATE_BLOCK): the fused kernel's
+    geometry with its DS array under FUSED_DS_BYTES, or the unfused
+    batch's with its inverse blocks under FOLD_CB_BYTES."""
+    if st["demux"] != "os" or not unb:   # hist width from uniform bins
         return False
+    S = min(st["S"], TEMPLATE_BLOCK)
     Dmax = int(bank["Dmax"])
     _, _, _, W, m = _ds._os_geometry(L_c, st["n_c"], st["nfft"])
-    if _ds.spec_ds_mode(B, st["S"], Dmax, st["n_c"], st["nc"], st["nfft"]):
-        return B * st["S"] * m * W * 4 <= _ds.FUSED_DS_BYTES
-    if B * st["S"] * Dmax * m * st["nfft"] * 4 > _ds.FOLD_CB_BYTES:
+    if _ds.spec_ds_mode(B, S, Dmax, st["n_c"], st["nc"], st["nfft"]):
+        return B * S * m * W * 4 <= _ds.FUSED_DS_BYTES
+    if B * S * Dmax * m * st["nfft"] * 4 > _ds.FOLD_CB_BYTES:
         return False
     return _ds.fold_scan_supported(st["n_c"], st["nfft"])
 
 
 def _os_fold_route(bank, st, B, L_c, unb, thresholds):
     """Kernel routing (detex_tpu scan.py:619-656). Returns (route, mode,
-    arrs, thresholds_dev): route "fold" with mode "net" / "sub" (+"+fp"
-    with the fused prep) and arrs (ur, ui, sum_u, d_mask) for the fused
-    kernel, route "fold" with mode None and arrs (Ufd2, sum_u, d_mask) for
-    the unfused batch, or route None (the per-chunk loop) with the bank's
-    raw arrs. Full-length and multiplexed banks fall straight through to
-    route None."""
-    if st["S"] > TEMPLATE_BLOCK:
-        raise NotImplementedError(
-            "template-blocked route (S = %d > %d): ROADMAP A3"
-            % (st["S"], TEMPLATE_BLOCK))
-    th = torch.as_tensor(np.asarray(thresholds, np.float32),
-                         device=bank["sum_u"].device)
-    raw = (bank["Ufd2" if st["demux"] else "Ufd"], bank["sum_u"],
-           bank["d_mask"])
-    if st["demux"] != "os" or not _fold_scan_ok(bank, st, B, L_c, unb):
-        return None, None, raw, th
-    mode = _ds.spec_ds_mode(B, st["S"], int(bank["Dmax"]), st["n_c"],
-                            st["nc"], st["nfft"])
-    if mode is None:
-        return "fold", None, raw, th
-    if _ds.fwd_prep_ok(st["n_c"], st["nc"], st["nfft"]):
+    arrs, thresholds_dev):
+
+      "fold"     mode "net" / "sub" (+"+fp" with the fused prep) and arrs
+                 (ur, ui, sum_u, d_mask) for the fused kernel, or mode None
+                 and arrs (Ufd2, sum_u, d_mask) for the unfused batch;
+      "blocked"  past TEMPLATE_BLOCK templates, the same per block of
+                 TEMPLATE_BLOCK (mode "net": a block's rows are always
+                 (chunk, template)), blocked arrs and [nB, TEMPLATE_BLOCK]
+                 thresholds;
+      None       the per-chunk loop with _bank_arrays.
+
+    Full-length and multiplexed banks fall straight through to None."""
+    th = _blocked_thresholds(thresholds, bank["sum_u"].device)
+    if not _fold_scan_ok(bank, st, B, L_c, unb):
+        return None, None, _bank_arrays(bank), th
+    blocked = st["S"] > TEMPLATE_BLOCK
+    mode = _ds.spec_ds_mode(B, min(st["S"], TEMPLATE_BLOCK),
+                            int(bank["Dmax"]), st["n_c"], st["nc"],
+                            st["nfft"])
+    arrs = _specds_arrs(bank, blocked) if mode else _bank_arrays(bank)
+    if mode and _ds.fwd_prep_ok(st["n_c"], st["nc"], st["nfft"]):
         mode += "+fp"
-    return "fold", mode, _specds_arrs(bank), th
+    return ("blocked" if blocked else "fold"), mode, arrs, th
 
 
 def _no_trig(B, S, device):
@@ -218,78 +280,79 @@ def _triggers_of(dsf, pyrf, thf, buff_samps, max_trig):
 def _fold_chunks_fn(X, NV, arrs, thresholds, n_c, nc, blk_fft, buff_samps,
                     max_trig, S, calc_hist, uniform_nbin, specds_mode,
                     calc_triggers=True):
-    """Batch scan of a chunk batch X [B, Lc]: (hist [S, nbin] int32 summed
-    over chunks, maxds [B, S], tidx [B, S, K] int32, tval [B, S, K],
-    tcnt [B, S] int32). ``specds_mode`` None runs the unfused batch
-    (arrs (Ufd2, sum_u, d_mask)); otherwise the fused kernel (arrs from
-    _specds_arrs), whose rows in mode "sub" are (template, chunk): only the
-    summaries are transposed back, never the DS array.
+    """The batch routes over a chunk batch X [B, Lc]: (hist [S, nbin] int32
+    summed over chunks, maxds [B, S], tidx [B, S, K] int32, tval [B, S, K],
+    tcnt [B, S] int32). The prep runs once for the batch; then each block
+    of templates (route "fold": the whole bank; route "blocked": the blocks
+    of TEMPLATE_BLOCK of _specds_arrs(bank, True) or _bank_arrays, with
+    thresholds [nB, SB], detex_tpu scan.py:497-574) takes one spec_ds_fold
+    launch (``specds_mode`` "net" / "sub", "+fp" behind fwd_prep_fold) or
+    one unfused os_block_scan_batch (``specds_mode`` None), and the blocks'
+    summaries are joined along the template axis and cut to S.
     ``calc_triggers=False`` returns zero-capacity trigger outputs, and the
     fused kernel then runs summary-only (no DS array)."""
     B = X.shape[0]
     L_c = X.shape[1] // nc
     nbin = uniform_nbin if calc_hist else 0
-    if specds_mode is None:
-        return _unfused_chunks_fn(X, NV, arrs, thresholds, n_c, nc, blk_fft,
-                                  buff_samps, max_trig, S, nbin,
-                                  uniform_nbin, calc_triggers)
-    mode = specds_mode[:3]
-    prep = (_ds.os_prep_batch_fused if specds_mode.endswith("+fp")
-            else _ds.os_prep_batch_pair)
-    Fr, Fi, a, power = prep(X, n_c, nc, blk_fft)
-    dsf, pyrf, hist = _ds.os_scan_batch_fused(
-        Fr, Fi, a, power, arrs[0], arrs[1], arrs[2], arrs[3], mode, n_c, nc,
-        blk_fft, L_c, NV, nbin=nbin, emit_ds=calc_triggers)
-    del Fr, Fi, a, power
-    if mode == "sub":   # rows (s, b)
-        thf = thresholds[:, None].expand(S, B).reshape(-1)
-
-        def tr(x):
-            return x.reshape((S, B) + x.shape[1:]).transpose(0, 1)
-    else:               # rows (b, s)
-        thf = thresholds[None, :].expand(B, S).reshape(-1)
-
-        def tr(x):
-            return x.reshape((B, S) + x.shape[1:])
-    maxds = tr(pyrf.amax(dim=-1))
-    if calc_hist:
-        hist_tot = (hist.reshape(S, B, nbin).sum(dim=1) if mode == "sub"
-                    else hist.reshape(B, S, nbin).sum(dim=0))
-        hist_tot = hist_tot.to(torch.int32)
+    mode = (specds_mode or "")[:3]
+    if mode:
+        prep = (_ds.os_prep_batch_fused if specds_mode.endswith("+fp")
+                else _ds.os_prep_batch_pair)
+        Fr, Fi, a, power = prep(X, n_c, nc, blk_fft)
     else:
-        hist_tot = torch.zeros((S, uniform_nbin), dtype=torch.int32,
-                               device=X.device)
+        F, a, power = _ds.os_prep_batch(X, n_c, nc, blk_fft)
+    blocks = (zip(zip(*arrs), thresholds) if thresholds.dim() == 2
+              else [(arrs, thresholds)])
+    parts = []
+    for blk, th in blocks:
+        if mode:
+            ds, pyr, hist = _ds.os_scan_batch_fused(
+                Fr, Fi, a, power, *blk, mode, n_c, nc, blk_fft, L_c, NV,
+                nbin=nbin, emit_ds=calc_triggers)
+        else:
+            ds, pyr, hist = _ds.os_block_scan_batch(
+                F, a, power, *blk, n_c, nc, blk_fft, L_c, NV, nbin=nbin)
+        parts.append(_block_summaries(ds, pyr, hist, th, B, mode == "sub",
+                                      uniform_nbin, calc_hist, calc_triggers,
+                                      buff_samps, max_trig))
+        del ds, pyr, hist
+    hist = torch.cat([p[0] for p in parts])[:S]
+    maxds = torch.cat([p[1] for p in parts], dim=1)[:, :S]
     if not calc_triggers:
-        return (hist_tot, maxds) + _no_trig(B, S, X.device)
-    tidx, tval, tcnt = _triggers_of(dsf, pyrf, thf, buff_samps, max_trig)
-    return hist_tot, maxds, tr(tidx), tr(tval), tr(tcnt)
+        return (hist, maxds) + _no_trig(B, S, X.device)
+    return (hist, maxds) + tuple(torch.cat(t, dim=1)[:, :S]
+                                 for t in zip(*[p[2] for p in parts]))
 
 
-def _unfused_chunks_fn(X, NV, arrs, thresholds, n_c, nc, blk_fft,
-                       buff_samps, max_trig, S, nbin, uniform_nbin,
-                       calc_triggers):
-    """_fold_chunks_fn's unfused batch (detex_tpu scan.py:442-459): one
-    os_prep_batch and one os_block_scan_batch over the whole batch, the
-    histogram from ds_finalize_os_fold (``nbin``)."""
-    B = X.shape[0]
-    F, a, power = _ds.os_prep_batch(X, n_c, nc, blk_fft)
-    ds, pyr, hist = _ds.os_block_scan_batch(
-        F, a, power, arrs[0], arrs[1], arrs[2], n_c, nc, blk_fft,
-        X.shape[1] // nc, NV, nbin=nbin)
-    del F, a, power
-    maxds = pyr.amax(dim=-1)                            # [B, S]
-    hist_tot = (hist.sum(dim=0).to(torch.int32) if nbin else
-                torch.zeros((S, uniform_nbin), dtype=torch.int32,
-                            device=X.device))
-    if not calc_triggers:
-        return (hist_tot, maxds) + _no_trig(B, S, X.device)
-    thf = thresholds[None, :].expand(B, S).reshape(-1)
-    tidx, tval, tcnt = _triggers_of(ds.reshape(B * S, -1),
-                                    pyr.reshape(B * S, -1), thf,
-                                    buff_samps, max_trig)
-    K = tidx.shape[-1]
-    return (hist_tot, maxds, tidx.reshape(B, S, K), tval.reshape(B, S, K),
-            tcnt.reshape(B, S))
+def _block_summaries(ds, pyr, hist, th, B, sub, uniform_nbin, calc_hist,
+                     calc_triggers, buff_samps, max_trig):
+    """One template block's (hist [SB, nbin] int32, maxds [B, SB], and
+    (tidx, tval, tcnt) [B, SB, ...] or None) from a batch scan's rows:
+    (chunk, template) rows, or (template, chunk) with ``sub`` (fused mode
+    "sub"), of which only the summaries are transposed back, never the DS
+    array."""
+    SB = th.shape[0]
+    if sub:
+        thf = th[:, None].expand(SB, B).reshape(-1)
+
+        def tr(x):
+            return x.reshape((SB, B) + x.shape[1:]).transpose(0, 1)
+    else:
+        thf = th[None, :].expand(B, SB).reshape(-1)
+
+        def tr(x):
+            return x.reshape((B, SB) + x.shape[1:])
+    pyrf = pyr.reshape(B * SB, -1)
+    if calc_hist:
+        h = tr(hist.reshape(B * SB, -1)).sum(dim=0).to(torch.int32)
+    else:
+        h = torch.zeros((SB, uniform_nbin), dtype=torch.int32,
+                        device=pyr.device)
+    trig = None
+    if calc_triggers:
+        trig = tuple(tr(t) for t in _triggers_of(
+            ds.reshape(B * SB, -1), pyrf, thf, buff_samps, max_trig))
+    return h, tr(pyrf.amax(dim=-1)), trig
 
 
 def _finish(ds, nv, thresholds, bins, buff_samps, max_trig, calc_hist,
@@ -314,35 +377,51 @@ def _finish(ds, nv, thresholds, bins, buff_samps, max_trig, calc_hist,
 
 
 def _chunk_fn(x, nv, arrs, thresholds, bins, demux, n_c, nc, nfft,
-              buff_samps, max_trig, calc_hist, uniform_nbin, calc_triggers):
+              buff_samps, max_trig, S, calc_hist, uniform_nbin,
+              calc_triggers):
     """One chunk of the per-chunk route (detex_tpu scan.py:258-348): x [Lc],
     nv its valid DS length (a 0-d int32 on the device). Returns
     (hist [S, nbins] int32, maxds [S], and (tidx [S, K], tval [S, K],
     tcnt [S]) or None without triggers); the chunk's DS array is freed on
-    return. An overlap-save bank (demux "os") runs os_prep + os_block_scan
-    and extracts triggers from the finalize's block maxima; the other forms
-    run ds.ds_of and _finish."""
-    if demux != "os":
-        return _finish(_ds.ds_of(x, arrs, demux, n_c, nc, nfft), nv,
-                       thresholds, bins, buff_samps, max_trig, calc_hist,
-                       uniform_nbin, calc_triggers)
-    S = arrs[1].shape[0]
-    F, a, power = _ds.os_prep(x, n_c, nc, nfft)
-    ds, pyr, fused_hist = _ds.os_block_scan(
-        F, a, power, arrs[0], arrs[1], arrs[2], n_c, nc, nfft,
-        x.shape[0] // nc, nv, nbin=uniform_nbin if calc_hist else 0)
-    del F, a, power
-    if not calc_hist:
-        hist = torch.zeros((S, bins.shape[0] - 1), dtype=torch.int32,
-                           device=x.device)
-    elif fused_hist is not None:
-        hist = fused_hist
+    return. An overlap-save bank (demux "os") runs os_prep once and
+    os_block_scan per template block, extracting triggers from the
+    finalize's block maxima; the other forms run ds.ds_of and _finish.
+    ``arrs`` pre-blocked by _bank_arrays ([nB, SB, ...], thresholds
+    [nB, SB]) run block by block and are joined and cut to S."""
+    if demux == "os":
+        F, a, power = _ds.os_prep(x, n_c, nc, nfft)
+
+        def run_one(blk_arrs, th):
+            ds, pyr, fused_hist = _ds.os_block_scan(
+                F, a, power, blk_arrs[0], blk_arrs[1], blk_arrs[2], n_c, nc,
+                nfft, x.shape[0] // nc, nv,
+                nbin=uniform_nbin if calc_hist else 0)
+            if not calc_hist:
+                hist = torch.zeros((ds.shape[0], bins.shape[0] - 1),
+                                   dtype=torch.int32, device=x.device)
+            elif fused_hist is not None:
+                hist = fused_hist
+            else:
+                hist = _hist_rows(ds, bins, uniform_nbin)
+            trig = (_triggers_of(ds, pyr, th, buff_samps, max_trig)
+                    if calc_triggers else None)
+            return hist, pyr.amax(dim=-1), trig
     else:
-        hist = _hist_rows(ds, bins, uniform_nbin)
-    maxds = pyr.amax(dim=-1)
-    trig = (_triggers_of(ds, pyr, thresholds, buff_samps, max_trig)
-            if calc_triggers else None)
-    return hist, maxds, trig
+        def run_one(blk_arrs, th):
+            return _finish(_ds.ds_of(x, blk_arrs, demux, n_c, nc, nfft), nv,
+                           th, bins, buff_samps, max_trig, calc_hist,
+                           uniform_nbin, calc_triggers)
+
+    if arrs[2].dim() == 2:                  # d_mask [S, Dmax]: one block
+        return run_one(arrs, thresholds)
+    outs = [run_one(tuple(t[i] for t in arrs), thresholds[i])
+            for i in range(thresholds.shape[0])]
+    hist = torch.cat([o[0] for o in outs])[:S]
+    maxds = torch.cat([o[1] for o in outs])[:S]
+    if not calc_triggers:
+        return hist, maxds, None
+    return hist, maxds, tuple(torch.cat(parts)[:S]
+                              for parts in zip(*[o[2] for o in outs]))
 
 
 def _stack_chunks(outs, B, S, nbins, calc_triggers, dev):
@@ -368,7 +447,7 @@ def _scan_chunks_loop(X, NV, arrs, thresholds, bins, demux, n_c, nc, nfft,
     maxds [B, S], triggers stacked [B, S, K]. Adds no host sync of its own;
     the trigger loop syncs once per step as everywhere."""
     outs = [_chunk_fn(X[b], NV[b], arrs, thresholds, bins, demux, n_c, nc,
-                      nfft, buff_samps, max_trig, calc_hist, uniform_nbin,
+                      nfft, buff_samps, max_trig, S, calc_hist, uniform_nbin,
                       calc_triggers) for b in range(X.shape[0])]
     return _stack_chunks(outs, X.shape[0], S, bins.shape[0] - 1,
                          calc_triggers, X.device)
@@ -403,7 +482,7 @@ def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
         thresholds)
     _note_route(route_name(route, mode), device_prep=_device_prep)
     NV = torch.as_tensor(nv, device=dev)
-    if route == "fold":
+    if route:
         return _fold_chunks_fn(
             X, NV, arrs, th, st["n_c"], st["nc"], st["nfft"],
             int(buff_samps), int(max_trig), st["S"], bool(calc_hist), unb,

@@ -9,11 +9,13 @@ the artifact's ``filt`` and ``decimate``) and builds banks on the card
 unless ``device`` says otherwise; ``scan_station`` scans a station's
 multiplexed chunks against them with trigger extraction on, and
 ``scan_station_raw`` its raw channel chunks with the device prep
-(ops/prep.py) fused in front of the scan.
+(ops/prep.py) fused in front of the scan; ``triggers_to_frame`` turns
+either's triggers into detection rows of the ss_df schema.
 
     dep = detex_torch.serving.load_detectors("detectors.npz")
     out = detex_torch.serving.scan_station(dep, "TA.S00", chunk_matrix)
     out = detex_torch.serving.scan_station_raw(dep, "TA.S00", raw_chunks)
+    rows = detex_torch.serving.triggers_to_frame(dep, "TA.S00", out, t0s)
 """
 from __future__ import annotations
 
@@ -172,3 +174,26 @@ def scan_station_raw(dep, sta, chans, lens=None, mesh=None, bins=None,
                             trig_val=tv.cpu().numpy(),
                             trig_count=tc.cpu().numpy()))
     return results
+
+
+def triggers_to_frame(dep, sta, results, chunk_starts):
+    """Detection rows of scan_station / scan_station_raw outputs in the
+    ss_df schema (detex_tpu serving.triggers_to_frame, as plain dicts: the
+    port has no pandas): one {DS, STMP, Name, Sta, MSTAMPmin, MSTAMPmax}
+    per trigger, in bank, chunk, detector, trigger order.
+    ``chunk_starts`` are the chunks' start times (POSIX seconds)."""
+    sd = dep[sta]
+    sr = sd["sr"]
+    rows = []
+    det_meta = {d["name"]: d for d in sd["meta"]["detectors"]}
+    for res in results:
+        for b, t0 in enumerate(np.asarray(chunk_starts, np.float64)):
+            for s, name in enumerate(res["names"]):
+                offs = det_meta[name]["offsets"]
+                for k in range(int(res["trig_count"][b, s])):
+                    times = int(res["trig_idx"][b, s, k]) / sr + t0
+                    rows.append(dict(DS=float(res["trig_val"][b, s, k]),
+                                     STMP=times, Name=name, Sta=sta,
+                                     MSTAMPmin=times - max(offs),
+                                     MSTAMPmax=times - min(offs)))
+    return rows

@@ -19,17 +19,23 @@ by torch.profiler:
   phase E2 one scan_chunks launch of a 16 x 4 full-length bank on 8 chunks
            of 3720 s (route "plain", ds_finalize);
   phase E3 one scan_chunks_raw launch of that bank's shape at 50 Hz on 8
-           raw chunks (route "raw-demux+devicePrep").
+           raw chunks (route "raw-demux+devicePrep");
+  phase F1 one detect.detex run of phase F1's subspace station (8
+           detectors of 30 s, D = 4, 24 chunks of 3720 s, three planted
+           events), then the same run's host time by function (cProfile,
+           the 14 largest by own time).
 
 For each it prints the wall time and the device-busy time per repeat (the
 union of all device intervals) and the profiler's table of device time by
-kernel. Run from the repository root (with the argument ``E``, phase E
-alone):
+kernel. Run from the repository root (with the argument ``E`` or ``F``,
+that phase alone):
 
-    python3 scripts/profile_torch_phases.py [E]
+    python3 scripts/profile_torch_phases.py [E | F]
 """
+import cProfile
 import json
 import os
+import pstats
 import sys
 import tempfile
 import time
@@ -40,7 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs                                    # noqa: E402
-from detex_torch import serving                            # noqa: E402
+from detex_torch import detect, serving                    # noqa: E402
 from detex_torch.ops import ds as tds                      # noqa: E402
 from detex_torch.parallel import scan as tscan             # noqa: E402
 
@@ -101,9 +107,34 @@ def phase_e(dev):
         reps=2)
 
 
+def phase_f(dev):
+    rng = np.random.default_rng(61)
+    L = int(cs.F_SEC * cs.SR)
+    n = int(30 * cs.SR * cs.NC)
+    dets = cs.f_detectors(rng, "ss", 8, 4, n, True)
+    planted = cs.f_plant(dets, [(2, 0, 40000), (9, 3, 3000),
+                                (18, 6, 123456)], n)
+    stations, chunks = cs.f_station("XX.F1ss", dets, cs.SR, L, 24, 610,
+                                    planted)
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            detect.detex(stations, chunks, os.path.join(tmp, "f.db"),
+                         batchSize=8, device=dev)
+        prof("phase F1 subspace station (24 chunks)", run, reps=1)
+        host = cProfile.Profile()
+        host.enable()
+        run()
+        torch.cuda.synchronize()
+        host.disable()
+        pstats.Stats(host).sort_stats("tottime").print_stats(14)
+
+
 def main():
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    if sys.argv[1:] == ["F"]:
+        phase_f(dev)
+        return
     phase_e(dev)
     if sys.argv[1:] == ["E"]:
         return

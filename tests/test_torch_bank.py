@@ -126,28 +126,19 @@ def _small_bank(S=3):
                           NC, LC, "cpu", block_fft=BLK)
 
 
-@pytest.mark.parametrize("case", ["blocked", "mesh", "fullbank", "mux"])
+@pytest.mark.parametrize("case", ["mesh", "mux"])
 def test_unported_routes_raise(case):
     """Every route detex_tpu would take that the port has not ported yet
-    raises NotImplementedError naming its ROADMAP item: the
-    template-blocked route (S > 128) on an overlap-save ("blocked") and a
-    full-length bank ("fullbank"), and the multi-device scan on an
-    overlap-save bank ("mesh") and the raw scan of a multiplexed bank
-    ("mux")."""
+    raises NotImplementedError naming its ROADMAP item: the multi-device
+    scan on an overlap-save bank ("mesh") and the raw scan of a
+    multiplexed bank ("mux"). The template-blocked routes are ported
+    (tests/test_torch_blocked.py)."""
     X = np.zeros((2, LC), np.float32)
     kw = dict(buff_samps=250, max_trig=4)
     with pytest.raises(NotImplementedError) as err:
-        if case == "blocked":
-            bank = _small_bank(S=129)
-            tscan.scan_chunks(X, bank, np.ones(129), NC, **kw)
-        elif case == "mesh":
+        if case == "mesh":
             tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
                               mesh=object(), **kw)
-        elif case == "fullbank":
-            bank = tds.build_bank(_U_list(np.random.default_rng(6), 1, 1),
-                                  NC, LC, "cpu", block_fft=0, pad_S=129)
-            assert tds.bank_kind(bank) == "demux"
-            tscan.scan_chunks(X, bank, np.ones(129), NC, **kw)
         else:
             bank = tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
             assert tds.bank_kind(bank) == "mux"
@@ -229,9 +220,11 @@ def test_wrappers_dispatch_on_device():
 
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports and runs a CPU scan, a dense re-verify, a
-    per-chunk ("plain") scan, run_bank, and a full-length bank's scan and
-    raw scan with the device prep."""
+    detex_torch still imports (the engine, its host modules and core
+    included) and runs a CPU scan, a dense re-verify, a per-chunk
+    ("plain") scan, run_bank, a full-length bank's scan and raw scan with
+    the device prep, and the detection engine on two chunks of one
+    station, writing its rows to SQLite."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
@@ -268,6 +261,29 @@ def test_port_imports_without_jax_or_pandas():
         "out = scan.scan_chunks_raw(Xc, [35000] * 2, H, full, np.ones(1), 3,\n"
         "                           250)\n"
         "assert out[1].shape == (2, 1)\n"
+        "import os, tempfile\n"
+        "import detex_torch.core, detex_torch.construct, detex_torch.util\n"
+        "from detex_torch import detect\n"
+        "from detex_torch.core import Stream, Trace\n"
+        "Xe = X.copy()\n"
+        "Xe[1, 3 * 9000:3 * 9000 + 1680] += 150.0 * U[0]\n"
+        "def chunks(sta):\n"
+        "    for b in range(2):\n"
+        "        st = Stream([Trace(Xe[b, c::3].astype(np.float64), dict(\n"
+        "            network='XX', station='S1', channel='BH' + 'ENZ'[c],\n"
+        "            sampling_rate=25.0, starttime=1e9 + 1400.0 * b))\n"
+        "            for c in range(3)])\n"
+        "        yield st, None, None\n"
+        "det = dict(name='d0', U=U, WFs=U * 3.0, mags=[1.0, 1.2],\n"
+        "           events=['e0', 'e1'], offsets=[0.0, 0.5], threshold=0.5)\n"
+        "stations = {'XX.S1': dict(channels=['BHE', 'BHN', 'BHZ'], sr=25.0,\n"
+        "                           detectors=[det])}\n"
+        "db = os.path.join(tempfile.mkdtemp(), 'ss.db')\n"
+        "hist = detect.detex(stations, chunks, db, conDatDuration=1300.0,\n"
+        "                    conBuff=100.0, device='cpu')\n"
+        "assert hist['XX.S1']['d0'].sum() == 2 * (35000 - 560 + 1)\n"
+        "rows = detex_torch.util.loadSQLite(db, 'ss_df')\n"
+        "assert [r['STMP'] for r in rows] == [1e9 + 1400.0 + 9000 / 25.0]\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

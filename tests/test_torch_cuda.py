@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernels against their plain PyTorch twins, on the
-card. Marked ``cuda``: without a CUDA device every test skips. This file
-imports neither jax nor detex_tpu, so it also runs where JAX is missing:
+"""The hand-written CUDA kernels against their plain PyTorch twins, and the
+template-blocked scan and the detection engine against their CPU runs, on
+the card. Marked ``cuda``: without a CUDA device every test skips but the
+engine's refusal to run on "cuda" without one. This file imports neither
+jax nor detex_tpu, so it also runs where JAX is missing:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -776,3 +778,114 @@ def test_prep_paths_read_frames_in_place(cuda, monkeypatch, path):
     else:
         want = ref.rfft_ct_fused_ref(frames, blk).reshape(B, NC, m, Rb)
         assert (out - want).abs().max().item() <= 2e-3
+
+
+def test_blocked_route_equals_per_block_scans_on_the_card(cuda):
+    """The template-blocked batch route on the card (300 single templates
+    padded to pad_rows(300) = 320 rows, three blocks; the last holds 64
+    pad rows): one fwd_prep_fold and one spec_ds_fold a block, and
+    histograms, maxima and triggers equal, bit for bit, to the same bank
+    scanned as three banks of 128 (slices of its arrays) through the
+    unblocked route."""
+    rng = np.random.default_rng(300)
+    S, L_c, B, n = 300, 40000, 3, NC * 560
+    U_list = _U_list(rng, S, 1, n)
+    X = rng.standard_normal((B, NC * L_c)).astype(np.float32)
+    for b, s in ((0, 5), (2, 299)):
+        X[b, NC * 9000:NC * 9000 + n] += 150.0 * U_list[s][0]
+    bank = tds.build_bank(U_list, NC, NC * L_c, cuda, pad_S=tds.pad_rows(S))
+    Sp = int(bank["sum_u"].shape[0])
+    th = np.full(Sp, 0.5, np.float32)
+    th[S:] = np.inf
+    ck.reset_launches()
+    tscan.ROUTE_COUNTS.clear()
+    got = tscan.scan_chunks(X, bank, th, NC, 250, max_trig=4)
+    torch.cuda.synchronize()
+    assert dict(tscan.ROUTE_COUNTS) == {"blocked-fused-net+fusedprep": 1}
+    assert dict(ck.LAUNCHES) == dict(_NONE, fwd_prep_fold=1, spec_ds_fold=3)
+    parts = []
+    for i in range(0, Sp, 128):
+        sub = {k: v for k, v in bank.items() if not k.startswith("_")}
+        for k in ("Ufd2", "sum_u", "d_mask"):
+            sub[k] = bank[k][i:i + 128]
+        parts.append(tscan.scan_chunks(X, sub, th[i:i + 128], NC, 250,
+                                       max_trig=4))
+    assert torch.equal(got[0], torch.cat([p[0] for p in parts]))
+    for k in range(1, 5):
+        torch.testing.assert_close(
+            got[k], torch.cat([p[k] for p in parts], dim=1), rtol=0, atol=0,
+            equal_nan=True)
+    assert got[0].shape == (Sp, 400) and int(got[4].sum()) == 2
+    assert int(got[4][0, 5]) == 1 and int(got[4][2, 299]) == 1
+
+
+def _engine_station(rng, n_det, D, n, chunks, L_c, events, sr):
+    """A station of ``n_det`` subspace detectors and a chunks(sta) callable
+    over ``chunks`` noise chunks of L_c samples a channel, with planted
+    events {chunk: (detector, channel sample)}."""
+    from detex_torch.core import Stream, Trace
+    Us = [_U_list(rng, 1, D, n)[0] for _ in range(n_det)]
+    dets = [dict(name="d%d" % i, U=U, WFs=3.0 * U[:2], mags=[1.0, 1.4],
+                 events=["e0", "e1"], offsets=[0.0, 0.4], threshold=0.4)
+            for i, U in enumerate(Us)]
+    data = rng.standard_normal((chunks, NC, L_c))
+    for b, (s, at) in events.items():
+        data[b, :, at:at + n // NC] += 150.0 * Us[s][0].reshape(-1, NC).T
+
+    def gen(sta):
+        for b in range(chunks):
+            yield Stream([Trace(data[b, c].copy(), dict(
+                network="XX", station="S1", channel="BH" + "ENZ"[c],
+                sampling_rate=sr, starttime=1.0e9 + b * L_c / sr))
+                for c in range(NC)]), None, None
+    return {"XX.S1": dict(channels=["BHE", "BHN", "BHZ"], sr=sr,
+                          detectors=dets)}, gen
+
+
+def test_engine_on_the_card_matches_cpu(cuda, tmp_path):
+    """detect.detex on the card against the same engine on the CPU: the
+    same rows in the same order (STMP and Name exact, DS within 2e-5,
+    magnitudes within 1e-5), histogram totals exact, and the summary scan
+    and the dense re-verify launched their kernels."""
+    from detex_torch import detect, util
+    rng = np.random.default_rng(77)
+    L_c, sr = 24000, 25.0
+    stations, gen = _engine_station(
+        rng, 3, 3, NC * 560, 5, L_c, {1: (0, 7000), 3: (2, 15000),
+                                      4: (1, 100)}, sr)
+    rows, hists = {}, {}
+    for dev in ("cpu", cuda):
+        db = str(tmp_path / ("%s.db" % str(dev)))
+        ck.reset_launches()
+        hists[str(dev)] = detect.detex(
+            stations, gen, db, conDatDuration=L_c / sr, conBuff=0.0,
+            batchSize=4, device=dev)
+        rows[str(dev)] = util.loadSQLite(db, "ss_df", columns=True)
+    launched = dict(ck.LAUNCHES)
+    for k in ("fwd_prep_fold", "spec_ds_fold", "rfft_ct_fused",
+              "irfft_ct_fused", "ds_finalize_os_fold"):
+        assert launched[k] > 0, k
+    c, g = rows["cpu"], rows[str(cuda)]
+    assert len(c["STMP"]) == 3
+    assert list(g["Name"]) == list(c["Name"])
+    np.testing.assert_array_equal(g["STMP"], c["STMP"])
+    np.testing.assert_allclose(g["DS"], c["DS"], rtol=0, atol=2e-5)
+    for col in ("Mag", "SNR", "ProEnMag"):
+        np.testing.assert_allclose(g[col], c[col], rtol=0, atol=1e-5)
+    for name, h in hists["cpu"]["XX.S1"].items():
+        assert hists[str(cuda)]["XX.S1"][name].sum() == h.sum()
+
+
+def test_engine_refuses_cuda_without_a_card(monkeypatch, tmp_path):
+    """With no card the engine asked for "cuda" raises through
+    detex_torch.require_cuda, before it reads a chunk."""
+    from detex_torch import detect
+
+    def no_chunks(sta):
+        raise AssertionError("chunks read")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stations = {"XX.S1": dict(channels=["BHZ"], sr=25.0, detectors=[
+        dict(name="d0", U=np.ones((1, 100)) / 10.0, WFs=np.ones((1, 100)),
+             mags=[1.0], events=["e0"], offsets=[0.0], threshold=0.5)])}
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        detect.detex(stations, no_chunks, str(tmp_path / "x.db"))
