@@ -82,7 +82,8 @@ port's paths through the entry points a user calls:
                detectors (30 s, D = 4) and one of 8 single templates, six
                planted events each, batchSize 8, histograms, magnitudes,
                STA/LTA: route "fused-net+fusedprep", the dense re-verify;
-               station-days/s end to end;
+               station-days/s end to end, on chunks made before the
+               clock starts (F2 and F3 time their runs the same way);
            F2  the bench.py network station: 1000 single templates (1024
                rows, 8 template blocks) on 8 chunks, four planted events:
                route "blocked-fused-net+fusedprep"; then the same bank's
@@ -97,7 +98,9 @@ Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
 phase's failure raises; the run exits 0 only when all pass. The last lines
 are the kernels' JSON record, the card's name and power limit from
-nvidia-smi, and {"ok": true, "device": {...}}.
+nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
+counts its launches over every phase ("launches") and over the engine's
+phases F1-F3 ("engine_launches").
 """
 from __future__ import annotations
 
@@ -1633,6 +1636,14 @@ def f_station(sta, dets, sr, L, n_chunks, seed, planted, chunk_sr=None):
                       detectors=dets)}, chunks
 
 
+def f_made(chunks, sta):
+    """chunks(sta) with its Streams made up front, for one engine run: a
+    timed run then reads its chunks ready, as from data on hand, and the
+    rate leaves out making them."""
+    made = list(chunks(sta))
+    return lambda name: iter(made)
+
+
 def f_detectors(rng, prefix, count, D, n, issubspace):
     """``count`` detectors of white orthonormal bases [D, n] (D = 1: single
     templates) with the fields the engine reads; threshold 0.3."""
@@ -1732,15 +1743,17 @@ def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
               for k, v in events.items()}
     db = os.path.join(tmpdir, "f1.db")
     hists, inputs = {}, {}
-    t0 = time.perf_counter()
+    wall = 0.0
     for i, (k, issub) in enumerate((("ss", True), ("sg", False))):
         planted = f_plant(dets[k], events[k], n)
         stations, chunks = f_station("XX.F1" + k, dets[k], SR, L, n_chunks,
                                      10 * seed + i, planted)
         inputs[k] = (planted, 10 * seed + i)
+        chunks = f_made(chunks, "XX.F1" + k)
+        t0 = time.perf_counter()
         hists[k] = detect.detex(stations, chunks, db, issubspace=issub,
                                 batchSize=8, device=dev)["XX.F1" + k]
-    wall = time.perf_counter() - t0
+        wall += time.perf_counter() - t0
     errs = []
     for k, table in (("ss", "ss_df"), ("sg", "sg_df")):
         planted, sd = inputs[k]
@@ -1748,8 +1761,9 @@ def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
                             sd, L, SR, planted, n_chunks, hists[k]))
     rate = 2 * n_chunks * 3600.0 / 86400.0 / wall
     say("phase F1: 2 stations x %d chunks (8 subspace detectors D=4, 8 "
-        "single templates, 30 s), %.3f s end to end (host filter, banks, "
-        "scan, re-verify, magnitudes, SQLite): %.3f station-days/s (%s); "
+        "single templates, 30 s), %.3f s end to end on chunks made before "
+        "the clock (host filter, banks, scan, re-verify, magnitudes, "
+        "SQLite): %.3f station-days/s (%s); "
         "planted DS err vs float64 oracle %.2e"
         % (n_chunks, wall, rate, card_line(), max(errs)))
     return dict(wall_s=wall, station_days_per_s=rate, oracle_err=max(errs))
@@ -1771,6 +1785,7 @@ def phase_f2(dev, tmpdir, n_chunks=8, seed=62, n_det=1000):
     stations, chunks = f_station("XX.F2", dets, SR, L, n_chunks, seed,
                                  planted)
     db = os.path.join(tmpdir, "f2.db")
+    chunks = f_made(chunks, "XX.F2")
     t0 = time.perf_counter()
     hist = detect.detex(stations, chunks, db, issubspace=False, batchSize=8,
                         device=dev)["XX.F2"]
@@ -1883,8 +1898,9 @@ def phase_f3(dev, tmpdir, n_chunks=24, seed=63):
     stations, raw_chunks = f_station("XX.F3", dets, RAW_SR / DEC, L,
                                      n_chunks, seed, planted, RAW_SR)
     db = os.path.join(tmpdir, "f3_dev.db")
+    chunks = f_made(raw_chunks, "XX.F3")
     t0 = time.perf_counter()
-    detect.detex(stations, raw_chunks, db, filt=FILT, decimate=DEC,
+    detect.detex(stations, chunks, db, filt=FILT, decimate=DEC,
                  devicePrep=True, batchSize=8, estimateMags=False, device=dev)
     wall = time.perf_counter() - t0
     need(tscan.ROUTE_COUNTS.get("fused-net+fusedprep+devicePrep", 0) > 0,
@@ -1899,8 +1915,9 @@ def phase_f3_host(dev, tmpdir, f3):
     test_deviceprep_matches_host_detections holds them: the same rows,
     STMP within 0.2 s, DS within 1e-3; one row for each planted event."""
     db = os.path.join(tmpdir, "f3_host.db")
+    chunks = f_made(f3["chunks"], "XX.F3")
     t0 = time.perf_counter()
-    detect.detex(f3["stations"], f3["chunks"], db, filt=FILT, decimate=DEC,
+    detect.detex(f3["stations"], chunks, db, filt=FILT, decimate=DEC,
                  batchSize=8, estimateMags=False, device=dev)
     wall = time.perf_counter() - t0
     dev_rows = util.loadSQLite(f3["db"], "ss_df") or []
@@ -2170,13 +2187,15 @@ def main():
     # call computing the same function, at phase A's full shape (scan
     # kernels), at phase C's re-verify shape (dense kernels), at phase D's
     # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
-    # (ds_finalize); launches: every counted phase, A-F
+    # (ds_finalize); launches: every counted phase, A-F; engine_launches:
+    # the engine's own, phases F1-F3
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=replaces,
             launches=sum(launches[p][k] for p in launches),
+            engine_launches=sum(launches[p][k] for p in ("F1", "F2", "F3")),
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

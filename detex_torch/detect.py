@@ -151,8 +151,9 @@ class _SSDetex(object):
     def _prepareDetectors(self, dets, sta, channels, samplingRate):
         """Pack the detectors into banks by template length on the engine's
         device and gather the per-detector data of the magnitudes
-        (reference _loadMPSubSpace, detect.py:319-388). Returns (det, banks);
-        with devicePrep each bank also carries the filter response H."""
+        (reference _loadMPSubSpace, detect.py:319-388). Returns (det, banks,
+        devicePrep): whether this station's chunks are filtered on the
+        device, each bank then also carrying the filter response H."""
         Nc = len(channels)
         det = {}
         for d in dets:
@@ -164,6 +165,7 @@ class _SSDetex(object):
                 events=list(d["events"]), offsets=d["offsets"],
                 WFU=np.dot(np.dot(WFs, U.T), U))
         banks = []
+        devicePrep = self.devicePrep
         by_n = {}
         for name in sorted(det):
             by_n.setdefault(det[name]["n"], []).append(name)
@@ -177,22 +179,23 @@ class _SSDetex(object):
                                   pad_S=_ds.pad_rows(len(names)),
                                   min_dmax=_ds.pad_dims(dmax))
             bank["names"] = names
-            if self.devicePrep:
-                self._bankFilter(bank, Nc, pad_len, samplingRate)
+            if devicePrep:
+                devicePrep = self._bankFilter(bank, Nc, pad_len,
+                                              samplingRate)
             banks.append(bank)
-        return det, banks
+        return det, banks, devicePrep
 
     def _bankFilter(self, bank, Nc, pad_len, samplingRate):
         """devicePrep's filter response on ``bank`` (detect.py:250-287): at
         the raw rate over dec * nfftp bins, nfftp the demuxed bank's FFT
         length (recomputed for an overlap-save bank); ones without a
-        filter. Turns devicePrep off where it cannot run."""
+        filter. Returns False where devicePrep cannot run: the station
+        then falls back to the host prep."""
         if not bank.get("demux"):
             detex_torch.log(__name__, "devicePrep requires template lengths "
                             "divisible by the channel count; falling back "
                             "to host prep", level="warning")
-            self.devicePrep = False
-            return
+            return False
         dec = self.dpDec
         if bank.get("os"):
             nfftp = _ds.required_fft_len(pad_len // Nc, bank["n_c"])
@@ -202,16 +205,16 @@ class _SSDetex(object):
         if self.filt is None:
             bank["H"] = torch.ones(nbins // 2 + 1, dtype=torch.float32,
                                    device=self.device)
-            return
+            return True
         if self.filt[1] >= samplingRate / 2.0 and dec > 1:
             detex_torch.log(__name__, "devicePrep decimation needs the "
                             "bandpass below the decimated Nyquist; falling "
                             "back to host prep", level="warning")
-            self.devicePrep = False
-            return
+            return False
         bank["H"] = _prep.butter_response(self.filt, samplingRate * dec,
                                           nbins, zerophase=bool(self.filt[3]),
                                           device=self.device)
+        return True
 
     def _corDat(self, threshold, sta, channels, names, dets, samplingRate):
         """Stream one station's chunks and detect (reference
@@ -221,12 +224,12 @@ class _SSDetex(object):
         histdic = ({na: np.zeros(len(self.hist["Bins"]) - 1) for na in names}
                    if self.calcHist else None)
         nc = len(channels)
-        det, banks = self._prepareDetectors(dets, sta, channels,
-                                            samplingRate)
+        det, banks, devicePrep = self._prepareDetectors(dets, sta, channels,
+                                                        samplingRate)
         datGen = self.chunks(sta)
         if self.batchSize > 1 and self.trigCon == 0:
             return self._corDatBatched(threshold, sta, names, det, banks, nc,
-                                       datGen, histdic, tableName)
+                                       datGen, histdic, tableName, devicePrep)
         # trigCon=1 triggers on staltaThreshold, not the DS Threshold
         trigth = self._trigThresholds(threshold)
         rows, numdets = [], 0
@@ -270,21 +273,27 @@ class _SSDetex(object):
         return histdic if self.calcHist else None
 
     def _corDatBatched(self, threshold, sta, names, det, banks, nc, datGen,
-                       histdic, tableName):
+                       histdic, tableName, devicePrep):
         """The batched scan path (reference detect.py:386-552): chunks are
         filtered and multiplexed on the host (or, with devicePrep, only
         merged and trimmed), stacked ``batchSize`` at a time and scanned
         summary-only per bank; a batch is materialized one dispatch later
-        (_materializeOne)."""
+        (_materializeOne). The station's devicePrep and gate margin ride
+        with its batches, which may materialize during the next station's
+        preparation."""
         pending = []  # (MPcon or {"chans", "st"}, sr, tstamp)
         thresholds_by_bank = [
             np.asarray([threshold[nm] for nm in bank["names"]] +
                        [np.inf] * (int(bank["sum_u"].shape[0]) -
                                    len(bank["names"])), np.float32)
             for bank in banks]
+        gate_eps = max(DEVICE_PREP_EPS if devicePrep else 0.0,
+                       GATE_EPS_DOUBLE if self.dtype == "double"
+                       else GATE_EPS_SINGLE)
         ctx = dict(sta=sta, rows=[], numdets=0, histdic=histdic,
                    tableName=tableName, det=det, threshold=threshold, nc=nc,
-                   open_batches=0, station_done=False)
+                   devicePrep=devicePrep, gate_eps=gate_eps, open_batches=0,
+                   station_done=False)
         bins = self.hist["Bins"] if self.calcHist else None
 
         def dispatch(batch):
@@ -296,7 +305,7 @@ class _SSDetex(object):
             outs = []
             for bank, th in zip(banks, thresholds_by_bank):
                 pad = bank["pad_len"]
-                if self.devicePrep:
+                if devicePrep:
                     Lp = (pad // nc) * self.dpDec
                     Xc = np.zeros((B, nc, Lp), np.float32)
                     lens = []
@@ -352,8 +361,8 @@ class _SSDetex(object):
                 # devicePrep: merge and trim only on the host; the bandpass
                 # and the decimation run on the device
                 conSt = _applyFilter(
-                    st, None if self.devicePrep else self.filt,
-                    None if self.devicePrep else self.decimate, self.dtype,
+                    st, None if devicePrep else self.filt,
+                    None if devicePrep else self.decimate, self.dtype,
                     fillZeros=self.fillZeros)
             except Exception:
                 detex_torch.log(__name__, "failed to filter chunk on %s"
@@ -363,7 +372,7 @@ class _SSDetex(object):
                 continue
             sr = conSt[0].stats.sampling_rate
             tstamp = conSt[0].stats.starttime.timestamp
-            if self.devicePrep:
+            if devicePrep:
                 sr = sr / self.dpDec  # DS runs at the decimated rate
                 conSt.sort()
                 L = min(len(tr.data) for tr in conSt)
@@ -398,9 +407,7 @@ class _SSDetex(object):
         threshold = ctx["threshold"]
         nc = ctx["nc"]
         histdic = ctx["histdic"]
-        gate_eps = DEVICE_PREP_EPS if self.devicePrep else 0.0
-        gate_eps = max(gate_eps, GATE_EPS_DOUBLE if self.dtype == "double"
-                       else GATE_EPS_SINGLE)
+        gate_eps = ctx["gate_eps"]
         use_sl = bool(not self.fillZeros and self.triggerLTATime)
         for bank, hist_dev, maxds_dev, Xd, xlens in outs:
             hist = hist_dev.cpu().numpy()
@@ -411,7 +418,7 @@ class _SSDetex(object):
                         if maxds[bi, si] > threshold[name] - gate_eps]
                 if not trig:
                     continue
-                if self.devicePrep:
+                if ctx["devicePrep"]:
                     # the exact host filter, for the triggered chunks only
                     stf = _applyFilter(payload["st"].copy(), self.filt,
                                        self.decimate, self.dtype,

@@ -87,21 +87,18 @@ def _numeric(vals):
     return [float("nan") if g is None else float(g) for g in got]
 
 
-def loadSQLite(dbPath, tableName, sql=None, columns=False):
-    """Read table ``tableName`` (or the result of ``sql``) from the SQLite
-    database ``dbPath`` (reference util.py:896-931). Returns a list of
-    {column: value} dicts in row order, or with ``columns`` a dict of
-    column name -> numpy array; None when the database or the table does
-    not exist. Every column whose non-NULL values are all numbers comes
+def loadSQLite(dbPath, tableName, columns=False):
+    """Read table ``tableName`` from the SQLite database ``dbPath``
+    (reference util.py:896-931). Returns a list of {column: value} dicts
+    in row order, or with ``columns`` a dict of column name -> numpy
+    array; None when the database or the table does not exist. Every column whose non-NULL values are all numbers comes
     back as numbers, NULL as NaN (detex_tpu's convertNumeric)."""
     if not os.path.exists(dbPath):
         return None
-    if sql is None:
-        sql = 'SELECT * FROM "%s"' % tableName
     con = sqlite3.connect(dbPath)
     try:
         try:
-            cur = con.execute(sql)
+            cur = con.execute('SELECT * FROM "%s"' % tableName)
         except sqlite3.Error:
             detex_torch.log(__name__, "could not load table %s from %s"
                             % (tableName, dbPath), level="warning")

@@ -22,8 +22,9 @@ by torch.profiler:
            raw chunks (route "raw-demux+devicePrep");
   phase F1 one detect.detex run of phase F1's subspace station (8
            detectors of 30 s, D = 4, 24 chunks of 3720 s, three planted
-           events), then the same run's host time by function (cProfile,
-           the 14 largest by own time).
+           events) on chunks made before the profiler starts, then the
+           same run's host time by function (cProfile, the 14 largest by
+           own time).
 
 For each it prints the wall time and the device-busy time per repeat (the
 union of all device intervals) and the profiler's table of device time by
@@ -67,14 +68,17 @@ def busy_us(events):
     return busy
 
 
-def prof(name, fn, reps=3):
-    fn()
+def prof(name, fn, reps=3, setup=tuple):
+    """Profile ``reps`` calls of fn(*setup()) after one warm call; each
+    call's arguments are made before the profiler starts."""
+    fn(*setup())
     torch.cuda.synchronize()
+    args = [setup() for _ in range(reps)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        for a in args:
+            fn(*a)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_events = [e for e in p.events()
@@ -117,13 +121,16 @@ def phase_f(dev):
     stations, chunks = cs.f_station("XX.F1ss", dets, cs.SR, L, 24, 610,
                                     planted)
     with tempfile.TemporaryDirectory() as tmp:
-        def run():
-            detect.detex(stations, chunks, os.path.join(tmp, "f.db"),
+        # the chunks are made before each run, as F1 times them
+        def run(made):
+            detect.detex(stations, made, os.path.join(tmp, "f.db"),
                          batchSize=8, device=dev)
-        prof("phase F1 subspace station (24 chunks)", run, reps=1)
+        prof("phase F1 subspace station (24 chunks)", run, reps=1,
+             setup=lambda: (cs.f_made(chunks, "XX.F1ss"),))
+        made = cs.f_made(chunks, "XX.F1ss")
         host = cProfile.Profile()
         host.enable()
-        run()
+        run(made)
         torch.cuda.synchronize()
         host.disable()
         pstats.Stats(host).sort_stats("tottime").print_stats(14)

@@ -18,6 +18,9 @@ with equal NaN patterns and within 1e-5, and every detector's histogram
 total exact. Cases: dtype single and double, single templates, trigCon 1
 with staltaThreshold, batchSize 1, fillZeros, and devicePrep with
 decimation (a SubSpace built at decimate 2).
+
+One case is the port's alone: a devicePrep station followed by a station
+that falls back to the host prep, against the host prep throughout.
 """
 import os
 
@@ -32,6 +35,7 @@ from detex_torch import detect as tdetect
 from detex_torch import util as tutil
 from detex_torch.core import Stream as TStream
 from detex_torch.core import Trace as TTrace
+from detex_torch.parallel import scan as tscan
 
 # the scan window from the hour of the first template event: five hours
 # (five chunks a station) holding events of all three sources, one of them
@@ -206,3 +210,56 @@ def test_engine_rows_match_jax(request, monkeypatch, tmp_path, case):
         assert sorted(hist_t[sta]) == sorted(hist_j[sta])
         for name, counts in hist_j[sta].items():
             assert hist_t[sta][name].sum() == counts.sum(), (sta, name)
+
+
+def _two_station_inputs(seed=7, L=35000, sr=25.0):
+    """Two stations of one 1400 s chunk pair each: XX.S1 with a template of
+    1680 samples (a demuxed bank devicePrep can filter), XX.S2 with one of
+    1681 (not divisible by the 3 channels: a multiplexed bank, so its
+    station falls back to the host prep). Each has an event in its second
+    chunk."""
+    rng = np.random.default_rng(seed)
+    stations, data = {}, {}
+    for sta, n, at in (("XX.S1", 1680, 9000), ("XX.S2", 1681, 20001)):
+        u = rng.standard_normal(n)
+        U = (u / np.linalg.norm(u))[None]
+        X = rng.standard_normal((2, 3 * L))
+        X[1, 3 * at:3 * at + n] += 150.0 * U[0]
+        stations[sta] = dict(channels=["BHE", "BHN", "BHZ"], sr=sr,
+                             detectors=[dict(name=sta[3:] + "d0", U=U,
+                                             WFs=3.0 * U, mags=[1.0],
+                                             events=["e0"], offsets=[0.0],
+                                             threshold=0.3)])
+        data[sta] = X
+
+    def chunks(sta):
+        for b in range(2):
+            yield TStream([TTrace(data[sta][b, c::3].copy(), dict(
+                network="XX", station=sta[3:], channel="BH" + "ENZ"[c],
+                sampling_rate=sr, starttime=1e9 + 1400.0 * b))
+                for c in range(3)]), None, None
+    return stations, chunks
+
+
+def test_deviceprep_station_then_host_prep_station(tmp_path):
+    """A devicePrep station followed by one that falls back to the host
+    prep: the first station's last batch, still in flight while the second
+    station's banks are built, materializes with its own devicePrep (its
+    chunks re-filtered on the host, the devicePrep gate margin), and the
+    rows equal those of the same engine with the host prep throughout
+    (STMP exact, DS within 2e-5: the devicePrep re-verify uploads its
+    host-filtered chunks instead of gathering them from the kept batch)."""
+    stations, chunks = _two_station_inputs()
+    kw = dict(conDatDuration=1300.0, conBuff=100.0, filt=[1, 8, 2, True],
+              batchSize=2, estimateMags=False, device="cpu")
+    tscan.ROUTE_COUNTS.clear()
+    tdetect.detex(stations, chunks, str(tmp_path / "dev.db"),
+                  devicePrep=True, **kw)
+    assert tscan.ROUTE_COUNTS.get("fused-net+fusedprep+devicePrep") == 1
+    tdetect.detex(stations, chunks, str(tmp_path / "host.db"), **kw)
+    dev = tutil.loadSQLite(str(tmp_path / "dev.db"), "ss_df")
+    host = tutil.loadSQLite(str(tmp_path / "host.db"), "ss_df")
+    assert [r["Sta"] for r in host] == ["XX.S1", "XX.S2"]
+    assert [(r["Name"], r["Sta"], r["STMP"]) for r in dev] == \
+        [(r["Name"], r["Sta"], r["STMP"]) for r in host]
+    _close([r["DS"] for r in dev], [r["DS"] for r in host], 2e-5)
