@@ -93,14 +93,37 @@ port's paths through the entry points a user calls:
                raw 100 Hz chunks, filt [1, 10, 2, true], decimate 2: route
                "fused-net+fusedprep+devicePrep", its rows held against the
                same engine's host-filter rows.
+  phase G  detector construction (construct.py, subspace.py, fas.py) on
+           seeded template waveforms: two stations of 220 events (20
+           sources of 10 events at planted onset shifts, 20 singles), 130
+           s at 100 Hz on 3 channels (trim [10, 120]):
+           G1  bench.py cluster's geometry: ops/xcorr.xcorr_all_pairs on
+               2 x 220 x 39,000 multiplexed samples (24,090 pairs a
+               station, polyphase path), timed after one warm-up call;
+               256 pairs and a small full-path case (n % 3 != 0) against
+               the float64 oracle of _CCX2 (cc within 2e-5, lags exact
+               where the peak is clear);
+           G2  createCluster (CCreq 0.5) -> createSubSpace (dtype single)
+               -> attachPickTimes (defaultDuration 30) -> SVD (selectCriteria
+               2, selectValue 0.9, useSingles, FAS on G_CON_DAT_NUM null
+               chunks of 3720 s a station) -> SubSpace.detex over one
+               station-day with planted repeats of three sources and a
+               single; wall seconds per stage, FAS's device-busy share;
+               every source one cluster and every single single, alignment
+               delays the planted shifts to one channel sample, thresholds
+               in (0, 1), one detector's beta fit against the fit of the
+               float64 oracle DS (ds_numpy) of the same null chunks within
+               1e-3 relative, the SQLite rows against the float64 oracle
+               as phase F holds them.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
 phase's failure raises; the run exits 0 only when all pass. The last lines
 are the kernels' JSON record, the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
-counts its launches over every phase ("launches") and over the engine's
-phases F1-F3 ("engine_launches").
+counts its launches over every phase ("launches"), over the engine's
+phases F1-F3 ("engine_launches") and over the construction phases G1-G2
+("construct_launches").
 """
 from __future__ import annotations
 
@@ -122,7 +145,8 @@ from detex_torch.ops import prep as tprep
 from detex_torch.ops import reference as ref
 from detex_torch.ops import triggers as ttrig
 from detex_torch.parallel import scan as tscan
-from detex_torch import construct, detect, serving, util
+from detex_torch import construct, detect, fas, serving, util
+from detex_torch.ops import xcorr
 from detex_torch.core import Stream, Trace
 
 NC = 3
@@ -1697,7 +1721,6 @@ def f_check(tag, rows, dets, events, seed, L, sr, planted, n_chunks, hist,
     need(set(keys) == want, "phase %s rows at %s, planted %s"
          % (tag, sorted(set(keys) - want), sorted(want - set(keys))))
     errs = []
-    n_c = dets[0]["U"].shape[1] // NC
     for b, name in sorted(want):
         st = construct._applyFilter(f_stream(f_chunk(seed, b, L, planted), b,
                                              sr), filt, dec, "single")
@@ -1718,6 +1741,7 @@ def f_check(tag, rows, dets, events, seed, L, sr, planted, n_chunks, hist,
     need(max(errs) <= 2e-5, "phase %s DS err %g" % (tag, max(errs)))
     L_d = L // (dec or 1)
     for name, h in hist.items():
+        n_c = by[name]["U"].shape[1] // NC
         need(h.sum() == n_chunks * (L_d - n_c + 1), "phase %s histogram "
              "total of %s %d != %d" % (tag, name, h.sum(),
                                        n_chunks * (L_d - n_c + 1)))
@@ -1937,6 +1961,411 @@ def phase_f3_host(dev, tmpdir, f3):
         "host filter" % (len(dev_rows), dt, dds, f3["wall_s"], wall))
     return dict(rows=len(dev_rows), stmp_diff=dt, ds_diff=dds,
                 wall_dev_s=f3["wall_s"], wall_host_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase G: detector construction on the card (bench.py cluster's geometry)
+# ---------------------------------------------------------------------------
+
+G_STATIONS = ("XX.G1", "XX.G2")
+G_SOURCES, G_PER_SOURCE, G_SINGLES = 20, 10, 20   # 220 events a station
+G_TRIM = (10, 120)                  # seconds before / after the origin
+G_WAVE = 3000                       # 30 s event waveform (channel samples)
+G_FILT = [1, 10, 2, True]           # createCluster's default filter
+G_T0 = 1.6e9                        # origin of event 0 (POSIX seconds)
+# null chunks a station for FAS (detex_tpu's default is 50; cut to keep
+# the smoke inside its time: the host's beta fit costs ~0.1 s per chunk
+# and detector)
+G_CON_DAT_NUM = 20
+
+
+def g_waveform(rng):
+    """A [NC, G_WAVE] band-limited (1-10 Hz at 100 Hz) event waveform with
+    tapered ends, unit std. It fills the 30 s detector window, so a
+    detector sees a foreign event as it sees filtered noise: the
+    thresholds from the noise null then hold for other sources' events
+    too (a shorter or enveloped waveform has fewer degrees of freedom than
+    the window's noise and can pass a threshold set at Pf 1e-12)."""
+    from scipy.signal import butter, sosfiltfilt
+    from scipy.signal.windows import tukey
+    sos = butter(4, [1.0, 10.0], btype="bandpass", fs=SR, output="sos")
+    w = sosfiltfilt(sos, rng.standard_normal((NC, G_WAVE)), axis=1)
+    w *= tukey(G_WAVE, 0.1)
+    return w / w.std()
+
+
+def g_catalog(seed=71):
+    """Phase G's seeded catalog: 220 events (20 sources of 10 events, then
+    20 singles), each with an origin, magnitude and a per-event shift of
+    its onset (channel samples, the planted misalignment); per station
+    the sources' waveforms (a main and a second component, so subspaces
+    need one or two dimensions), the singles' waveforms and the travel
+    times of every source and single."""
+    rng = np.random.default_rng(seed)
+    n_ev = G_SOURCES * G_PER_SOURCE + G_SINGLES
+    src = [k // G_PER_SOURCE if k < G_SOURCES * G_PER_SOURCE
+           else G_SOURCES + k - G_SOURCES * G_PER_SOURCE
+           for k in range(n_ev)]
+    order = rng.permutation(n_ev)            # names do not follow sources
+    events = [dict(name="ev%03d" % int(order[k]), src=src[k],
+                   time=G_T0 + 1000.0 * int(order[k]),
+                   mag=float(rng.uniform(0.5, 2.5)),
+                   shift=int(rng.integers(-100, 101)),
+                   mix=float(rng.uniform(-0.6, 0.6)))
+              for k in range(n_ev)]
+    waves = {sta: dict(main=[g_waveform(rng) for _ in range(G_SOURCES +
+                                                             G_SINGLES)],
+                       second=[g_waveform(rng) for _ in range(G_SOURCES)],
+                       tt=rng.integers(200, 801, G_SOURCES + G_SINGLES))
+             for sta in G_STATIONS}
+    return events, waves
+
+
+def g_signal(waves, sta, src, mix):
+    """Source (or single) ``src``'s waveform at ``sta``: the main waveform
+    plus ``mix`` times the second component (sources only)."""
+    w = waves[sta]["main"][src]
+    if src < G_SOURCES:
+        w = w + mix * waves[sta]["second"][src]
+    return w
+
+
+def g_templates(events, waves, seed=72):
+    """createCluster's inputs: per station {event: Stream} of 130 s (trim
+    [10, 120] around the origin: 13,000 samples a channel, 39,000
+    multiplexed) of white noise (std 0.05) with the event's waveform at its
+    onset (10 s + travel time + shift after the window opens, amplitude
+    from the magnitude); the template rows; the picks at each onset."""
+    n = int(sum(G_TRIM) * SR)
+    streams = {sta: {} for sta in G_STATIONS}
+    picks = []
+    for si, sta in enumerate(G_STATIONS):
+        for e in events:
+            rng = np.random.default_rng((seed, si, int(e["name"][2:])))
+            x = 0.05 * rng.standard_normal((NC, n))
+            on = int(G_TRIM[0] * SR) + int(waves[sta]["tt"][e["src"]]) + \
+                e["shift"]
+            x[:, on:on + G_WAVE] += 10 ** (0.3 * e["mag"]) * g_signal(
+                waves, sta, e["src"], e["mix"])
+            t0 = e["time"] - G_TRIM[0]
+            streams[sta][e["name"]] = Stream([Trace(x[c], dict(
+                network="XX", station=sta[3:], channel="BH" + "ENZ"[c],
+                sampling_rate=SR, starttime=t0)) for c in range(NC)])
+            picks.append(dict(TimeStamp=t0 + on / SR, Station=sta,
+                              Event=e["name"], Phase="P"))
+    templates = {e["name"]: {"time": e["time"], "mag": e["mag"]}
+                 for e in events}
+    return streams, templates, picks
+
+
+def g_null_chunks(seed=73):
+    """FAS's chunks(sta): a fresh iterator on every call over 4 *
+    G_CON_DAT_NUM candidate null chunks of 3720 s of unit white noise,
+    each made when it is read."""
+    L = int(F_SEC * SR)
+
+    def chunks(sta):
+        si = G_STATIONS.index(sta)
+        for k in range(4 * G_CON_DAT_NUM):
+            x = np.random.default_rng((seed, si, k)).standard_normal((NC, L))
+            st = Stream([Trace(x[c], dict(
+                network="XX", station=sta[3:], channel="BH" + "ENZ"[c],
+                sampling_rate=SR, starttime=F_T0 - 1e7 + F_SEC * k))
+                for c in range(NC)])
+            yield st, None, None
+    return chunks
+
+
+def ccx2_np(x1, x2, nc):
+    """float64 numpy oracle of the reference _CCX2 (construct.py:425-466):
+    (maxcc, integer lag, the channel-aligned truncated cc curve)."""
+    n = len(x1)
+    trunc = n // (2 * nc) - 1
+    nfft = 2 ** int(2 * n).bit_length()
+    x1 = np.asarray(x1, np.float64)
+    x2 = np.asarray(x2, np.float64)
+    c = np.fft.irfft(np.conj(np.fft.rfft(x1, nfft)) * np.fft.rfft(x2, nfft),
+                     nfft)
+    c1 = np.concatenate([c[-(n - 1):], c[:n]])
+    padded = np.pad(x2, (n - 1, n - 1))
+    cs = np.cumsum(np.insert(padded, 0, 0.0))
+    cs2 = np.cumsum(np.insert(padded ** 2, 0, 0.0))
+    a = (cs[n:] - cs[:-n]) / n
+    b = np.sqrt(np.maximum((cs2[n:] - cs2[:-n]) / n - a * a, 0.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = (c1 - x1.sum() * a) / (n * b * x1.std())
+    r = r[nc - 1::nc][trunc:-trunc]
+    r[(r > 1) | (r < -1)] = 0.0
+    k = int(np.nanargmax(r))
+    return r[k], (k + 1 + trunc) * nc - n, r
+
+
+def g_hold_pairs(tag, X, pairs, cc, lag, tol=2e-5):
+    """cc of ``pairs`` against ccx2_np within ``tol``, the lag exact where
+    the oracle's peak leads its runner-up by more than ``tol``. Returns
+    (largest cc error, clear pairs)."""
+    err, clear = 0.0, 0
+    for i, j in pairs:
+        occ, olag, r = ccx2_np(X[i], X[j], NC)
+        err = max(err, abs(cc[i, j] - occ))
+        top2 = np.sort(r[np.isfinite(r)])[-2:]
+        if top2[1] - top2[0] > tol:
+            clear += 1
+            need(lag[i, j] == olag, "phase %s pair (%d, %d) lag %d, oracle "
+                 "%d" % (tag, i, j, lag[i, j], olag))
+    need(err <= tol, "phase %s cc err %g vs float64 oracle" % (tag, err))
+    return err, clear
+
+
+def phase_g1(dev, g):
+    """G1: bench.py cluster's geometry, 2 stations x 220 events x 39,000
+    multiplexed samples (24,090 pairs a station) through
+    ops/xcorr.xcorr_all_pairs on the card (polyphase path, nfft2 32768),
+    timed after one warm-up call; 256 seeded pairs (192 at random, 64
+    within sources) held against the float64 oracle of _CCX2, and a small
+    full-path case (8 events cut to 38,999 samples, n % 3 != 0)."""
+    X = {sta: np.stack([construct.multiplex(g["streams"][sta][e["name"]],
+                                            NC) for e in g["events"]])
+         .astype(np.float32) for sta in G_STATIONS}
+    N, n = X[G_STATIONS[0]].shape
+    xcorr.xcorr_all_pairs(X[G_STATIONS[0]], NC, device=dev)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {sta: xcorr.xcorr_all_pairs(X[sta], NC, device=dev)
+           for sta in G_STATIONS}
+    wall = time.perf_counter() - t0
+    rng = np.random.default_rng(74)
+    iu, ju = np.triu_indices(N, 1)
+    src = np.array([e["src"] for e in g["events"]])
+    same = np.flatnonzero((src[iu] == src[ju]) & (src[iu] < G_SOURCES))
+    errs, clear, held = [], 0, 0
+    for sta in G_STATIONS:
+        pick = np.concatenate([
+            rng.choice(len(iu), min(96, len(iu)), replace=False),
+            rng.choice(same, min(32, len(same)), replace=False)])
+        held += len(pick)
+        cc, lag, sub = out[sta]
+        need(np.isfinite(cc[iu, ju]).all() and np.isfinite(sub[iu, ju]).all(),
+             "phase G1 %s: non-finite cc or subsample" % sta)
+        e, c = g_hold_pairs("G1 " + sta, X[sta], zip(iu[pick], ju[pick]),
+                            cc, lag)
+        errs.append(e)
+        clear += c
+        need(cc[iu[same], ju[same]].min() > 0.5, "phase G1 %s: a pair of "
+             "one source below cc 0.5" % sta)
+    need(clear >= 0.75 * held, "phase G1: only %d of %d pairs with a "
+         "clear peak" % (clear, held))
+    Xf = X[G_STATIONS[0]][:8, :n - 1]
+    cc, lag, _ = xcorr.xcorr_all_pairs(Xf, NC, device=dev)
+    ef, _ = g_hold_pairs("G1 full path", Xf, zip(*np.triu_indices(8, 1)), cc,
+                         lag)
+    say("phase G1: xcorr_all_pairs 2 stations x %d events x %d samples "
+        "(%d pairs a station, nfft2 %d): %.3f s after one warm-up call (%s); "
+        "%d pairs vs float64 oracle: cc err %.2e, %d clear peaks, lags "
+        "exact; full path (n %d) cc err %.2e"
+        % (N, n, len(iu), xcorr.fft_len_for(n // NC), wall, card_line(),
+           held, max(errs), clear, n - 1, ef))
+    return dict(wall_s=wall, cc_err=max(errs), full_err=ef)
+
+
+class FasClock(object):
+    """Times every fas._initFAS call (wall seconds, ``wall``) and the
+    card's busy time inside it (the union of its kernels' intervals,
+    torch.profiler); ``inside`` adds the profiler's own start and
+    processing, which the caller's stage clock must leave out."""
+
+    def __init__(self):
+        self.wall = 0.0
+        self.inside = 0.0
+        self.device_us = 0.0
+        self.launches = dict.fromkeys(ck.LAUNCHES, 0)
+        self.orig = fas._initFAS
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        def timed(*args, **kw):
+            t_in = time.perf_counter()
+            before = dict(ck.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                out = self.orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.wall += time.perf_counter() - t0
+            for k in self.launches:
+                self.launches[k] += ck.LAUNCHES[k] - before[k]
+            self.inside += time.perf_counter() - t_in
+            self.device_us += busy_us([e for e in p.events()
+                                     if e.device_type ==
+                                     torch.autograd.DeviceType.CUDA])
+            return out
+        fas._initFAS = timed
+        return self
+
+    def __exit__(self, *exc):
+        fas._initFAS = self.orig
+
+
+def busy_us(events):
+    """Length of the union of device intervals, in microseconds."""
+    busy, cur_s, cur_e = 0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+# the station-day's planted events: (chunk, source, channel sample);
+# "single" plants single 0's waveform
+G_PLANT = [(1, 0, 50000), (4, 1, 300000), (8, 2, 7000), (11, 0, 200000),
+           (15, 1, 99999), (20, 2, 333333), (22, "single", 150000)]
+
+
+def g_station_day(g, sta, seed, n_chunks=24):
+    """SubSpace.detex's chunks for one station-day: 24 chunks of 3720 s of
+    unit noise with G_PLANT's events at amplitude 3. The chunks' arrays are
+    made before the clock; every call wraps fresh Streams around copies
+    (the engine filters its Streams in place). Returns (chunks, planted)."""
+    L = int(F_SEC * SR)
+    planted = {}
+    for b, s, at in G_PLANT:
+        src = G_SOURCES if s == "single" else s
+        mix = 0.3 if s != "single" else 0.0
+        planted.setdefault(b % n_chunks, []).append(
+            (3.0 * g_signal(g["waves"], sta, src, mix), at))
+    made = [f_chunk(seed, b, L, planted) for b in range(n_chunks)]
+
+    def chunks(name):
+        for b, x in enumerate(made):
+            yield f_stream(x, b, SR), None, None
+    return chunks, planted
+
+
+def phase_g2(dev, g, tmpdir):
+    """G2: detector construction end to end on G1's events, per station:
+    createCluster (CCreq 0.5) -> createSubSpace (dtype single) ->
+    attachPickTimes (defaultDuration 30) -> SVD(selectCriteria 2,
+    selectValue 0.9, conDatNum G_CON_DAT_NUM, useSingles) on null chunks
+    of 3720 s -> SubSpace.detex over one station-day with G_PLANT's
+    events. Gates: every source one cluster and every single single;
+    alignment delays recover the planted shifts to one channel sample;
+    thresholds in (0, 1); one detector's beta fit against the fit of the
+    float64 oracle DS (ds_numpy) of the same null chunks; the SQLite rows
+    against the float64 oracle as phase F holds them."""
+    stages = {}
+    t0 = time.perf_counter()
+    cl = construct.createCluster(g["streams"], g["templates"], CCreq=0.5,
+                                 filt=G_FILT, trim=list(G_TRIM), device=dev)
+    stages["cluster"] = time.perf_counter() - t0
+    by_src = {}
+    for e in g["events"]:
+        by_src.setdefault(e["src"], []).append(e["name"])
+    want_clusts = sorted(sorted(v) for s, v in by_src.items()
+                         if s < G_SOURCES)
+    want_singles = sorted(v[0] for s, v in by_src.items() if s >= G_SOURCES)
+    for sta in G_STATIONS:
+        need(sorted(sorted(c) for c in cl[sta].clusts) == want_clusts,
+             "phase G2 %s: clusters are not the planted sources" % sta)
+        need(cl[sta].singles == want_singles, "phase G2 %s: singles %d, "
+             "planted %d" % (sta, len(cl[sta].singles), len(want_singles)))
+    t0 = time.perf_counter()
+    ss = construct.createSubSpace(cl, Pf=1e-12, dtype="single",
+                                  conDatDuration=F_SEC - 120.0, conBuff=120.0)
+    ss.attachPickTimes(g["picks"], defaultDuration=30)
+    stages["subspace_trims"] = time.perf_counter() - t0
+    shift = {e["name"]: e["shift"] for e in g["events"]}
+    worst = 0
+    for sta in G_STATIONS:
+        for row in ss.subspaces[sta]:
+            ev = row["Events"]
+            d = np.array([round((row["Stats"][e]["starttime"] -
+                                 g["templates"][e]["time"] + G_TRIM[0]) * SR)
+                          for e in ev])
+            s = np.array([shift[e] for e in ev])
+            worst = max(worst, int(np.abs((d - d.min()) - (s - s.min()))
+                                   .max()))
+    need(worst <= 1, "phase G2 alignment delays off the planted shifts by "
+         "%d channel samples" % worst)
+    nulls = g_null_chunks()
+    t0 = time.perf_counter()
+    with FasClock() as clock:
+        ss.SVD(selectCriteria=2, selectValue=0.9, conDatNum=G_CON_DAT_NUM,
+               useSingles=True, chunks=nulls)
+    svd_total = time.perf_counter() - t0
+    stages["svd"] = svd_total - clock.inside
+    stages["fas"] = clock.wall
+    rows = [r for sta in G_STATIONS
+            for r in ss.subspaces[sta] + ss.singles[sta]]
+    need(len(rows) == len(G_STATIONS) * (G_SOURCES + G_SINGLES),
+         "phase G2: %d detectors" % len(rows))
+    ths = np.array([r["Threshold"] for r in rows])
+    need(((ths > 0) & (ths < 1)).all(), "phase G2 thresholds outside (0, 1)")
+    # one detector's beta fit against the float64 oracle's
+    row = ss.subspaces[G_STATIONS[0]][0]
+    acc, _, _ = fas._collectChunks(nulls, G_STATIONS[0], G_FILT, None,
+                                   "single", G_CON_DAT_NUM, NC, 0.5, 5, 8.0)
+    U, _, _ = fas._loadMPSubSpace(row)
+    ds64 = np.concatenate([tds.ds_numpy(x.astype(np.float64), U, NC)
+                           for x in acc])
+    fit64 = fas._fit_null(ds64, row["FAS"]["bins"])["betadist"]
+    beta_rel = max(abs(a / b - 1) for a, b in
+                   zip(row["FAS"]["betadist"][:2], fit64[:2]))
+    need(beta_rel <= 1e-3, "phase G2 beta fit %s vs float64 oracle's %s"
+         % (row["FAS"]["betadist"][:2], fit64[:2]))
+    # the station-day
+    db = os.path.join(tmpdir, "g2.db")
+    conts = {sta: g_station_day(g, sta, 75 + k)
+             for k, sta in enumerate(G_STATIONS)}
+    t0 = time.perf_counter()
+    ss.detex(lambda sta: conts[sta][0](sta), subspaceDB=db, useSingles=True,
+             batchSize=8)
+    stages["detex"] = time.perf_counter() - t0
+    errs = []
+    for k, sta in enumerate(G_STATIONS):
+        chunks, planted = conts[sta]
+        stations = {True: ss._stations(True)[sta],
+                    False: ss._stations(False)[sta]}
+        for issub, table in ((True, "ss_df"), (False, "sg_df")):
+            dets = stations[issub]["detectors"]
+            idx = {}
+            for di, d in enumerate(dets):
+                for e in d["events"]:
+                    idx[e] = di
+            events = []
+            for b, s, at in G_PLANT:
+                if (s == "single") == issub:
+                    continue
+                src = G_SOURCES if s == "single" else s
+                events.append((b, idx[by_src[src][0]], at))
+            rows_t = [r for r in f_rows(db, table) if r["Sta"] == sta]
+            hist = (ss.histSubSpaces if issub else ss.histSingles)[sta]
+            errs.append(f_check("G2 %s %s" % (sta, table), rows_t, dets,
+                                events, 75 + k, int(F_SEC * SR), SR,
+                                planted, 24, hist, filt=G_FILT))
+    busy = clock.device_us / 1e6 / clock.wall
+    say("phase G2: 2 stations x %d events, %s: stages (s) %s; FAS device "
+        "busy %.4f (%.3f of %.3f s); %d subspaces (NumBasis %s) and %d "
+        "singles, thresholds %.4f-%.4f; beta fit vs float64 oracle rel "
+        "%.2e; planted DS err vs float64 oracle %.2e"
+        % (len(g["events"]), card_line(),
+           json.dumps({k: round(v, 3) for k, v in
+                                     stages.items()}),
+           busy, clock.device_us / 1e6, clock.wall,
+           sum(len(ss.subspaces[s]) for s in G_STATIONS),
+           sorted({r["NumBasis"] for s in G_STATIONS
+                   for r in ss.subspaces[s]}),
+           sum(len(ss.singles[s]) for s in G_STATIONS), ths.min(), ths.max(),
+           beta_rel, max(errs)))
+    return dict(stages=stages, fas_busy=busy, beta_rel=beta_rel,
+                oracle_err=max(errs), fas_launches=clock.launches)
 
 
 def phase_e_kernels(dev, e2):
@@ -2183,6 +2612,23 @@ def main():
         ("F3", fused + DENSE_KERNELS, ("fused-net+fusedprep+devicePrep",
                                        "dense-reverify-device"))))
 
+    say("phase G: detector construction (construct, subspace, fas) on the "
+        "card")
+    g = dict(zip(("events", "waves"), g_catalog()))
+    g.update(zip(("streams", "templates", "picks"),
+                 g_templates(g["events"], g["waves"])))
+    tmp = tempfile.TemporaryDirectory()
+    counted("G1", phase_g1, dev, g)
+    g2 = counted("G2", phase_g2, dev, g, tmp.name)
+    tmp.cleanup()
+    del g
+    check_phases((("G2", fused + DENSE_KERNELS, ("fused-net+fusedprep",
+                                                 "dense-reverify-device")),))
+    say("phase G2 FAS launches %s" % {k: v for k, v in
+                                      g2["fas_launches"].items() if v})
+    for k in DENSE_KERNELS:
+        need(g2["fas_launches"][k] > 0, "kernel %s did not run in FAS" % k)
+
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
     # kernels), at phase C's re-verify shape (dense kernels), at phase D's
@@ -2196,6 +2642,7 @@ def main():
             name=k, route="cuda", source=src, replaces=replaces,
             launches=sum(launches[p][k] for p in launches),
             engine_launches=sum(launches[p][k] for p in ("F1", "F2", "F3")),
+            construct_launches=sum(launches[p][k] for p in ("G1", "G2")),
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

@@ -1,12 +1,17 @@
 """
-detex_torch: PyTorch + CUDA port of detex_tpu's detection engine
-(``detect.detex``: batched scan, dense re-verify, triggers, magnitudes and
-SQLite rows), its scans over every bank form (template-blocked past 128
-templates), the device preprocessing of raw chunks and serving.
+detex_torch: PyTorch + CUDA port of detex_tpu's detector construction
+(``construct.createCluster`` / ``createSubSpace``, ``subspace.SubSpace``:
+all-pairs clustering, alignment, pick trims, SVD, FAS thresholds), its
+detection engine (``detect.detex``: batched scan, dense re-verify,
+triggers, magnitudes and SQLite rows), its scans over every bank form
+(template-blocked past 128 templates), the device preprocessing of raw
+chunks and serving.
 
-The package mirrors detex_tpu's layout (``detect.py``, ``construct.py``,
-``util.py``, ``serving.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``,
-``ops/prep.py``, ``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
+The package mirrors detex_tpu's layout (``construct.py``, ``subspace.py``,
+``fas.py``, ``align.py``, ``stats.py``, ``detect.py``, ``util.py``,
+``serving.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``, ``ops/prep.py``,
+``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
+``ops/xcorr.py``, ``ops/subsample.py``, ``ops/svd.py``,
 ``parallel/scan.py``) so every ported function has an obvious namesake
 there. Every Pallas kernel of detex_tpu has a
 hand-written CUDA C++ counterpart for Hopper (``kernels/``) with a plain
@@ -14,9 +19,10 @@ PyTorch twin (``ops/reference.py``) that runs when the caller hands CPU
 tensors.
 
 It imports torch, numpy and scipy only: never jax, detex_tpu or pandas.
-Banks are built on the card (``device="cuda"``) unless the caller passes
-another device, as the CPU tests pass "cpu"; every other tensor follows the
-bank's device. There is no randomness inside the package.
+Banks and the correlation and SVD of construction run on the card
+(``device="cuda"``) unless the caller passes another device, as the CPU
+tests pass "cpu"; every other tensor follows the bank's device. There is
+no randomness inside the package.
 """
 from __future__ import annotations
 
@@ -33,13 +39,13 @@ class DetexError(Exception):
     """An error the engine reports through log(level="error")."""
 
 
-def log(name, msg, level="info"):
+def log(name, msg, level="info", e=None):
     """Log ``msg`` under the caller's module ``name`` at ``level`` ("info",
-    "warning" or "error"); "error" logs, then raises DetexError, as
-    detex_tpu's log does."""
+    "warning" or "error"); "error" logs, then raises ``e`` (default
+    DetexError), as detex_tpu's log does."""
     if level == "error":
         _logger.error("%s: %s", name, msg)
-        raise DetexError(msg)
+        raise (e or DetexError)(msg)
     if level == "warning":
         _logger.warning("%s: %s", name, msg)
     else:

@@ -115,9 +115,11 @@ class Trace(object):
         return self
 
     # -- windowing ----------------------------------------------------------
-    def trim(self, starttime=None, endtime=None):
+    def trim(self, starttime=None, endtime=None, pad=False, fill_value=None):
         """Keep the samples from ``starttime`` to ``endtime`` (inclusive,
-        rounded to the nearest sample)."""
+        rounded to the nearest sample); with ``pad`` the window is kept
+        whole, samples outside the trace set to ``fill_value`` (default
+        0)."""
         sr = self.stats.sampling_rate
         t0 = self.stats.starttime.timestamp
         n = len(self.data)
@@ -127,7 +129,16 @@ class Trace(object):
         if endtime is not None:
             i1 = int(round((UTCDateTime(endtime).timestamp - t0) * sr)) + 1
         i0c, i1c = max(i0, 0), min(i1, n)
-        self.data = self.data[i0c:i1c] if i1c > i0c else self.data[:0]
+        if pad:
+            new = np.full(max(i1 - i0, 0), 0.0 if fill_value is None
+                          else fill_value, dtype=self.data.dtype
+                          if self.data.dtype.kind == "f" else np.float64)
+            if i1c > i0c:
+                new[i0c - i0:i1c - i0] = self.data[i0c:i1c]
+            self.data = new
+            i0c = i0
+        else:
+            self.data = self.data[i0c:i1c] if i1c > i0c else self.data[:0]
         self.stats.starttime = UTCDateTime(t0 + i0c / sr)
         self.stats.npts = len(self.data)
         return self
@@ -247,9 +258,9 @@ class Stream(object):
             tr.decimate(factor)
         return self
 
-    def trim(self, starttime=None, endtime=None):
+    def trim(self, starttime=None, endtime=None, pad=False, fill_value=None):
         for tr in self.traces:
-            tr.trim(starttime, endtime)
+            tr.trim(starttime, endtime, pad=pad, fill_value=fill_value)
         self.traces = [t for t in self.traces if len(t) > 0]
         return self
 

@@ -53,6 +53,15 @@ def rolling_mean(x, n):
     return rolling_sum_rows(x, n) / n
 
 
+def rolling_mean_var(x, n):
+    """Sliding-window mean and population variance (ddof 0) over the last
+    axis, float64 [..., L - n + 1] each (the normalization of the
+    cross-correlation, ops/xcorr.py)."""
+    x = x.to(torch.float64)
+    mu = rolling_mean(x, n)
+    return mu, (rolling_mean(x * x, n) - mu * mu).clamp(min=0.0)
+
+
 def rolling_mean_centered(x, n):
     """Centered rolling mean matching ``pd.rolling_mean(x, n,
     center=True)`` over the last axis: the trailing window ending at i is

@@ -4,8 +4,8 @@ STA/LTA of the detection statistic, batched over rows.
 Namesake of detex_tpu/ops/stalta.py (``_stalta_kernel``, ``ds_stalta``):
 the centered STA/LTA of the reference (detect.py:501-524) with its NaN edge
 fill (_replaceNanWithMean, detect.py:516-524), on tensors, and its float64
-host twin ds_stalta_np for the engine's dtype="double" path. The classic
-STA/LTA of the FAS noise veto is not ported yet (ROADMAP A7).
+host twin ds_stalta_np for the engine's dtype="double" path, and the
+classic STA/LTA of the FAS noise veto (classic_sta_lta, host float64).
 """
 from __future__ import annotations
 
@@ -84,3 +84,24 @@ def ds_stalta_np(c, lta_samps, sta_samps):
     lta_arr = _centered_mean_np(ab, lta)
     return (_replace_nan_with_edges(sta_arr) /
             _replace_nan_with_edges(lta_arr))
+
+
+def classic_sta_lta(data, nsta, nlta):
+    """Classic STA/LTA of one host row in float64 (obspy's
+    classic_sta_lta): the ratio of trailing means of x^2, partial windows
+    at the start divided by the full window length, the first ``nlta``
+    samples and any non-finite ratio set to 0. The FAS noise veto
+    (fas._checkSTALTA, reference fas.py:175-205)."""
+    data = np.asarray(data, dtype=np.float64)
+    nsta = max(int(nsta), 1)
+    nlta = max(int(nlta), 1)
+    sq = data ** 2
+    c = np.cumsum(np.insert(sq, 0, 0.0))
+    idx = np.arange(1, len(sq) + 1)
+    sta = (c[idx] - c[idx - np.minimum(idx, nsta)]) / nsta
+    lta = (c[idx] - c[idx - np.minimum(idx, nlta)]) / nlta
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cft = sta / lta
+    cft[:nlta] = 0.0
+    cft[~np.isfinite(cft)] = 0.0
+    return cft

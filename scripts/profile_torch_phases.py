@@ -24,14 +24,17 @@ by torch.profiler:
            detectors of 30 s, D = 4, 24 chunks of 3720 s, three planted
            events) on chunks made before the profiler starts, then the
            same run's host time by function (cProfile, the 14 largest by
-           own time).
+           own time);
+  phase G2 (argument ``G`` only) phase G2's SVD stage without FAS and one
+           station's FAS of its 20 subspaces, each with its wall time,
+           device-busy time and host time by function.
 
 For each it prints the wall time and the device-busy time per repeat (the
 union of all device intervals) and the profiler's table of device time by
-kernel. Run from the repository root (with the argument ``E`` or ``F``,
-that phase alone):
+kernel. Run from the repository root (with the argument ``E``, ``F`` or
+``G``, that phase alone):
 
-    python3 scripts/profile_torch_phases.py [E | F]
+    python3 scripts/profile_torch_phases.py [E | F | G]
 """
 import cProfile
 import json
@@ -52,22 +55,6 @@ from detex_torch.ops import ds as tds                      # noqa: E402
 from detex_torch.parallel import scan as tscan             # noqa: E402
 
 
-def busy_us(events):
-    """Length of the union of the device intervals, in microseconds."""
-    busy, cur_s, cur_e = 0, None, None
-    for s, e in sorted((e.time_range.start, e.time_range.end)
-                       for e in events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def prof(name, fn, reps=3, setup=tuple):
     """Profile ``reps`` calls of fn(*setup()) after one warm call; each
     call's arguments are made before the profiler starts."""
@@ -83,7 +70,7 @@ def prof(name, fn, reps=3, setup=tuple):
         wall = time.perf_counter() - t0
     dev_events = [e for e in p.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_us(dev_events)
+    busy = cs.busy_us(dev_events)
     print("%s: wall %.3f ms/rep, device busy %.3f ms/rep (%.1f%%)"
           % (name, wall * 1e3 / reps, busy / 1e3 / reps,
              100 * busy / 1e6 / wall), flush=True)
@@ -136,11 +123,61 @@ def phase_f(dev):
         pstats.Stats(host).sort_stats("tottime").print_stats(14)
 
 
+def host_profile(fn, rows=14):
+    """Run fn() under cProfile and the device profiler: wall, device busy
+    and the host's time by function."""
+    host = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        host.enable()
+        fn()
+        torch.cuda.synchronize()
+        host.disable()
+        wall = time.perf_counter() - t0
+    busy = cs.busy_us([e for e in p.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA])
+    print("wall %.3f s, device busy %.3f s (%.1f%%)"
+          % (wall, busy / 1e6, 100 * busy / 1e6 / wall), flush=True)
+    pstats.Stats(host).sort_stats("tottime").print_stats(rows)
+
+
+def phase_g(dev):
+    """Phase G2's SVD stage without FAS (validateClusters, the SVDs and
+    the energy capture of 2 x 20 subspaces: SVD with a fixed threshold)
+    and one station's FAS of its 20 subspaces, each under cProfile and
+    the device profiler."""
+    from detex_torch import construct, fas
+    from detex_torch.kernels import build
+    build.load_library()                     # not inside a profile
+    g = dict(zip(("events", "waves"), cs.g_catalog()))
+    g.update(zip(("streams", "templates", "picks"),
+                 cs.g_templates(g["events"], g["waves"])))
+    cl = construct.createCluster(g["streams"], g["templates"],
+                                 filt=cs.G_FILT, trim=list(cs.G_TRIM),
+                                 device=dev)
+    ss = construct.createSubSpace(cl, dtype="single",
+                                  conDatDuration=cs.F_SEC - 120.0,
+                                  conBuff=120.0)
+    ss.attachPickTimes(g["picks"], defaultDuration=30)
+    print("phase G2 SVD stage (threshold given, no FAS):", flush=True)
+    host_profile(lambda: ss.SVD(threshold=0.05, useSingles=False))
+    sta = cs.G_STATIONS[0]
+    print("phase G2 FAS of %s's %d subspaces (conDatNum %d):"
+          % (sta, len(ss.subspaces[sta]), cs.G_CON_DAT_NUM), flush=True)
+    host_profile(lambda: fas._initFAS(
+        ss.subspaces[sta], cs.G_CON_DAT_NUM, cl, cs.g_null_chunks(),
+        cs.F_SEC, staltalimit=8.0, dtype="single", device=dev))
+
+
 def main():
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     if sys.argv[1:] == ["F"]:
         phase_f(dev)
+        return
+    if sys.argv[1:] == ["G"]:
+        phase_g(dev)
         return
     phase_e(dev)
     if sys.argv[1:] == ["E"]:

@@ -220,15 +220,23 @@ def test_wrappers_dispatch_on_device():
 
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports (the engine, its host modules and core
-    included) and runs a CPU scan, a dense re-verify, a per-chunk
-    ("plain") scan, run_bank, a full-length bank's scan and raw scan with
-    the device prep, and the detection engine on two chunks of one
-    station, writing its rows to SQLite."""
+    detex_torch still imports (the engine, its host modules, core and the
+    detector construction included) and runs a CPU scan, a dense
+    re-verify, a per-chunk ("plain") scan, run_bank, a full-length bank's
+    scan and raw scan with the device prep, the detection engine on two
+    chunks of one station, writing its rows to SQLite, and a tiny
+    createCluster -> createSubSpace -> attachPickTimes -> SVD(threshold)
+    on the CPU. The imports are refused by a finder at the head of
+    sys.meta_path (a None entry in sys.modules would also break scipy's
+    check for JAX arrays inside scipy.cluster)."""
     code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'pandas', 'detex_tpu'):\n"
-        "    sys.modules[m] = None\n"
+        "import sys, importlib.abc\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pandas',\n"
+        "                                  'detex_tpu'):\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import numpy as np\n"
         "from detex_torch.ops import ds\n"
         "from detex_torch.parallel import scan\n"
@@ -284,6 +292,33 @@ def test_port_imports_without_jax_or_pandas():
         "assert hist['XX.S1']['d0'].sum() == 2 * (35000 - 560 + 1)\n"
         "rows = detex_torch.util.loadSQLite(db, 'ss_df')\n"
         "assert [r['STMP'] for r in rows] == [1e9 + 1400.0 + 9000 / 25.0]\n"
+        "from detex_torch import construct, subspace, fas, align, stats\n"
+        "from detex_torch.ops import xcorr\n"
+        "r2 = np.random.default_rng(1)\n"
+        "fam = [r2.standard_normal(150) * np.hanning(150) for _ in 'ab']\n"
+        "streams, templates, picks = {'XX.S1': {}}, {}, []\n"
+        "for k in range(5):\n"
+        "    name, t0, at = 'ev%d' % k, 1e9 + 1000.0 * k, 100 + 3 * k\n"
+        "    data = 0.05 * r2.standard_normal((3, 400))\n"
+        "    data[:, at:at + 150] += (fam[k % 2] if k < 4\n"
+        "                             else r2.standard_normal(150))\n"
+        "    streams['XX.S1'][name] = Stream([Trace(data[c], dict(\n"
+        "        network='XX', station='S1', channel='BH' + 'ENZ'[c],\n"
+        "        sampling_rate=25.0, starttime=t0)) for c in range(3)])\n"
+        "    templates[name] = {'time': t0 + 4.0, 'mag': 1.0 + k / 10}\n"
+        "    picks.append(dict(TimeStamp=t0 + at / 25.0, Station='XX.S1',\n"
+        "                      Event=name, Phase='P'))\n"
+        "cl = construct.createCluster(streams, templates, filt=[1, 8, 2, 1],\n"
+        "                             trim=[4, 12], device='cpu')\n"
+        "assert sorted(map(sorted, cl['S1'].clusts)) == \\\n"
+        "    [['ev0', 'ev2'], ['ev1', 'ev3']]\n"
+        "assert cl['S1'].singles == ['ev4']\n"
+        "ss = construct.createSubSpace(cl)\n"
+        "ss.attachPickTimes(picks, defaultDuration=4)\n"
+        "ss.SVD(threshold=0.5)\n"
+        "rows = ss.subspaces['XX.S1'] + ss.singles['XX.S1']\n"
+        "assert [r['Threshold'] for r in rows] == [0.5] * 3\n"
+        "assert [r['NumBasis'] for r in rows[:2]] == [1, 1]\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

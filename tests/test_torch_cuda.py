@@ -889,3 +889,53 @@ def test_engine_refuses_cuda_without_a_card(monkeypatch, tmp_path):
              mags=[1.0], events=["e0"], offsets=[0.0], threshold=0.5)])}
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         detect.detex(stations, no_chunks, str(tmp_path / "x.db"))
+
+
+@pytest.mark.parametrize("n", [3 * 13000, 3001])
+def test_xcorr_and_svd_on_the_card_match_cpu(cuda, n):
+    """ops/xcorr.xcorr_all_pairs on the polyphase (n % 3 == 0) and the
+    full path, and svd_basis / frac_energy at dtype "single", on the card
+    against device="cpu": cc within 1e-5, subsample within 1e-4, lags
+    exact for pairs whose cc passes 0.5 (a clear peak; a pair whose
+    aligned window overruns the zero padding may pass 1 and be zeroed, as
+    the reference does, so not every family pair counts); on waveforms
+    with well-separated singular values the projectors onto the leading
+    1..6 singular vectors, the singular values and the energy capture
+    within 1e-5."""
+    from detex_torch.ops import svd, xcorr
+    rng = np.random.default_rng(n)
+    N, L = 24, -(-n // NC)
+    X = rng.standard_normal((N, L * NC))
+    for f in range(4):
+        sig = 6.0 * np.hanning(L // 4) * rng.standard_normal(L // 4)
+        for e in range(f, N, 6):
+            at = rng.integers(0, L - len(sig))
+            w = np.zeros((NC, L))
+            w[:, at:at + len(sig)] = sig
+            X[e] += w.flatten(order="F")
+    X = X[:, :n].astype(np.float32)
+    got = xcorr.xcorr_all_pairs(X, NC, pair_batch=100, device=cuda)
+    want = xcorr.xcorr_all_pairs(X, NC, device="cpu")
+    iu = np.triu_indices(N, 1)
+    assert np.abs(got[0][iu] - want[0][iu]).max() <= 1e-5
+    assert np.abs(got[2][iu] - want[2][iu]).max() <= 1e-4
+    fam = want[0][iu] > 0.5
+    assert fam.sum() >= 12
+    np.testing.assert_array_equal(got[1][iu][fam], want[1][iu][fam])
+    # six waveforms with well-separated singular values (5 ... 0.5), so
+    # every leading subspace is determined to float32 rounding
+    q, _ = np.linalg.qr(rng.standard_normal((1200, 6)))
+    mix, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+    A = (mix * [5.0, 4.0, 3.0, 2.0, 1.0, 0.5]) @ q.T * 40.0
+    A0 = A - A.mean(axis=1, keepdims=True)
+    Ug, sg = svd.svd_basis(A0, dtype="single", device=cuda)
+    Uc, sc = svd.svd_basis(A0, dtype="single", device="cpu")
+    for d in range(1, 7):
+        np.testing.assert_allclose(Ug[:, :d] @ Ug[:, :d].T,
+                                   Uc[:, :d] @ Uc[:, :d].T, rtol=0,
+                                   atol=1e-5)
+    np.testing.assert_allclose(sg, sc, rtol=1e-5)
+    np.testing.assert_allclose(
+        svd.frac_energy(Ug, A, dtype="single", device=cuda),
+        svd.frac_energy(Uc, A, dtype="single", device="cpu"), rtol=0,
+        atol=1e-5)
