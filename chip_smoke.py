@@ -115,6 +115,32 @@ port's paths through the entry points a user calls:
                float64 oracle DS (ds_numpy) of the same null chunks within
                1e-3 relative, the SQLite rows against the float64 oracle
                as phase F holds them.
+  phase H  the Case1 pipeline through the key-file entry points a user
+           calls: the port's SynthCatalog writes template, station, phase
+           and verification keys and two npz directories with their
+           .index.db, then createCluster(fetch_arg=...) -> createSubSpace(
+           conDatFetcher=DataFetcher("dir")) -> attachPickTimes -> SVD with
+           FAS on fetched null chunks -> detex over the fetched hour files
+           -> detResults (association, verification):
+           H1  at tests/conftest.py's synth_case parameters, at dtype
+               double and single, held against detex_tpu's record of the
+               same dtype (tests/data/case1_reference.json, from
+               scripts/record_case1_reference.py): clusters, delays and
+               NumBasis identical, lags identical or near ties of the
+               float64 oracle (printed), thresholds within 1e-5
+               relative, every row's STMP exact and DS within 2e-5, every
+               hidden event verified inside its window;
+           H2  the path at full width: 2 stations x 48 h of 100 Hz
+               three-channel hour files (3720 s), 4 sources of 5 events, 2
+               singles and 6 hidden repeats, construction at dtype single
+               (conDatNum 12), detex, detResults and writeDetections; wall
+               seconds per stage (directory write, index, each
+               construction stage, FAS, detex with its disk reads,
+               detResults); every hidden event verified, the verified
+               rows against the float64 oracle, a waveform file for every
+               station of every new detection and the new template key.
+           Every kernel the phase launches is held against its twin on the
+           inputs of its first launch in H1 double, H1 single and H2.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -122,8 +148,9 @@ phase's failure raises; the run exits 0 only when all pass. The last lines
 are the kernels' JSON record, the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
 counts its launches over every phase ("launches"), over the engine's
-phases F1-F3 ("engine_launches") and over the construction phases G1-G2
-("construct_launches").
+phases F1-F3 ("engine_launches"), over the construction phases G1-G2
+("construct_launches") and over the key-file pipeline H1-H2
+("pipeline_launches").
 """
 from __future__ import annotations
 
@@ -2262,7 +2289,8 @@ def phase_g2(dev, g, tmpdir):
     against the float64 oracle as phase F holds them."""
     stages = {}
     t0 = time.perf_counter()
-    cl = construct.createCluster(g["streams"], g["templates"], CCreq=0.5,
+    cl = construct.createCluster(streams=g["streams"],
+                                 templates=g["templates"], CCreq=0.5,
                                  filt=G_FILT, trim=list(G_TRIM), device=dev)
     stages["cluster"] = time.perf_counter() - t0
     by_src = {}
@@ -2277,7 +2305,7 @@ def phase_g2(dev, g, tmpdir):
         need(cl[sta].singles == want_singles, "phase G2 %s: singles %d, "
              "planted %d" % (sta, len(cl[sta].singles), len(want_singles)))
     t0 = time.perf_counter()
-    ss = construct.createSubSpace(cl, Pf=1e-12, dtype="single",
+    ss = construct.createSubSpace(clust=cl, Pf=1e-12, dtype="single",
                                   conDatDuration=F_SEC - 120.0, conBuff=120.0)
     ss.attachPickTimes(g["picks"], defaultDuration=30)
     stages["subspace_trims"] = time.perf_counter() - t0
@@ -2325,8 +2353,8 @@ def phase_g2(dev, g, tmpdir):
     conts = {sta: g_station_day(g, sta, 75 + k)
              for k, sta in enumerate(G_STATIONS)}
     t0 = time.perf_counter()
-    ss.detex(lambda sta: conts[sta][0](sta), subspaceDB=db, useSingles=True,
-             batchSize=8)
+    ss.detex(chunks=lambda sta: conts[sta][0](sta), subspaceDB=db,
+             useSingles=True, batchSize=8)
     stages["detex"] = time.perf_counter() - t0
     errs = []
     for k, sta in enumerate(G_STATIONS):
@@ -2366,6 +2394,396 @@ def phase_g2(dev, g, tmpdir):
            beta_rel, max(errs)))
     return dict(stages=stages, fas_busy=busy, beta_rel=beta_rel,
                 oracle_err=max(errs), fas_launches=clock.launches)
+
+
+# ---------------------------------------------------------------------------
+# phase H: the Case1 pipeline from key files and indexed directories
+# ---------------------------------------------------------------------------
+
+CASE1_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "case1_reference.json")
+# H2: the path at full width (100 Hz, 3 channels, hour files of 3720 s),
+# two station-days a station; only clustered sources repeat unlisted
+H2_PARAMS = {
+    "synth": dict(n_sources=4, events_per_source=5, n_singles=2,
+                  n_stations=2, sr=100.0, span_hours=48, seed=7,
+                  noise=0.04),
+    "hidden": dict(n=6, mag=1.4, sources=[0, 1, 2, 3]),
+    "directories": dict(tb4=10, taft=120),
+    "createCluster": dict(CCreq=0.5, filt=[1, 10, 2, True], trim=[10, 120]),
+    "createSubSpace": dict(Pf=1e-9, minEvents=2),
+    "attachPickTimes": dict(defaultDuration=30),
+    "SVD": dict(selectCriteria=2, selectValue=0.9, conDatNum=12,
+                useSingles=True),
+    "detex": dict(useSingles=True),
+    "detResults": dict(requiredNumStations=2, veriBuffer=4),
+}
+
+
+class Clock(object):
+    """Wall seconds spent in calls of the given (module, function name)
+    pairs while the context is open, summed per name."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        self.orig = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self.orig):
+            def timed(*args, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.orig):
+            setattr(mod, name, fn)
+
+
+def case1_run(params, dtype, workdir, device):
+    """The port's Case1 pipeline through its key-file entry points, with
+    detex_tpu's calls (scripts/record_case1_reference.py): SynthCatalog
+    -> write_directories -> createCluster -> createSubSpace(conDatFetcher
+    = DataFetcher("dir")) -> attachPickTimes -> SVD with FAS -> detex ->
+    detResults, at ``dtype`` on ``device``. Returns (record, objects,
+    stage wall seconds); the record has the fixture's layout."""
+    from scipy.cluster.hierarchy import linkage
+    from detex_torch import align, results
+    from detex_torch.data import fetcher as getdata
+    from detex_torch.data.synth import SynthCatalog
+
+    p = params
+    stages = {}
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+
+    def stage(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    cat = SynthCatalog(**p["synth"])
+    cat.add_hidden_events(**p["hidden"])
+    with Clock((getdata, "indexDirectory")) as idx:
+        paths = stage("write", cat.write_directories,
+                      os.path.join(workdir, "data"), **p["directories"])
+    stages["index"] = idx.seconds["indexDirectory"]
+    stages["write"] -= stages["index"]
+    clust = stage("cluster", detex_torch.createCluster,
+                  fetch_arg=paths["eventDir"],
+                  stationKey=paths["stationKey"],
+                  templateKey=paths["templateKey"], dtype=dtype,
+                  device=device, **p["createCluster"])
+    cfetcher = getdata.DataFetcher("dir", directoryName=paths["conDir"])
+    ss = stage("subspace", detex_torch.createSubSpace, clust=clust,
+               dtype=dtype, conDatFetcher=cfetcher, **p["createSubSpace"])
+    rec = {"clusters": {}, "lags": {}, "delays": {}, "detectors": {},
+           "rows": {}, "results": {}}
+    for cl in clust.clusters:
+        rec["clusters"][cl.station] = dict(
+            events=list(cl.key), clusts=[sorted(c) for c in cl.clusts],
+            singles=list(cl.singles))
+        rec["lags"][cl.station] = [[int(x) for x in r]
+                                   for r in clust.row(cl.station)["Lags"]]
+    for sta, rows in ss.subspaces.items():
+        rec["delays"][sta] = {}
+        for srow in rows:
+            cc, lag = construct._getInfoFromClust(clust, srow)
+            link = linkage(construct._flatNoNan(construct.DISSIM_OFFSET -
+                                                cc))
+            d = align.alignment_delays(link, cc, lag)
+            rec["delays"][sta][srow["Name"]] = dict(
+                zip(srow["Events"], [int(x) for x in d]))
+    stage("picks", ss.attachPickTimes, pksFile=paths["phaseKey"],
+          **p["attachPickTimes"])
+    with Clock((fas, "_initFAS")) as fc:
+        stage("svd", ss.SVD, **p["SVD"])
+    stages["fas"] = fc.seconds["_initFAS"]
+    stages["svd"] -= stages["fas"]
+    for sta in sorted(set(ss.subspaces) | set(ss.singles)):
+        rec["detectors"][sta] = [
+            dict(kind=kind, Name=r["Name"], Events=list(r["Events"]),
+                 NumBasis=int(r["NumBasis"]) if kind == "ss" else None,
+                 Threshold=float(r["Threshold"]))
+            for kind, frames in (("ss", ss.subspaces), ("sg", ss.singles))
+            for r in frames.get(sta, [])]
+    db = os.path.join(workdir, "SubSpace.db")
+    stage("detex", ss.detex, subspaceDB=db, **p["detex"])
+    for table in ("ss_df", "sg_df"):
+        rec["rows"][table] = [
+            [str(r["Sta"]), str(r["Name"]), float(r["STMP"]),
+             float(r["DS"]), float(r["Mag"])]
+            for r in util.loadSQLite(db, table) or []]
+    res = stage("results", results.detResults, ssDB=db,
+                templateKey=paths["templateKey"],
+                stationKey=paths["stationKey"], veriFile=paths["veriFile"],
+                fetch=cfetcher, **p["detResults"])
+    for name in ("Dets", "Autos", "Vers"):
+        rec["results"][name] = [
+            [str(r["Event"]), float(r["MSTAMPmin"]), float(r["MSTAMPmax"]),
+             float(r["DSav"]), int(r["NumStations"])]
+            for r in getattr(res, name)]
+    rec["hidden"] = [dict(src=int(e["src"]), time=float(e["time"]),
+                          mag=float(e["mag"])) for e in cat.hidden]
+    return rec, dict(paths=paths, cat=cat, clust=clust, ss=ss, db=db,
+                     res=res, cfetcher=cfetcher), stages
+
+
+def case1_verified(tag, rec):
+    """Every hidden event verified, each window bracketing its origin time
+    within 10 s (tests/test_pipeline.py::test_detection_times_accurate)."""
+    vers = sorted(rec["results"]["Vers"], key=lambda r: r[1])
+    hidden = sorted(e["time"] for e in rec["hidden"])
+    need(len(vers) == len(hidden), "phase %s: %d verified, %d hidden"
+         % (tag, len(vers), len(hidden)))
+    for t, r in zip(hidden, vers):
+        need(r[1] - 10 <= t <= r[2] + 10, "phase %s: verified window "
+             "%.3f-%.3f misses hidden event %.3f" % (tag, r[1], r[2], t))
+
+
+def case1_hold(tag, got, want, objs):
+    """One Case1 run against detex_tpu's record of the same dtype: the
+    synthetic catalog's hidden events, clusters, singles, alignment delays
+    and NumBasis identical; each lag identical, or where not, a near tie
+    of the float64 oracle (its peak leads by at most 1e-5, printed on a
+    line of its own; ROADMAP C34); thresholds within 1e-5 relative; every
+    ss_df / sg_df row in order with STMP exact and DS within 2e-5; every
+    hidden event verified. Returns (threshold rel err, DS err, ties)."""
+    need(got["hidden"] == want["hidden"], "phase %s: hidden events differ "
+         "from the record" % tag)
+    need(got["clusters"] == want["clusters"], "phase %s: clusters %s, "
+         "record %s" % (tag, got["clusters"], want["clusters"]))
+    ties = 0
+    for sta, lag in want["lags"].items():
+        row = objs["clust"].row(sta)
+        for i, j in zip(*np.nonzero(np.array(got["lags"][sta]) !=
+                                    np.array(lag))):
+            e1, e2 = row["Events"][i], row["Events"][j]
+            _, olag, r = ccx2_np(row["MPtd"][e1], row["MPtd"][e2], NC)
+            top2 = np.sort(r[np.isfinite(r)])[-2:]
+            lead = top2[1] - top2[0]
+            need(lead <= 1e-5, "phase %s %s (%s, %s): lag %d, record %d, "
+                 "float64 oracle %d leads by %.3g" % (
+                     tag, sta, e1, e2, got["lags"][sta][i][j], lag[i][j],
+                     olag, lead))
+            ties += 1
+            say("phase %s %s (%s, %s): lag %d, record %d: a near tie "
+                "(float64 oracle lag %d leads by %.3g <= 1e-5)"
+                % (tag, sta, e1, e2, got["lags"][sta][i][j], lag[i][j],
+                   olag, lead))
+    if not ties:
+        need(got["delays"] == want["delays"], "phase %s: alignment delays "
+             "%s, record %s" % (tag, got["delays"], want["delays"]))
+    th_err = 0.0
+    for sta, dets in want["detectors"].items():
+        g = got["detectors"][sta]
+        need([(d["kind"], d["Name"], d["Events"], d["NumBasis"]) for d in g]
+             == [(d["kind"], d["Name"], d["Events"], d["NumBasis"])
+                 for d in dets], "phase %s %s: detectors %s, record %s"
+             % (tag, sta, g, dets))
+        for a, b in zip(g, dets):
+            th_err = max(th_err, abs(a["Threshold"] / b["Threshold"] - 1))
+    need(th_err <= 1e-5, "phase %s: thresholds off the record by %.3g "
+         "relative" % (tag, th_err))
+    ds_err = 0.0
+    for table, rows in want["rows"].items():
+        g = got["rows"][table]
+        need([r[:3] for r in g] == [r[:3] for r in rows], "phase %s %s: "
+             "rows (Sta, Name, STMP) differ from the record" % (tag, table))
+        ds_err = max([ds_err] + [abs(a[3] - b[3]) for a, b in zip(g, rows)])
+    need(ds_err <= 2e-5, "phase %s: row DS off the record by %.3g"
+         % (tag, ds_err))
+    case1_verified(tag, got)
+    return th_err, ds_err, ties
+
+
+class KernelCapture(object):
+    """Keeps a copy of the inputs of the first launch of every kernel while
+    the context is open (the wrappers of ops/cuda_kernels, which every
+    path calls through the module)."""
+
+    def __init__(self):
+        self.inputs = {}
+
+    def __enter__(self):
+        self.orig = {k: getattr(ck, k) for k in KERNEL_INFO}
+        for k, fn in self.orig.items():
+            def first(*args, _k=k, _fn=fn, **kw):
+                if _k not in self.inputs:
+                    self.inputs[_k] = (
+                        [a.clone() if torch.is_tensor(a) else a
+                         for a in args], dict(kw))
+                return _fn(*args, **kw)
+            setattr(ck, k, first)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(ck, k, fn)
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def hold_captured(tag, cap):
+    """Every captured kernel launched again on its captured inputs and held
+    against its twin (the wrapper on copies of the inputs on the CPU, where
+    it runs the plain version): spectra atol 2e-3 (a, power: 1e-4, rtol
+    1e-4 / atol 1e-3), inverse transforms 2e-5 of the row's largest value,
+    DS and block maxima 2e-5 with -inf positions identical, histograms'
+    row totals exact with at most one bin move per 2e5 samples."""
+    res = {}
+    for k, (args, kw) in sorted(cap.inputs.items()):
+        fn = getattr(ck, k)
+        out_k = [t.cpu() if t is not None else None
+                 for t in _tensors(fn(*args, **kw))]
+        out_r = _tensors(fn(*[a.cpu() if torch.is_tensor(a) else a
+                              for a in args], **kw))
+        err = 0.0
+        for i, (a, b) in enumerate(zip(out_k, out_r)):
+            if a is None or b is None:
+                need(a is None and b is None, "phase %s %s output %d: "
+                     "kernel and twin disagree on None" % (tag, k, i))
+                continue
+            if torch.is_complex(b) or (k in ("fwd_prep_fold", "rfft_ct_half")
+                                       and i < 2):
+                e = (a - b).abs().max().item()
+                need(e <= 2e-3, "phase %s %s spectra err %g" % (tag, k, e))
+                err = max(err, e)
+            elif k == "fwd_prep_fold":
+                tol = dict(rtol=0, atol=1e-4) if i == 2 else \
+                    dict(rtol=1e-4, atol=1e-3)
+                need(torch.allclose(a, b, **tol), "phase %s %s output %d "
+                     "off tolerance" % (tag, k, i))
+            elif k == "irfft_ct_fused":
+                scale = b.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+                rel = ((a - b).abs() / scale).max().item()
+                need(rel <= 2e-5, "phase %s %s err %g of the row max"
+                     % (tag, k, rel))
+                err = max(err, (a - b).abs().max().item())
+            elif not torch.is_floating_point(b):
+                need(torch.equal(a.sum(-1), b.sum(-1)), "phase %s %s "
+                     "histogram row totals differ" % (tag, k))
+                moves = int((a - b).abs().sum().item())
+                need(moves <= int(b.sum().item()) // 200000, "phase %s %s "
+                     "histogram moves %d" % (tag, k, moves))
+            else:
+                need(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+                     "phase %s %s output %d -inf positions differ"
+                     % (tag, k, i))
+                f = torch.isfinite(b)
+                e = (a[f] - b[f]).abs().max().item() if f.any() else 0.0
+                need(e <= 2e-5, "phase %s %s output %d err %g"
+                     % (tag, k, i, e))
+                err = max(err, e)
+        res[k] = dict(err=err)
+    say("phase %s: kernels vs twins on the phase's captured inputs: %s"
+        % (tag, {k: "%.3g" % v["err"] for k, v in res.items()}))
+    return res
+
+
+def h2_oracle(objs, dtype):
+    """The float64 oracle of every row of a detection that verified a
+    hidden event: the row's chunk fetched and prepped as the engine preps
+    it (getConData's chunk, _applyFilter at ``dtype``, multiplex), DS by
+    ds_numpy; the row's STMP must be a sample of it whose DS is the row's
+    within 2e-5 (as phase G2 holds its rows). Returns (rows, largest
+    error)."""
+    ss, cf = objs["ss"], objs["cfetcher"]
+    dets = {}
+    for issub in (True, False):
+        for sta, st in ss._stations(issub).items():
+            for d in st["detectors"]:
+                dets[(sta, d["name"])] = d
+    filt = ss.clusters.filt
+    keys = {r["STATION"]: r for r in ss.clusters.stakey}
+    cache = {}
+    errs = []
+    for ver in objs["res"].Vers:
+        for r in ver["Dets"]:
+            sta, name = str(r["Sta"]), str(r["Name"])
+            U = dets[(sta, name)]["U"]
+            hits = []
+            for h in (0, 1):
+                t0 = (np.floor(r["STMP"] / cf.conDatDuration) - h) * \
+                    cf.conDatDuration
+                if (sta, t0) not in cache:
+                    skey = [keys[sta.split(".")[1]]]
+                    chunk = next(cf.getConData(
+                        skey, utcstart=t0, utcend=t0 + cf.conDatDuration
+                        + cf.conBuff, returnTimes=True), None)
+                    cache[(sta, t0)] = None
+                    if chunk is not None:
+                        st = construct._applyFilter(chunk[0], filt, None,
+                                                    dtype)
+                        cache[(sta, t0)] = (
+                            construct.multiplex(st, NC).astype(np.float64),
+                            st[0].stats.starttime.timestamp,
+                            st[0].stats.sampling_rate)
+                if cache[(sta, t0)] is None:
+                    continue
+                x64, tstamp, srd = cache[(sta, t0)]
+                i = int(round((r["STMP"] - tstamp) * srd))
+                ds64 = tds.ds_numpy(x64[max(i - 1, 0) * NC:
+                                        (i + 2) * NC + U.shape[1]], U, NC)
+                if 0 <= i and i / srd + tstamp == r["STMP"] and \
+                        len(ds64) > min(i, 1):
+                    hits.append(abs(r["DS"] - ds64[min(i, 1)]))
+            need(hits, "phase H2 row %s %s at %.3f: no chunk holds it"
+                 % (sta, name, r["STMP"]))
+            errs.append(min(hits))
+    need(errs and max(errs) <= 2e-5, "phase H2 planted rows' DS err %s vs "
+         "the float64 oracle" % (max(errs) if errs else None))
+    return len(errs), max(errs)
+
+
+def phase_h2(dev, tmpdir):
+    """H2: the Case1 path at full width (H2_PARAMS): two stations of two
+    station-days of 100 Hz three-channel hour files written, indexed and
+    read back, construction at dtype single, detex over every hour, then
+    detResults and writeDetections. Gates: every hidden event verified;
+    the verified detections' rows against the float64 oracle; one
+    waveform file written for every station of every new detection, and
+    each listed in the new template key."""
+    from detex_torch.data.keys import readKey
+    rec, objs, stages = case1_run(H2_PARAMS, "single", tmpdir, dev)
+    case1_verified("H2", rec)
+    n_rows, err = h2_oracle(objs, "single")
+    res = objs["res"]
+    evdir = os.path.join(tmpdir, "NewEvents")
+    newkey = os.path.join(tmpdir, "NewTemplateKey.csv")
+    t0 = time.perf_counter()
+    written = res.writeDetections(eventDir=evdir, temkeyPath=newkey)
+    stages["writeDetections"] = time.perf_counter() - t0
+    stakey = objs["ss"].clusters.stakey
+    want = sorted(os.path.join(evdir, "d" + d["Event"], ".".join(
+        [s["NETWORK"], s["STATION"], d["Event"], "npz"]))
+        for d in res.Dets for s in stakey)
+    need(sorted(written) == want and all(os.path.exists(f) for f in want),
+         "phase H2 writeDetections wrote %d of %d files"
+         % (len(written), len(want)))
+    names = {r["NAME"] for r in readKey(newkey, "template")}
+    need({"d" + d["Event"] for d in res.Dets} <= names, "phase H2: the new "
+         "template key lacks detections")
+    say("phase H2: %s, 2 stations x 48 h at 100 Hz: stages (s) %s; %d "
+        "detectors, %d ss_df / %d sg_df rows, %d autos, %d new detections, "
+        "%d verified of %d hidden; %d verified rows vs float64 oracle DS "
+        "err %.3g; writeDetections %d files"
+        % (card_line(), json.dumps({k: round(v, 3) for k, v in
+                                    stages.items()}),
+           sum(len(v) for v in rec["detectors"].values()),
+           len(rec["rows"]["ss_df"]), len(rec["rows"]["sg_df"]),
+           len(res.Autos), len(res.Dets), len(res.Vers), len(rec["hidden"]),
+           n_rows, err, len(written)))
+    return dict(stages=stages, oracle_err=err)
 
 
 def phase_e_kernels(dev, e2):
@@ -2629,12 +3047,46 @@ def main():
     for k in DENSE_KERNELS:
         need(g2["fas_launches"][k] > 0, "kernel %s did not run in FAS" % k)
 
+    say("phase H: the Case1 pipeline from key files and indexed npz "
+        "directories (data layer, construction, detex, detResults)")
+    with open(CASE1_FIXTURE) as fh:
+        fixture = json.load(fh)
+    tmp = tempfile.TemporaryDirectory()
+    for dtype in ("double", "single"):
+        with KernelCapture() as cap:
+            rec, objs, stages = counted(
+                "H1-" + dtype, case1_run, fixture["params"], dtype,
+                os.path.join(tmp.name, dtype), dev)
+        th_err, ds_err, ties = case1_hold("H1 " + dtype, rec,
+                                          fixture[dtype], objs)
+        say("phase H1 %s: Case1 against detex_tpu's record: clusters, "
+            "delays, NumBasis, rows and STMP identical (%d near-tie lags); "
+            "thresholds rel err %.3g, DS err %.3g; %d of %d hidden events "
+            "verified; stages (s) %s"
+            % (dtype, ties, th_err, ds_err, len(rec["results"]["Vers"]),
+               len(rec["hidden"]),
+               json.dumps({k: round(v, 3) for k, v in stages.items()})))
+        checks.append(hold_captured("H1 " + dtype, cap))
+        del objs, cap
+    with KernelCapture() as cap:
+        counted("H2", phase_h2, dev, os.path.join(tmp.name, "h2"))
+    checks.append(hold_captured("H2", cap))
+    del cap
+    tmp.cleanup()
+    h_phases = ("H1-double", "H1-single", "H2")
+    h_launches = {k: sum(launches[p][k] for p in h_phases)
+                  for k in KERNEL_INFO}
+    say("phase H launches %s" % {k: v for k, v in h_launches.items() if v})
+    for k in fused + DENSE_KERNELS:
+        need(h_launches[k] > 0, "kernel %s did not run in phase H" % k)
+
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
     # kernels), at phase C's re-verify shape (dense kernels), at phase D's
     # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
-    # (ds_finalize); launches: every counted phase, A-F; engine_launches:
-    # the engine's own, phases F1-F3
+    # (ds_finalize); launches: every counted phase, A-H; engine_launches:
+    # the engine's own, phases F1-F3; construct_launches: G1-G2;
+    # pipeline_launches: the key-file pipeline, H1-H2
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]
@@ -2643,6 +3095,7 @@ def main():
             launches=sum(launches[p][k] for p in launches),
             engine_launches=sum(launches[p][k] for p in ("F1", "F2", "F3")),
             construct_launches=sum(launches[p][k] for p in ("G1", "G2")),
+            pipeline_launches=h_launches[k],
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

@@ -1,14 +1,17 @@
 """
-detex_torch: PyTorch + CUDA port of detex_tpu's detector construction
-(``construct.createCluster`` / ``createSubSpace``, ``subspace.SubSpace``:
-all-pairs clustering, alignment, pick trims, SVD, FAS thresholds), its
+detex_torch: PyTorch + CUDA port of detex_tpu's pipeline: the data layer
+(``data``: key files, npz waveform directories with their ``.index.db``
+and the 'dir' DataFetcher, the synthetic Case1 catalog), detector
+construction (``createCluster`` / ``createSubSpace``,
+``subspace.SubSpace``: all-pairs clustering, alignment, pick trims, SVD,
+FAS thresholds), association and verification (``detResults``), its
 detection engine (``detect.detex``: batched scan, dense re-verify,
 triggers, magnitudes and SQLite rows), its scans over every bank form
 (template-blocked past 128 templates), the device preprocessing of raw
 chunks and serving.
 
-The package mirrors detex_tpu's layout (``construct.py``, ``subspace.py``,
-``fas.py``, ``align.py``, ``stats.py``, ``detect.py``, ``util.py``,
+The package mirrors detex_tpu's layout (``data/``, ``construct.py``,
+``subspace.py``, ``fas.py``, ``results.py``, ``align.py``, ``stats.py``, ``detect.py``, ``util.py``,
 ``serving.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``, ``ops/prep.py``,
 ``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
 ``ops/xcorr.py``, ``ops/subsample.py``, ``ops/svd.py``,
@@ -65,3 +68,8 @@ def require_cuda():
                            "0 (%s) has compute capability %d.%d"
                            % (torch.cuda.get_device_name(0), cap[0], cap[1]))
     return torch.cuda.get_device_name(0)
+
+
+from detex_torch import data  # noqa: E402
+from detex_torch.construct import createCluster, createSubSpace  # noqa: E402
+from detex_torch.results import detResults  # noqa: E402

@@ -3,19 +3,25 @@ Factories and host preprocessing: createCluster (waveform-similarity
 clustering), createSubSpace (subspace construction), and the filter and
 multiplex steps every template and continuous chunk goes through.
 
-Namesake of detex_tpu/construct.py (reference construct.py), on plain
-inputs instead of a fetcher and key files: per station {event: Stream} of
-raw template waveforms (what a fetcher's getTemData yields) and template
-rows {name: {"time", "mag"}}. Rows that are DataFrames in detex_tpu are
-dicts with the same column names; CC, lag and subsample matrices are
-square [m, m] numpy arrays, upper triangle filled. The all-pairs
-correlation of each station is one ops/xcorr.xcorr_all_pairs call on the
-caller's device, the single-linkage tree is scipy's on the host, and
-alignment is align.py's tree walk. The detection engine runs every chunk
-through _applyFilter and multiplex before its scan, and each triggered
-chunk of a devicePrep scan again before the re-verify.
+Namesake of detex_tpu/construct.py (reference construct.py), with its
+entry points: key files (template, station and phases keys, read by
+data/keys.readKey) and a data fetcher (data/fetcher.py's 'dir' method)
+give the template waveforms, cut ``trim`` around each origin or first
+pick. The same constructors also take plain inputs as keywords: per
+station {event: Stream} of raw template waveforms (what a fetcher's
+getTemData yields) and template rows {name: {"time", "mag"}}. Rows that
+are DataFrames in detex_tpu are dicts with the same column names; CC, lag
+and subsample matrices are square [m, m] numpy arrays, upper triangle
+filled. The all-pairs correlation of each station is one
+ops/xcorr.xcorr_all_pairs call on the caller's device, the single-linkage
+tree is scipy's on the host, and alignment is align.py's tree walk. The
+detection engine runs every chunk through _applyFilter and multiplex
+before its scan, and each triggered chunk of a devicePrep scan again
+before the re-verify.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -25,6 +31,8 @@ import detex_torch
 from detex_torch import align as _align
 from detex_torch.core.stream import Stream
 from detex_torch.core.utc import UTCDateTime
+from detex_torch.data import fetcher as getdata
+from detex_torch.data.keys import readKey
 from detex_torch.ops import xcorr as _xcorr
 
 DISSIM_OFFSET = 1.0000001  # reference construct.py:153
@@ -271,26 +279,43 @@ def _condensed(mat):
 # ---------------------------------------------------------------------------
 
 
-def createCluster(streams, templates, CCreq=0.5, filt=(1, 10, 2, True),
-                  trim=(10, 120), decimate=None, dtype="double",
-                  eventsOnAllStations=False, enforceOrigin=False,
-                  device="cuda"):
+def createCluster(CCreq=0.5, fetch_arg="EventWaveForms",
+                  filt=(1, 10, 2, True), stationKey="StationKey.csv",
+                  templateKey="TemplateKey.csv", trim=(10, 120),
+                  saveclust=True, fileName="clust.pkl", decimate=None,
+                  dtype="double", eventsOnAllStations=False,
+                  enforceOrigin=False, fillZeros=False, phases=None,
+                  device="cuda", streams=None, templates=None):
     """Cluster template waveforms by all-pairs normalized cross-correlation
     and single-linkage hierarchical clustering; returns a ClusterStream
     (reference createCluster, construct.py:25-102).
 
-    ``streams`` {"NET.STA": {event: Stream}}: the raw template waveforms,
-    cut ``trim`` = [seconds before, seconds after] the origin (or first
-    pick) as a fetcher cuts them; ``templates`` {event: {"time": origin
-    time, "mag": magnitude}}. Each event is filtered (``filt``
-    [freqmin, freqmax, corners, zerophase], ``decimate``), checked and
-    multiplexed; each station's pairs are correlated in one
-    ops/xcorr.xcorr_all_pairs call on ``device`` (the card unless "cpu")."""
+    The waveforms come from ``fetch_arg`` (a DataFetcher or a directory
+    path, made with ``fillZeros``) for every station of ``stationKey`` and
+    event of ``templateKey``, cut ``trim`` = [seconds before, seconds
+    after] the origin, or the station's first pick in ``phases``. Or pass
+    them as ``streams`` {"NET.STA": {event: Stream}} with ``templates``
+    {event: {"time": origin time, "mag": magnitude}}, and the keys and
+    fetcher are not used. Each event is filtered (``filt`` [freqmin,
+    freqmax, corners, zerophase], ``decimate``), checked and multiplexed;
+    each station's pairs are correlated in one ops/xcorr.xcorr_all_pairs
+    call on ``device`` (the card unless "cpu"). ``saveclust`` and
+    ``fileName`` are accepted, but nothing is written: the port does not
+    pickle its objects (ROADMAP A18)."""
     from detex_torch.subspace import ClusterStream
 
     if torch.device(device).type == "cuda":
         detex_torch.require_cuda()
     dtype = _checkClusterInputs(filt, dtype, trim, decimate)
+    stakey = temkey = fetcher = None
+    if streams is None:
+        stakey = readKey(stationKey, key_type="station")
+        temkey = readKey(templateKey, key_type="template")
+        if phases is not None:
+            phases = readKey(phases, "phases")
+        fetcher = getdata.quickFetch(fetch_arg, fillZeros=fillZeros)
+        streams, templates = _fetchTemplates(fetcher, stakey, temkey, trim,
+                                             phases)
     TRDF = _loadEvents(streams, templates, filt, decimate, dtype,
                        enforceOrigin=enforceOrigin)
     if len(TRDF) < 1:
@@ -319,7 +344,26 @@ def createCluster(streams, templates, CCreq=0.5, filt=(1, 10, 2, True),
     return ClusterStream(
         TRDF, templates, streams, eventListAll, CCreq,
         list(filt) if filt is not None else None, decimate, list(trim),
-        eventsOnAllStations, enforceOrigin, device)
+        eventsOnAllStations, enforceOrigin, device, temkey=temkey,
+        stakey=stakey, fetcher=fetcher, fileName=fileName)
+
+
+def _fetchTemplates(fetcher, stakey, temkey, trim, phases):
+    """The plain inputs of the key-file path: per station of the station
+    key the raw template waveforms the fetcher's getTemData yields
+    ({"NET.STA": {event: Stream}}; every station row of the same station
+    code, as detex_tpu's _loadStream asks), and {event: {"time", "mag"}}
+    from the first template-key row of each name."""
+    templates = {}
+    for r in temkey:
+        templates.setdefault(r["NAME"], {"time": r["TIME"], "mag": r["MAG"]})
+    streams = {}
+    for srow in stakey:
+        sta = "%s.%s" % (srow["NETWORK"], srow["STATION"])
+        skey = [r for r in stakey if r["STATION"] == srow["STATION"]]
+        streams[sta] = {ev: st for st, ev in fetcher.getTemData(
+            temkey, skey, trim[0], trim[1], returnName=True, phases=phases)}
+    return streams, templates
 
 
 def _makeCCMatrices(eventList, row, device):
@@ -339,23 +383,40 @@ def _makeCCMatrices(eventList, row, device):
 # ---------------------------------------------------------------------------
 
 
-def createSubSpace(clust, Pf=10 ** -12, minEvents=2, dtype="double",
-                   conDatDuration=3600.0, conBuff=120.0, device=None):
+def createSubSpace(Pf=10 ** -12, clust="clust.pkl", minEvents=2,
+                   dtype="double", conDatFetcher=None, conDatDuration=3600.0,
+                   conBuff=120.0, device=None):
     """Build a SubSpace from a ClusterStream: the events are loaded again
     from the cluster's template streams (at this ``dtype``), each cluster
     is aligned by its linkage lag tree and cut to a common length, and the
     per-station subspace and single rows are made (reference
     construct.py:177-301). SVD and thresholds come later (SubSpace.SVD).
 
-    ``conDatDuration`` + ``conBuff`` seconds is the length of the
-    continuous chunks that FAS and detection will scan (a fetcher's
-    settings in detex_tpu); ``device`` defaults to the cluster's."""
+    ``conDatFetcher`` (a DataFetcher or a directory path) serves the
+    continuous data FAS and detection scan; a cluster made from key files
+    without one reads ContinuousWaveForms, as detex_tpu's does. Its chunks
+    are conDatDuration + conBuff seconds long; without a fetcher the
+    ``conDatDuration`` and ``conBuff`` given here say how long the
+    caller's chunks are. ``clust`` must be a ClusterStream: loading a
+    pickled one is not ported (ROADMAP A18). ``device`` defaults to the
+    cluster's."""
     from detex_torch.subspace import ClusterStream, SubSpace
 
     if not isinstance(clust, ClusterStream):
-        detex_torch.log(__name__, "clust must be a ClusterStream",
-                        level="error", e=ValueError)
+        detex_torch.log(__name__, "clust must be a ClusterStream (the port "
+                        "does not load pickled clusters)", level="error",
+                        e=ValueError)
     cl = clust
+    if isinstance(conDatFetcher, getdata.DataFetcher):
+        cfetcher = conDatFetcher
+    elif isinstance(conDatFetcher, (str, os.PathLike)):
+        cfetcher = getdata.quickFetch(conDatFetcher)
+    elif cl.fetcher is not None:
+        cfetcher = getdata.quickFetch(getdata.conDirDefault)
+    else:
+        cfetcher = None
+    if cfetcher is not None:
+        conDatDuration, conBuff = cfetcher.conDatDuration, cfetcher.conBuff
     templates = cl.templates
     TRDF = _loadEvents(cl.streams, templates, cl.filt, cl.decimate, dtype)
     for row in TRDF:
@@ -385,7 +446,8 @@ def createSubSpace(clust, Pf=10 ** -12, minEvents=2, dtype="double",
         ssDict[row["Station"]] = staSS
     singDic = _makeSingleEventDict(cl, TRDF, templates)
     return SubSpace(singDic, ssDict, cl, dtype, Pf, conDatDuration, conBuff,
-                    cl.device if device is None else device)
+                    cl.device if device is None else device,
+                    cfetcher=cfetcher)
 
 
 def _getInfoFromClust(cl, srow):

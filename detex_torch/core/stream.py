@@ -2,8 +2,8 @@
 Lightweight numpy-backed Trace/Stream containers of the detection engine.
 
 Namesake of detex_tpu/core/stream.py (a copy of what the engine's filter
-path calls: sort, copy, merge, trim, split, detrend, filter, decimate,
-select). Gaps are NaN runs inside a merged trace; ``split()`` recovers the
+path and the data layer call: sort, copy, merge, trim, slice, split,
+detrend, filter, decimate, select, get_gaps, write). Gaps are NaN runs inside a merged trace; ``split()`` recovers the
 contiguous segments, as obspy's masked-array merge / split do.
 """
 from __future__ import annotations
@@ -143,6 +143,10 @@ class Trace(object):
         self.stats.npts = len(self.data)
         return self
 
+    def slice(self, starttime=None, endtime=None):
+        """A trimmed copy; the trace itself is left as it is."""
+        return self.copy().trim(starttime, endtime)
+
     def split(self):
         """Split a NaN-gapped trace into contiguous segments (a Stream)."""
         data = self.data
@@ -190,6 +194,11 @@ class Stream(object):
         if isinstance(i, slice):
             return Stream(self.traces[i])
         return self.traces[i]
+
+    def __add__(self, other):
+        if isinstance(other, Trace):
+            return Stream(self.traces + [other])
+        return Stream(self.traces + list(other))
 
     def __iadd__(self, other):
         if isinstance(other, Trace):
@@ -270,12 +279,12 @@ class Stream(object):
             out += tr.split()
         return out
 
-    def merge(self, fill_value=None):
+    def merge(self, method=1, fill_value=None):
         """
         Merge traces sharing an id. Overlaps: later traces overwrite
-        (obspy's method 1, as the reference merges). Gaps become
-        ``fill_value`` samples, or NaN when fill_value is None (recoverable
-        via split()).
+        (obspy's method 1, the only ``method`` the reference calls). Gaps
+        become ``fill_value`` samples, or NaN when fill_value is None
+        (recoverable via split()).
         """
         groups = {}
         for tr in self.traces:
@@ -302,6 +311,30 @@ class Stream(object):
         merged.sort(key=lambda t: (t.id, t.stats.starttime.timestamp))
         self.traces = merged
         return self
+
+    def get_gaps(self):
+        """List of gaps [net, sta, loc, chan, t1, t2, delta_sec, nsamples]
+        between consecutive traces of one id."""
+        gaps = []
+        byid = {}
+        for tr in self.traces:
+            byid.setdefault(tr.id, []).append(tr)
+        for tid, trs in byid.items():
+            trs.sort(key=lambda t: t.stats.starttime.timestamp)
+            for a, b in zip(trs[:-1], trs[1:]):
+                dt = b.stats.starttime.timestamp - a.stats.endtime.timestamp
+                sr = a.stats.sampling_rate
+                if dt > 1.5 / sr:
+                    s = a.stats
+                    gaps.append([s.network, s.station, s.location, s.channel,
+                                 a.stats.endtime, b.stats.starttime, dt,
+                                 int(round(dt * sr)) - 1])
+        return gaps
+
+    def write(self, path, format="npz"):
+        """Write the stream to ``path`` (data/waveio.write_stream)."""
+        from detex_torch.data import waveio
+        waveio.write_stream(self, path, format=format)
 
 
 def _wmatch(value, pattern):

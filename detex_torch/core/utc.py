@@ -7,7 +7,8 @@ detex_tpu). A small, numpy-friendly subset of ``obspy.UTCDateTime``:
 - construction from float/int POSIX timestamps, ISO-8601 strings (both
   ``:`` and detex-style ``-`` time separators, e.g. ``2007-12-05T19-16-32``),
   other UTCDateTime instances, and datetime objects
-- ``timestamp``, ``datetime``
+- ``timestamp``, ``datetime``, ``year``, ``julday``, ``hour``, ``minute``,
+  ``second``
 - arithmetic with seconds (+/-), differences, rich comparisons
 - ISO string repr ending in 'Z'
 """
@@ -71,6 +72,34 @@ class UTCDateTime(object):
     @property
     def datetime(self):
         return _EPOCH + _dt.timedelta(seconds=self._ts)
+
+    @property
+    def year(self):
+        return self.datetime.year
+
+    @property
+    def month(self):
+        return self.datetime.month
+
+    @property
+    def day(self):
+        return self.datetime.day
+
+    @property
+    def julday(self):
+        return self.datetime.timetuple().tm_yday
+
+    @property
+    def hour(self):
+        return self.datetime.hour
+
+    @property
+    def minute(self):
+        return self.datetime.minute
+
+    @property
+    def second(self):
+        return self.datetime.second
 
     # -- arithmetic ---------------------------------------------------------
     def __add__(self, other):

@@ -7,7 +7,9 @@ kernels as detection (ops/ds.run_bank_batch: the unfused batch of
 rfft_ct_fused, irfft_ct_fused and ds_finalize_os_fold, or per chunk with
 ds_finalize_os above the inverse-block cap), histogrammed, and fit on the
 host with a beta distribution (and a normal) whose inverse survival
-function sets each detector's threshold at the configured Pf.
+function sets each detector's threshold at the configured Pf. The null
+chunks come from a ``chunks(sta)`` callable; ``fetcher_chunks`` makes one
+that draws them from a DataFetcher as detex_tpu's _collectChunks does.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import scipy.stats
 
 import detex_torch
 from detex_torch import construct as _construct
+from detex_torch.core.utc import UTCDateTime
 from detex_torch.ops import ds as _ds
 from detex_torch.ops.stalta import classic_sta_lta
 
@@ -93,6 +96,22 @@ def _initFAS(rows, conDatNum, cluster, chunks, conLen, LTATime=5,
                 dsmats[gi] = None
                 results[ind].update(_fit_null(dss, histBins))
     return results
+
+
+def fetcher_chunks(fetcher, stakey, conDatNum, utcstart=None, utcend=None):
+    """chunks(sta) drawing the null chunks of station "NET.STA" from a
+    DataFetcher as detex_tpu does (reference fas.py:138-143): conDatNum * 4
+    chunks at random (the fetcher's seeded draw) over the span of the
+    first station key row of the station code, or [utcstart, utcend]."""
+    def chunks(sta):
+        skey = [r for r in stakey if r["STATION"] == sta.split(".")[1]]
+        u1 = UTCDateTime(skey[0]["STARTTIME"] if utcstart is None
+                         else utcstart)
+        u2 = UTCDateTime(skey[0]["ENDTIME"] if utcend is None else utcend)
+        for st in fetcher.getConData(skey, utcstart=u1, utcend=u2,
+                                     randSamps=conDatNum * 4):
+            yield st, None, None
+    return chunks
 
 
 def _fit_null(dss, histBins):

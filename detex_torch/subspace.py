@@ -10,13 +10,15 @@ AlignedTD or MPtd, SampleTrims, SVD, UsedSVDKeys, FracEnergy, NumBasis,
 Offsets, FAS, Threshold). The SVD runs in ops/svd.py (float64 on the host
 for dtype "double", float32 on the card for "single"), thresholds come from
 the empirical null of fas.py (beta fit with scipy on the host), and
-detection is the engine of detect.py. The interactive picker, the plots,
-the hypoDD writer and the pickle writers of detex_tpu are not part of the
-port.
+detection is the engine of detect.py. FAS's null chunks and detection's
+continuous chunks come from the SubSpace's fetcher (``cfetcher``, the
+'dir' DataFetcher of data/fetcher.py) as detex_tpu draws them, or from a
+``chunks(sta)`` callable the caller passes. The interactive picker, the
+plots, the hypoDD writer and the pickle writers of detex_tpu are not part
+of the port.
 """
 from __future__ import annotations
 
-import csv
 import json
 import numbers
 import os
@@ -31,6 +33,7 @@ from detex_torch import detect as _detect
 from detex_torch import fas as _fas
 from detex_torch import stats as _stats
 from detex_torch import util as _util
+from detex_torch.data import keys as _keys
 from detex_torch.ops import svd as _svd
 from detex_torch.ops import xcorr as _xcorr
 
@@ -74,12 +77,19 @@ class ClusterStream(object):
     """Per-station Cluster objects, made by construct.createCluster
     (reference subspace.py:46-287). ``trdf`` holds the station rows
     (Station, Link, CCs, Lags, Subsamp, Events, Stats, MPtd, Channels),
-    ``streams`` the raw template streams createSubSpace loads again."""
+    ``streams`` the raw template streams createSubSpace loads again;
+    ``temkey``, ``stakey`` (key rows) and ``fetcher`` are those of a
+    cluster made from key files, else None."""
 
     def __init__(self, trdf, templates, streams, eventList, ccReq, filt,
                  decimate, trim, eventsOnAllStations, enforceOrigin,
-                 device):
+                 device, temkey=None, stakey=None, fetcher=None,
+                 fileName=None):
         self.trdf = trdf
+        self.temkey = temkey
+        self.stakey = stakey
+        self.fetcher = fetcher
+        self.filename = fileName
         self.templates = templates
         self.streams = streams
         self.eventList = eventList
@@ -197,14 +207,13 @@ class Cluster(object):
 
 def _read_picks(pksFile):
     """Phase picks as a list of {TimeStamp (float), Station, Event, Phase}
-    dicts: ``pksFile`` a CSV path with those columns, or the rows
-    themselves."""
+    dicts: ``pksFile`` a CSV path with those columns (read as pandas reads
+    it, data/keys.read_csv), or the rows themselves."""
     if not isinstance(pksFile, (str, os.PathLike)):
         rows = [dict(r) for r in pksFile]
     else:
         try:
-            with open(pksFile, newline="") as fh:
-                rows = list(csv.DictReader(fh))
+            rows = _keys.read_csv(pksFile)[1]
         except OSError:
             detex_torch.log(__name__, "%s does not exist or is not a csv "
                             "file" % pksFile, level="error")
@@ -213,17 +222,30 @@ def _read_picks(pksFile):
     return rows
 
 
+def _fetcher_con_chunks(fetcher, stakey, utcStart, utcEnd):
+    """chunks(sta) of the engine from a fetcher: its continuous chunks of
+    the station key rows of the station code, with their times (detex_tpu
+    detect.py:304-309)."""
+    def chunks(sta):
+        skey = [r for r in stakey if r["STATION"] == sta.split(".")[1]]
+        return fetcher.getConData(skey, utcstart=utcStart, utcend=utcEnd,
+                                  returnTimes=True)
+    return chunks
+
+
 class SubSpace(object):
     """Per-station subspace and single rows: picks, SVD and dimension
     selection, thresholds, FAS and detection (reference
     subspace.py:715-2037). ``subspaces`` / ``singles`` map "NET.STA" to a
     list of row dicts. ``conDatDuration`` + ``conBuff`` seconds is the
-    length of the continuous chunks FAS and detection scan; banks go on
-    ``device``."""
+    length of the continuous chunks FAS and detection scan, served by
+    ``cfetcher`` (a DataFetcher, or None when the caller passes chunk
+    callables); banks go on ``device``."""
 
     def __init__(self, singlesDict, subSpaceDict, cl, dtype, Pf,
-                 conDatDuration, conBuff, device):
+                 conDatDuration, conBuff, device, cfetcher=None):
         self.clusters = cl
+        self.cfetcher = cfetcher
         self.subspaces = subSpaceDict
         self.singles = singlesDict
         self.dtype = dtype
@@ -276,7 +298,8 @@ class SubSpace(object):
         energy and sets thresholds from the empirical null, 3 as 2 with
         thresholds from the fractional energy, 4 a fixed basis count. A
         ``threshold`` > 0 is used as it is; otherwise the null comes from
-        ``conDatNum`` chunks of ``chunks(sta)`` (see getFAS)."""
+        ``conDatNum`` chunks of ``chunks(sta)``, or of the fetcher (see
+        getFAS)."""
         self._checkSelection(selectCriteria, selectValue, threshold)
         if validateWaveforms:
             self.validateClusters()
@@ -646,10 +669,15 @@ class SubSpace(object):
         ``conDatNum`` null chunks of ``chunks(sta)``: a callable that
         returns, on every call, a fresh iterator of candidate chunks
         (Stream, utc1, utc2) of station "NET.STA", conDatDuration +
-        conBuff seconds long (detex_tpu draws them at random from its
-        fetcher). Without ``chunks`` the last callable given is used."""
+        conBuff seconds long. Without ``chunks`` the last callable given
+        is used, and without one the SubSpace's fetcher draws them as
+        detex_tpu's does: conDatNum * 4 chunks at random over the station
+        key's span (fas.fetcher_chunks)."""
         chunks = chunks or self._fasChunks
         self._fasChunks = chunks
+        if chunks is None and self.cfetcher is not None:
+            chunks = _fas.fetcher_chunks(self.cfetcher, self.clusters.stakey,
+                                         conDatNum)
         fas_kw = dict(LTATime=LTATime, STATime=STATime,
                       staltalimit=staltalimit, numBins=numBins,
                       dtype=self.dtype, device=self.device)
@@ -689,7 +717,8 @@ class SubSpace(object):
     def _need_chunks(chunks):
         if chunks is None:
             detex_torch.log(__name__, "FAS needs null chunks: pass "
-                            "chunks=callable(sta) (or a threshold)",
+                            "chunks=callable(sta), a conDatFetcher to "
+                            "createSubSpace, or a threshold",
                             level="error", e=ValueError)
         return chunks
 
@@ -729,18 +758,41 @@ class SubSpace(object):
                             detectors=dets)
         return out
 
-    def detex(self, chunks, subspaceDB="SubSpace.db", trigCon=0,
-              triggerLTATime=5, triggerSTATime=0, delOldCorrs=True,
-              calcHist=True, useSubSpaces=True, useSingles=False,
-              estimateMags=True, fillZeros=False, batchSize=32,
-              devicePrep=False, staltaThreshold=None):
+    def detex(self, utcStart=None, utcEnd=None, subspaceDB="SubSpace.db",
+              trigCon=0, triggerLTATime=5, triggerSTATime=0,
+              multiprocess=False, delOldCorrs=True, calcHist=True,
+              useSubSpaces=True, useSingles=False, estimateMags=True,
+              classifyEvents=None, eventCorFile="EventCors", utcSaves=None,
+              fillZeros=False, batchSize=32, devicePrep=False,
+              staltaThreshold=None, chunks=None):
         """Run the detectors over continuous data with the engine
         (detect.detex) and write the detections, filter parameters,
         detector info and DS histograms to the SQLite database
         ``subspaceDB`` with the reference schema (reference
-        subspace.py:1745-1902). ``chunks(sta)`` yields the station's
-        continuous chunks (Stream, utc1, utc2) of conDatDuration +
-        conBuff seconds; the other options are detect.detex's."""
+        subspace.py:1745-1902). The continuous chunks (Stream, utc1, utc2)
+        of conDatDuration + conBuff seconds are the fetcher's over each
+        station key row's span, or over [utcStart, utcEnd] (detex_tpu
+        detect.py:304-309), or come from ``chunks(sta)`` when the caller
+        passes it; the other options are detect.detex's. The classify and
+        UTC-save modes (``classifyEvents``, ``utcSaves``) are not ported
+        (ROADMAP A14) and raise, as ``multiprocess`` does in both
+        packages."""
+        if multiprocess:
+            detex_torch.log(__name__, "multiprocess is not supported: the "
+                            "engine batches chunks on the card",
+                            level="error")
+        if classifyEvents is not None or utcSaves is not None:
+            detex_torch.log(__name__, "classifyEvents and utcSaves are not "
+                            "ported (ROADMAP A14)", level="error",
+                            e=NotImplementedError)
+        if chunks is None:
+            if self.cfetcher is None:
+                detex_torch.log(__name__, "detex needs continuous data: "
+                                "pass chunks=callable(sta) or a "
+                                "conDatFetcher to createSubSpace",
+                                level="error", e=ValueError)
+            chunks = _fetcher_con_chunks(self.cfetcher, self.clusters.stakey,
+                                         utcStart, utcEnd)
         if os.path.exists(subspaceDB):
             if delOldCorrs:
                 os.remove(subspaceDB)

@@ -1,6 +1,8 @@
 """
 SQLite persistence of the detection engine's rows, with the standard
-library's sqlite3 over plain row lists (the port has no pandas).
+library's sqlite3 over plain row lists (the port has no pandas), and the
+key reader (``readKey``, re-exported from data/keys.py as detex_tpu's util
+re-exports it).
 
 Namesake of detex_tpu/util.py's saveSQLite / loadSQLite (reference
 util.py:870-931): the same tables (``ss_df``, ``sg_df``), column order,
@@ -18,6 +20,7 @@ import sqlite3
 import numpy as np
 
 import detex_torch
+from detex_torch.data.keys import readKey, req_columns  # noqa: F401
 
 
 def _column_type(values):
@@ -87,31 +90,58 @@ def _numeric(vals):
     return [float("nan") if g is None else float(g) for g in got]
 
 
-def loadSQLite(dbPath, tableName, columns=False):
-    """Read table ``tableName`` from the SQLite database ``dbPath``
-    (reference util.py:896-931). Returns a list of {column: value} dicts
-    in row order, or with ``columns`` a dict of column name -> numpy
-    array; None when the database or the table does not exist. Every column whose non-NULL values are all numbers comes
-    back as numbers, NULL as NaN (detex_tpu's convertNumeric)."""
+def _read_sql_column(vals):
+    """A column's values as pandas.read_sql types them: NULL is NaN in a
+    column of strings or of numbers (numbers with a NULL become floats),
+    and stays None in a column of nothing but NULL."""
+    present = [v for v in vals if v is not None]
+    if not present or len(present) == len(vals):
+        return vals
+    nan = float("nan")
+    if all(isinstance(v, str) for v in present):
+        return [nan if v is None else v for v in vals]
+    if all(isinstance(v, (int, float)) for v in present):
+        return [nan if v is None else float(v) for v in vals]
+    return vals
+
+
+def loadSQLite(dbPath, tableName, sql=None, convertNumeric=True,
+               silent=True, columns=False):
+    """Read table ``tableName`` (or the result of the query ``sql``) from
+    the SQLite database ``dbPath`` (reference util.py:896-931). Returns a
+    list of {column: value} dicts in row order, or with ``columns`` a dict
+    of column name -> numpy array; None when the database or the table
+    does not exist or the query fails (logged unless ``silent``). With
+    ``convertNumeric`` every column whose non-NULL values are all numbers
+    (or strings that parse as numbers) comes back as numbers, NULL as NaN,
+    as detex_tpu's pandas.to_numeric pass converts them."""
     if not os.path.exists(dbPath):
+        if not silent:
+            detex_torch.log(__name__, "%s does not exist" % dbPath,
+                            level="warning")
         return None
+    if sql is None:
+        sql = 'SELECT * FROM "%s"' % tableName
     con = sqlite3.connect(dbPath)
     try:
         try:
-            cur = con.execute('SELECT * FROM "%s"' % tableName)
+            cur = con.execute(sql)
         except sqlite3.Error:
-            detex_torch.log(__name__, "could not load table %s from %s"
-                            % (tableName, dbPath), level="warning")
+            if not silent:
+                detex_torch.log(__name__, "could not load table %s from %s"
+                                % (tableName, dbPath), level="warning")
             return None
         names = [d[0] for d in cur.description]
         data = cur.fetchall()
     finally:
         con.close()
-    cols = {n: [r[i] for r in data] for i, n in enumerate(names)}
-    for n, vals in cols.items():
-        num = _numeric(vals)
-        if num is not None:
-            cols[n] = num
+    cols = {n: _read_sql_column([r[i] for r in data])
+            for i, n in enumerate(names)}
+    if convertNumeric:
+        for n, vals in cols.items():
+            num = _numeric(vals)
+            if num is not None:
+                cols[n] = num
     if columns:
         return {n: np.asarray(v) for n, v in cols.items()}
     return [dict(zip(names, r)) for r in zip(*cols.values())] if data \

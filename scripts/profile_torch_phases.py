@@ -153,10 +153,11 @@ def phase_g(dev):
     g = dict(zip(("events", "waves"), cs.g_catalog()))
     g.update(zip(("streams", "templates", "picks"),
                  cs.g_templates(g["events"], g["waves"])))
-    cl = construct.createCluster(g["streams"], g["templates"],
+    cl = construct.createCluster(streams=g["streams"],
+                                 templates=g["templates"],
                                  filt=cs.G_FILT, trim=list(cs.G_TRIM),
                                  device=dev)
-    ss = construct.createSubSpace(cl, dtype="single",
+    ss = construct.createSubSpace(clust=cl, dtype="single",
                                   conDatDuration=cs.F_SEC - 120.0,
                                   conBuff=120.0)
     ss.attachPickTimes(g["picks"], defaultDuration=30)

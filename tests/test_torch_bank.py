@@ -220,13 +220,14 @@ def test_wrappers_dispatch_on_device():
 
 def test_port_imports_without_jax_or_pandas():
     """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports (the engine, its host modules, core and the
-    detector construction included) and runs a CPU scan, a dense
+    detex_torch still imports (the engine, its host modules, core, the
+    detector construction, the data layer and results included) and runs a CPU scan, a dense
     re-verify, a per-chunk ("plain") scan, run_bank, a full-length bank's
     scan and raw scan with the device prep, the detection engine on two
     chunks of one station, writing its rows to SQLite, and a tiny
     createCluster -> createSubSpace -> attachPickTimes -> SVD(threshold)
-    on the CPU. The imports are refused by a finder at the head of
+    on the CPU, and writes a tiny SynthCatalog directory, indexes it and
+    reads one chunk back through the 'dir' fetcher. The imports are refused by a finder at the head of
     sys.meta_path (a None entry in sys.modules would also break scipy's
     check for JAX arrays inside scipy.cluster)."""
     code = (
@@ -308,17 +309,28 @@ def test_port_imports_without_jax_or_pandas():
         "    templates[name] = {'time': t0 + 4.0, 'mag': 1.0 + k / 10}\n"
         "    picks.append(dict(TimeStamp=t0 + at / 25.0, Station='XX.S1',\n"
         "                      Event=name, Phase='P'))\n"
-        "cl = construct.createCluster(streams, templates, filt=[1, 8, 2, 1],\n"
-        "                             trim=[4, 12], device='cpu')\n"
+        "cl = construct.createCluster(streams=streams, templates=templates,\n"
+        "                             filt=[1, 8, 2, 1], trim=[4, 12],\n"
+        "                             device='cpu')\n"
         "assert sorted(map(sorted, cl['S1'].clusts)) == \\\n"
         "    [['ev0', 'ev2'], ['ev1', 'ev3']]\n"
         "assert cl['S1'].singles == ['ev4']\n"
-        "ss = construct.createSubSpace(cl)\n"
+        "ss = construct.createSubSpace(clust=cl)\n"
         "ss.attachPickTimes(picks, defaultDuration=4)\n"
         "ss.SVD(threshold=0.5)\n"
         "rows = ss.subspaces['XX.S1'] + ss.singles['XX.S1']\n"
         "assert [r['Threshold'] for r in rows] == [0.5] * 3\n"
         "assert [r['NumBasis'] for r in rows[:2]] == [1, 1]\n"
+        "import detex_torch.data, detex_torch.results\n"
+        "from detex_torch.data import fetcher\n"
+        "from detex_torch.data.synth import SynthCatalog\n"
+        "cat = SynthCatalog(n_sources=1, events_per_source=2, n_singles=0,\n"
+        "                   n_stations=1, sr=10.0, span_hours=3, seed=0)\n"
+        "paths = cat.write_directories(tempfile.mkdtemp(), tb4=5, taft=20)\n"
+        "fetcher.indexDirectory(paths['conDir'])\n"
+        "cf = fetcher.DataFetcher('dir', directoryName=paths['conDir'])\n"
+        "st = next(cf.getConData(paths['stationKey']))\n"
+        "assert len(st) == 3 and len(st[0].data) == 37200\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

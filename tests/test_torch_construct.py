@@ -220,9 +220,10 @@ def case(synth_case, tmp_path_factory):
            useSingles=True, backupThreshold=0.25)
 
     streams, templates, stakey = _port_inputs(synth_case)
-    tcl = tcon.createCluster(streams, templates, CCreq=0.5, filt=FILT,
-                             trim=TRIM, dtype="double", device="cpu")
-    tss = tcon.createSubSpace(tcl, Pf=1e-9, minEvents=2,
+    tcl = tcon.createCluster(streams=streams, templates=templates,
+                             CCreq=0.5, filt=FILT, trim=TRIM, dtype="double",
+                             device="cpu")
+    tss = tcon.createSubSpace(clust=tcl, Pf=1e-9, minEvents=2,
                               conDatDuration=cfetcher.conDatDuration,
                               conBuff=cfetcher.conBuff)
     tss.attachPickTimes(pksFile=_pick_rows(synth_case), defaultDuration=20)
@@ -391,7 +392,8 @@ def test_case1_subspace_detex_rows_match_jax(case, monkeypatch, tmp_path):
                                       returnTimes=True):
             yield (None if st is None else _port_stream(st)), a, b
 
-    tss.detex(chunks, subspaceDB=db_t, useSingles=True, batchSize=8)
+    tss.detex(chunks=chunks, subspaceDB=db_t, useSingles=True,
+              batchSize=8)
     for table in ("ss_df", "sg_df"):
         want = jutil.loadSQLite(db_j, table)
         got = tutil.loadSQLite(db_t, table, columns=True)
@@ -417,7 +419,7 @@ def test_attach_picks_from_the_csv(case, synth_case):
     """attachPickTimes on the CSV path (the standard library's csv) gives
     the trims of the rows read by pandas, and offsets within one ULP of a
     POSIX timestamp."""
-    tss = tcon.createSubSpace(case["tcl"], Pf=1e-9, minEvents=2)
+    tss = tcon.createSubSpace(clust=case["tcl"], Pf=1e-9, minEvents=2)
     tss.attachPickTimes(pksFile=synth_case["phaseKey"], defaultDuration=20)
     n = 0
     for singles in (False, True):

@@ -939,3 +939,27 @@ def test_xcorr_and_svd_on_the_card_match_cpu(cuda, n):
         svd.frac_energy(Ug, A, dtype="single", device=cuda),
         svd.frac_energy(Uc, A, dtype="single", device="cpu"), rtol=0,
         atol=1e-5)
+
+
+def test_case1_key_file_pipeline_on_the_card_matches_record(cuda, tmp_path):
+    """Phase H1 at dtype "double" on the card: the port's SynthCatalog
+    directories through createCluster(fetch_arg=...) ... detResults,
+    held by chip_smoke.case1_hold against detex_tpu's record
+    (tests/data/case1_reference.json): clusters, delays and NumBasis
+    identical, lags identical or near ties of the float64 oracle,
+    thresholds within 1e-5 relative, every row's STMP exact and DS within
+    2e-5, both hidden events verified inside their windows."""
+    import json
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke as cs
+    with open(cs.CASE1_FIXTURE) as fh:
+        fixture = json.load(fh)
+    rec, objs, _ = cs.case1_run(fixture["params"], "double", str(tmp_path),
+                                cuda)
+    _, ds_err, _ = cs.case1_hold("card double", rec, fixture["double"],
+                                 objs)
+    assert ds_err <= 2e-5
