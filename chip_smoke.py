@@ -141,6 +141,32 @@ port's paths through the entry points a user calls:
                station of every new detection and the new template key.
            Every kernel the phase launches is held against its twin on the
            inputs of its first launch in H1 double, H1 single and H2.
+  phase I  several devices, on a mesh of every CUDA device, or of cuda:0
+           four times over on one card (which runs the sharded code with
+           nothing to gain):
+           I1  the sharded scans against the unsharded scans of the same
+               inputs: phase A's 256 chunks (resident on cuda:0, and from a
+               host array; timed, station-days/s both ways), an odd batch
+               of 7 with triggers (padded to the mesh), F2's 1000-template
+               station, E1's raw batch and E3's raw-demux batch; both routes
+               printed; histograms, trigger counts and indices equal,
+               maxima bit for bit where the routes agree, else within 1e-6;
+           I2  F1's station-day through detect.detex on the mesh and with
+               DETEX_TORCH_MESH=0: identical SQLite rows and histograms;
+           I3  serving.export_detectors of H2's SubSpace, load_detectors,
+               scan_station on eight of its hours with and without the
+               mesh, held as I1 holds its cases;
+           I4  H2's first station's 48 hour files written again as
+               miniSEED and read back sample for sample, that directory
+               indexed and scanned by SubSpace.detex with H2's rows, one
+               hour of integer counts through STEIM2 and STEIM1 bit for
+               bit; write and read MB/s.
+           With several cards, B1, B2, B6, B7 and B10 are held against
+           their twins on the last one.
+
+``python3 chip_smoke.py --phases I`` builds the kernels and the native
+library and runs phase H2 (phase I's SubSpace and hour files), phase I
+and the holds on the last card alone, for a four-card machine.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -149,8 +175,8 @@ are the kernels' JSON record, the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
 counts its launches over every phase ("launches"), over the engine's
 phases F1-F3 ("engine_launches"), over the construction phases G1-G2
-("construct_launches") and over the key-file pipeline H1-H2
-("pipeline_launches").
+("construct_launches"), over the key-file pipeline H1-H2
+("pipeline_launches") and over phase I ("mesh_launches").
 """
 from __future__ import annotations
 
@@ -171,8 +197,9 @@ from detex_torch.ops import ds as tds
 from detex_torch.ops import prep as tprep
 from detex_torch.ops import reference as ref
 from detex_torch.ops import triggers as ttrig
+from detex_torch.parallel import mesh as tmesh
 from detex_torch.parallel import scan as tscan
-from detex_torch import construct, detect, fas, serving, util
+from detex_torch import construct, detect, fas, native, serving, util
 from detex_torch.ops import xcorr
 from detex_torch.core import Stream, Trace
 
@@ -603,7 +630,10 @@ def dense_vs_twin(X, bank, lens, timing=False):
 # phase A: engine / bench subspace geometry, summary-only
 # ---------------------------------------------------------------------------
 
-def phase_a(dev, B=256, hours=2.0, seed=1):
+def phase_a_inputs(dev, B=256, hours=2.0, seed=1):
+    """Phase A's bank (one 4-dim basis of 30 s templates) and its B chunks
+    of ``hours`` on the card with three events planted: (X, bank, U,
+    planted, out_len)."""
     rng = np.random.default_rng(seed)
     n = int(30 * SR * NC)                            # 30 s templates
     Lc = int(hours * 3600 * SR * NC)
@@ -621,6 +651,11 @@ def phase_a(dev, B=256, hours=2.0, seed=1):
                (B - 7, Lc * 3 // 10 * 3, 2)]
     for b, off, d in planted:
         X[b, off:off + n] += 150.0 * Ut[d]
+    return X, bank, U, planted, out_len
+
+
+def phase_a(dev, B=256, hours=2.0, seed=1):
+    X, bank, U, planted, out_len = phase_a_inputs(dev, B, hours, seed)
     th = np.full(1, 0.5, np.float32)
     buff = int(20 * SR)
 
@@ -1775,12 +1810,10 @@ def f_check(tag, rows, dets, events, seed, L, sr, planted, n_chunks, hist,
     return max(errs)
 
 
-def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
-    """F1: one station-day (24 chunks of 3720 s at 100 Hz, 3 channels) of a
-    station of 8 subspace detectors (30 s, D = 4) and one of 8 single
-    templates, six planted events each, through detect.detex (batchSize 8,
-    histograms, magnitudes, trigCon 0, STA/LTA 5 s) into one SQLite
-    database; every row against the float64 oracle."""
+def f1_setup(n_chunks=24, seed=61):
+    """F1's two stations: the detectors (8 subspace detectors of 30 s,
+    D = 4; 8 single templates), the planted events and, per station kind
+    "ss" / "sg", (stations, chunks made up front, planted, chunk seed)."""
     rng = np.random.default_rng(seed)
     L = int(F_SEC * SR)
     n = int(30 * SR * NC)
@@ -1792,19 +1825,41 @@ def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
                      (15, 5, 200000), (19, 6, 99999), (22, 7, 333333)]}
     events = {k: [(b % n_chunks, s, at) for b, s, at in v]
               for k, v in events.items()}
-    db = os.path.join(tmpdir, "f1.db")
-    hists, inputs = {}, {}
-    wall = 0.0
-    for i, (k, issub) in enumerate((("ss", True), ("sg", False))):
+    inputs = {}
+    for i, k in enumerate(("ss", "sg")):
         planted = f_plant(dets[k], events[k], n)
         stations, chunks = f_station("XX.F1" + k, dets[k], SR, L, n_chunks,
                                      10 * seed + i, planted)
-        inputs[k] = (planted, 10 * seed + i)
-        chunks = f_made(chunks, "XX.F1" + k)
+        inputs[k] = (stations, f_made(chunks, "XX.F1" + k), planted,
+                     10 * seed + i)
+    return dets, events, inputs
+
+
+def f1_run(dev, db, inputs):
+    """Both F1 stations through detect.detex (batchSize 8) into ``db``:
+    (histograms per kind, wall seconds of the two engine runs)."""
+    hists = {}
+    wall = 0.0
+    for k, issub in (("ss", True), ("sg", False)):
+        stations, chunks = inputs[k][:2]
         t0 = time.perf_counter()
         hists[k] = detect.detex(stations, chunks, db, issubspace=issub,
                                 batchSize=8, device=dev)["XX.F1" + k]
         wall += time.perf_counter() - t0
+    return hists, wall
+
+
+def phase_f1(dev, tmpdir, n_chunks=24, seed=61):
+    """F1: one station-day (24 chunks of 3720 s at 100 Hz, 3 channels) of a
+    station of 8 subspace detectors (30 s, D = 4) and one of 8 single
+    templates, six planted events each, through detect.detex (batchSize 8,
+    histograms, magnitudes, trigCon 0, STA/LTA 5 s) into one SQLite
+    database; every row against the float64 oracle."""
+    L = int(F_SEC * SR)
+    dets, events, inputs = f1_setup(n_chunks, seed)
+    db = os.path.join(tmpdir, "f1.db")
+    hists, wall = f1_run(dev, db, inputs)
+    inputs = {k: v[2:] for k, v in inputs.items()}
     errs = []
     for k, table in (("ss", "ss_df"), ("sg", "sg_df")):
         planted, sd = inputs[k]
@@ -2773,6 +2828,7 @@ def phase_h2(dev, tmpdir):
     names = {r["NAME"] for r in readKey(newkey, "template")}
     need({"d" + d["Event"] for d in res.Dets} <= names, "phase H2: the new "
          "template key lacks detections")
+    objs["rec"] = rec
     say("phase H2: %s, 2 stations x 48 h at 100 Hz: stages (s) %s; %d "
         "detectors, %d ss_df / %d sg_df rows, %d autos, %d new detections, "
         "%d verified of %d hidden; %d verified rows vs float64 oracle DS "
@@ -2783,7 +2839,7 @@ def phase_h2(dev, tmpdir):
            len(rec["rows"]["ss_df"]), len(rec["rows"]["sg_df"]),
            len(res.Autos), len(res.Dets), len(res.Vers), len(rec["hidden"]),
            n_rows, err, len(written)))
-    return dict(stages=stages, oracle_err=err)
+    return dict(stages=stages, oracle_err=err, objs=objs)
 
 
 def phase_e_kernels(dev, e2):
@@ -2863,7 +2919,505 @@ def anatomy(dev, pa):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase I: several devices, the serving artifact's writer, miniSEED
+# ---------------------------------------------------------------------------
+
+def i_mesh():
+    """Phase I's mesh: every CUDA device when there are several, else
+    cuda:0 four times over; with a line saying which."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return tmesh.make_mesh(), "every CUDA device (%d cards)" % n
+    return (tmesh.make_mesh(devices=["cuda:0"] * 4),
+            "cuda:0 four times over (one card)")
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def i_run(fn, reps=1):
+    """(result, routes, best host seconds of ``reps`` runs after a warm-up
+    run) of fn() ending in a synchronize of every card; ``routes`` are the
+    names the scans noted in the last run, one a bank, in order."""
+    note = tscan._note_route
+    noted = []
+
+    def noting(*args, **kw):
+        name = note(*args, **kw)
+        noted.append(name)
+        return name
+
+    out, times = None, []
+    tscan._note_route = noting
+    try:
+        for _ in range(reps + 1):
+            del noted[:]
+            t0 = time.perf_counter()
+            out = fn()
+            sync_all()
+            times.append(time.perf_counter() - t0)
+    finally:
+        tscan._note_route = note
+    return out, list(noted), min(times[1:])
+
+
+def i_arrays(out):
+    """A list of (hist, maxds, trig_idx, trig_val, trig_count) numpy
+    arrays, one a bank: a scan's tensors, or serving's per-bank dicts."""
+    if isinstance(out, list):
+        return [tuple(r[k] for k in ("hist", "maxds", "trig_idx",
+                                     "trig_val", "trig_count"))
+                for r in out]
+    return [tuple(t.cpu().numpy() for t in out)]
+
+
+def i_hold(tag, sharded, single, routes_s, routes_1):
+    """A sharded scan against the unsharded scan of the same inputs, bank
+    by bank: histograms equal, trigger counts and indices equal, maxima
+    and trigger values bit-equal where the bank's routes agree (the names
+    without "+sharded") and within 1e-6 otherwise. Returns the largest
+    difference."""
+    banks_s, banks_1 = i_arrays(sharded), i_arrays(single)
+    need(len(banks_s) == len(banks_1) == len(routes_s) == len(routes_1),
+         "phase %s: %d / %d banks, routes %s / %s" % (
+             tag, len(banks_s), len(banks_1), routes_s, routes_1))
+    worst, n_trig, n_same = 0.0, 0, 0
+    for (h_s, m_s, i_s, v_s, c_s), (h_1, m_1, i_1, v_1, c_1), r_s, r_1 in \
+            zip(banks_s, banks_1, routes_s, routes_1):
+        same = r_s.replace("+sharded", "") == r_1
+        need(np.array_equal(h_s, h_1), "phase %s histograms differ" % tag)
+        need(np.array_equal(c_s, c_1) and np.array_equal(i_s, i_1),
+             "phase %s trigger counts or indices differ" % tag)
+        need(np.array_equal(np.isfinite(m_s), np.isfinite(m_1)),
+             "phase %s -inf maxima differ" % tag)
+        fin = np.isfinite(m_1)
+        err = float(np.abs(m_s[fin] - m_1[fin]).max(initial=0.0))
+        k = i_1 >= 0
+        err = max(err, float(np.abs(v_s[k] - v_1[k]).max(initial=0.0)))
+        if same:
+            need(np.array_equal(m_s, m_1) and np.array_equal(v_s[k], v_1[k]),
+                 "phase %s maxima not bit-equal on route %s (%g)"
+                 % (tag, r_1, err))
+        else:
+            need(err <= 1e-6, "phase %s maxima or trigger values err %g > "
+                 "1e-6 (routes %s, %s)" % (tag, err, r_s, r_1))
+        worst = max(worst, err)
+        n_trig += int(c_1.sum())
+        n_same += same
+    say("phase %s: routes sharded %s, unsharded %s; histograms equal, %d "
+        "triggers equal, maxima bit-equal on %d of %d banks (the others "
+        "within 1e-6; max diff %.3g)" % (tag, routes_s, routes_1, n_trig,
+                                         n_same, len(routes_1), worst))
+    return worst
+
+
+def i1_phase_a(dev, mesh):
+    """I1 on phase A's 256 two-hour chunks (summary-only, as the engine
+    scans), resident on cuda:0 and from a host array (each shard uploaded
+    to its card), timed sharded and unsharded; then an odd batch of 7 of
+    them with triggers on (padded to a multiple of the mesh)."""
+    X, bank, _, planted, _ = phase_a_inputs(dev)
+    B = X.shape[0]
+    th = np.full(1, 0.5, np.float32)
+    kw = dict(max_trig=16, calc_triggers=False)
+    st_days = B * 2.0 / 24.0
+    rates = {}
+    out_s, routes_s, t_s = i_run(lambda: tscan.scan_chunks(
+        X, bank, th, NC, int(20 * SR), mesh=mesh, **kw), reps=3)
+    out_1, routes_1, t_1 = i_run(lambda: tscan.scan_chunks(
+        X, bank, th, NC, int(20 * SR), **kw), reps=3)
+    i_hold("I1 phase A (256 x 2 h)", out_s, out_1, routes_s, routes_1)
+    rates["device"] = (st_days / t_s, st_days / t_1)
+    Xh = X.cpu().numpy()
+    t0 = time.perf_counter()
+    torch.from_numpy(Xh).to(dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    out_h, _, th_s = i_run(lambda: tscan.scan_chunks(
+        Xh, bank, th, NC, int(20 * SR), mesh=mesh, **kw), reps=2)
+    i_hold("I1 phase A from a host array", out_h, out_1, routes_s,
+           routes_1)
+    _, _, th_1 = i_run(lambda: tscan.scan_chunks(
+        Xh, bank, th, NC, int(20 * SR), **kw), reps=2)
+    rates["host"] = (st_days / th_s, st_days / th_1)
+    say("phase I1 phase A: %d-entry mesh, s/launch sharded %.6f, unsharded "
+        "%.6f: %.3f against %.3f station-days/s on the card(s); from a "
+        "host array (pageable upload of %.0f MB: %.6f s alone) sharded "
+        "%.6f s, unsharded %.6f s: %.3f against %.3f station-days/s (%s)"
+        % (mesh.size, t_s, t_1, rates["device"][0], rates["device"][1],
+           Xh.nbytes / 1e6, t_up, th_s, th_1, rates["host"][0],
+           rates["host"][1], card_line()))
+    del out_s, out_1, out_h, Xh
+    odd = X[:7]
+    kw = dict(max_trig=16)
+    out_s, routes_s, _ = i_run(lambda: tscan.scan_chunks(
+        odd, bank, th, NC, int(20 * SR), mesh=mesh, **kw))
+    out_1, routes_1, _ = i_run(lambda: tscan.scan_chunks(
+        odd, bank, th, NC, int(20 * SR), **kw))
+    i_hold("I1 odd batch (7 chunks, triggers on)", out_s, out_1, routes_s,
+           routes_1)
+    need(int(out_s[4][5, 0]) >= 1, "phase I1 odd batch: planted event in "
+         "chunk 5 missed")
+    return dict(rates=rates, s_per_launch=(t_s, t_1),
+                host_s=(th_s, th_1), upload_s=t_up)
+
+
+def i1_f2(dev, mesh, n_chunks=8, seed=62, n_det=1000):
+    """I1 on F2's 1000-template station (8 chunks, route
+    "blocked-fused-net+fusedprep"), summary-only as the engine scans."""
+    rng = np.random.default_rng(seed)
+    L = int(F_SEC * SR)
+    n = int(30 * SR * NC)
+    dets = f_detectors(rng, "nw", n_det, 1, n, False)
+    events = [(b % n_chunks, s % n_det, at) for b, s, at in (
+        (0, 3, 40000), (2, 517, 200000), (5, 768, 9000), (7, 999, 300000))]
+    planted = f_plant(dets, events, n)
+    X = np.stack([construct.multiplex(construct._applyFilter(
+        f_stream(f_chunk(seed, b, L, planted), b, SR), None, None,
+        "single"), NC) for b in range(n_chunks)])
+    bank = tds.build_bank([d["U"] for d in dets], NC, X.shape[1], dev,
+                          pad_S=tds.pad_rows(len(dets)),
+                          min_dmax=tds.pad_dims(1))
+    th = np.full(int(bank["sum_u"].shape[0]), np.inf, np.float32)
+    th[:len(dets)] = 0.3
+    kw = dict(buff_samps=1, max_trig=1, calc_triggers=False)
+    out_s, routes_s, t_s = i_run(lambda: tscan.scan_chunks(
+        X, bank, th, NC, mesh=mesh, **kw))
+    out_1, routes_1, t_1 = i_run(lambda: tscan.scan_chunks(
+        X, bank, th, NC, **kw))
+    i_hold("I1 F2 (1000 templates)", out_s, out_1, routes_s, routes_1)
+    for b, s, _ in events:
+        need(float(out_s[1][b, s]) > 0.3, "phase I1 F2 event (%d, %d) below "
+             "threshold" % (b, s))
+    say("phase I1 F2: s sharded %.6f, unsharded %.6f (host array of %d "
+        "chunks)" % (t_s, t_1, n_chunks))
+    return t_s, t_1
+
+
+def i1_raw(dev, mesh, tmpdir):
+    """I1 on E1's raw overlap-save serving batch (devicePrep) and E3's
+    raw-demux batch with one ragged chunk."""
+    e1 = phase_e1_setup(dev, tmpdir)
+    out_s, routes_s, _ = i_run(lambda: serving.scan_station_raw(
+        e1["dep"], SERVE_STA, e1["X"], max_trig=8, mesh=mesh))
+    out_1, routes_1, _ = i_run(lambda: serving.scan_station_raw(
+        e1["dep"], SERVE_STA, e1["X"], max_trig=8))
+    i_hold("I1 E1 (devicePrep serving)", out_s, out_1, routes_s, routes_1)
+    counts = out_s[0]["trig_count"]
+    for b, s in e1["planted"]:
+        need(counts[b, s] == 1, "phase I1 E1 (%d, %d) not triggered"
+             % (b, s))
+    del e1
+    e3 = phase_e3_setup(dev)
+    th = np.full(16, 0.5, np.float32)
+    buff = int(20 * RAW_SR / DEC)
+    args = (e3["X"], e3["lens"], e3["H"], e3["bank"], th, NC, buff)
+    out_s, routes_s, _ = i_run(lambda: tscan.scan_chunks_raw(
+        *args, max_trig=8, dec=DEC, mesh=mesh))
+    out_1, routes_1, _ = i_run(lambda: tscan.scan_chunks_raw(
+        *args, max_trig=8, dec=DEC))
+    i_hold("I1 E3 (raw-demux, chunk 5 ragged)", out_s, out_1, routes_s,
+           routes_1)
+    for b, s in e3["planted"]:
+        need(int(out_s[4][b, s]) == 1, "phase I1 E3 (%d, %d) not triggered"
+             % (b, s))
+
+
+def i2_engine(dev, mesh, tmpdir):
+    """I2: F1's station-day through detect.detex on the engine's mesh and
+    again with DETEX_TORCH_MESH=0: identical SQLite rows and histograms.
+    With one card the engine's mesh (every CUDA device) would be none, so
+    parallel/scan.engine_mesh is handed phase I's mesh for the first run."""
+    _, _, inputs = f1_setup()
+    real = tscan.engine_mesh
+    one_card = torch.cuda.device_count() < 2
+    runs = {}
+    for tag in ("mesh", "single"):
+        db = os.path.join(tmpdir, "i2_%s.db" % tag)
+        if tag == "mesh":
+            os.environ.pop("DETEX_TORCH_MESH", None)
+            if one_card:
+                tscan.engine_mesh = lambda device=None: mesh
+        else:
+            os.environ["DETEX_TORCH_MESH"] = "0"
+        tscan.ROUTE_COUNTS.clear()
+        try:
+            hists, wall = f1_run(dev, db, inputs)
+        finally:
+            tscan.engine_mesh = real
+            os.environ.pop("DETEX_TORCH_MESH", None)
+        rows = {t: util.loadSQLite(db, t, columns=True)
+                for t in ("ss_df", "sg_df")}
+        runs[tag] = (rows, hists, wall, dict(tscan.ROUTE_COUNTS))
+    (rows_m, hist_m, wall_m, routes_m) = runs["mesh"]
+    (rows_1, hist_1, wall_1, routes_1) = runs["single"]
+    need(any(r.endswith("+sharded") for r in routes_m)
+         and not any("+sharded" in r for r in routes_1),
+         "phase I2 routes: mesh %s, single %s" % (routes_m, routes_1))
+    n_rows = 0
+    for t in rows_m:
+        a, b = rows_m[t], rows_1[t]
+        need(sorted(a) == sorted(b), "phase I2 %s columns differ" % t)
+        for col in a:
+            x, y = np.asarray(a[col]), np.asarray(b[col])
+            same = (np.array_equal(x, y, equal_nan=True)
+                    if x.dtype.kind == "f" else list(x) == list(y))
+            need(same, "phase I2 %s column %s differs" % (t, col))
+        n_rows += len(a["STMP"])
+    for k in hist_m:
+        for name, h in hist_m[k].items():
+            need(np.array_equal(h, hist_1[k][name]),
+                 "phase I2 histogram of %s differs" % name)
+    say("phase I2: F1's station-day through detect.detex on a %d-entry mesh "
+        "%.3f s, with DETEX_TORCH_MESH=0 %.3f s: %d rows identical (STMP "
+        "and DS equal), histograms equal; routes %s (%s)"
+        % (mesh.size, wall_m, wall_1, n_rows, sorted(routes_m),
+           card_line()))
+    return wall_m, wall_1
+
+
+def i3_serving(dev, mesh, h2, tmpdir, n_hours=8):
+    """I3: export_detectors of H2's SubSpace, load_detectors, and
+    scan_station on n_hours of its first station's continuous chunks
+    (fetched, filtered and multiplexed as the engine does), with the mesh
+    and without, held as I1 holds its cases."""
+    ss, cf = h2["ss"], h2["cfetcher"]
+    sta = ss.Stations[0]
+    path = serving.export_detectors(ss, os.path.join(tmpdir, "h2.npz"))
+    dep = serving.load_detectors(path, chunk_sec=cf.conDatDuration,
+                                 conBuff=cf.conBuff, device=dev)
+    names = [nm for b in dep[sta]["banks"] for nm in b["names"]]
+    want = [r["Name"] for r in ss.subspaces.get(sta, [])
+            if r["SVDdefined"]] + [r["Name"] for r in ss.singles.get(sta, [])
+                                   if r["SampleTrims"]]
+    need(sorted(names) == sorted(want), "phase I3 artifact detectors %s, "
+         "SubSpace %s" % (sorted(names), sorted(want)))
+    skey = [r for r in ss.clusters.stakey if r["STATION"] == sta.split(".")[1]]
+    chunks = []
+    for st, _, _ in cf.getConData(skey, returnTimes=True):
+        if st is None:
+            continue
+        st = construct._applyFilter(st, ss.clusters.filt, None, "single")
+        chunks.append(construct.multiplex(st, NC))
+        if len(chunks) == n_hours:
+            break
+    L = max(len(c) for c in chunks)
+    X = np.zeros((len(chunks), L), np.float32)
+    for b, c in enumerate(chunks):
+        X[b, :len(c)] = c
+    lens = [len(c) for c in chunks]
+    out_s, routes_s, _ = i_run(lambda: serving.scan_station(
+        dep, sta, X, valid_lens=lens, mesh=mesh))
+    out_1, routes_1, _ = i_run(lambda: serving.scan_station(
+        dep, sta, X, valid_lens=lens))
+    i_hold("I3 serving (H2's artifact, %d detectors, %d hours of %s)"
+           % (len(names), len(chunks), sta), out_s, out_1, routes_s,
+           routes_1)
+
+
+def i4_mseed(dev, h2, tmpdir):
+    """I4: H2's first station's hour files written again as miniSEED
+    (the lossless automatic encoding of their samples) and read back
+    sample for sample; that directory indexed, fetched through
+    'dir' and scanned by SubSpace.detex on that station, its rows
+    identical to H2's; one hour of 3 channels of 100 Hz integer counts
+    through STEIM2 and STEIM1 bit for bit; write and read MB/s."""
+    from detex_torch import subspace
+    from detex_torch.data import fetcher as getdata
+    from detex_torch.data import mseed, waveio
+    need(mseed.available(), "phase I4: the native host library did not build")
+    ss, paths, rec = h2["ss"], h2["paths"], h2["rec"]
+    sta = ss.Stations[0]
+    src = os.path.join(paths["conDir"], sta)
+    dst_root = os.path.join(tmpdir, "mseed", os.path.basename(
+        paths["conDir"].rstrip(os.sep)))
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(src)
+                   for f in fs if f.endswith(".npz"))
+    need(len(files) == 48, "phase I4: %d hour files of %s" % (len(files), sta))
+    t_w = t_r = 0.0
+    nbytes = 0
+    for f in files:
+        st = waveio.read(f)
+        out = os.path.join(dst_root, os.path.relpath(f, paths["conDir"]))
+        out = out[:-len(".npz")] + ".msd"
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        t0 = time.perf_counter()
+        mseed.write_mseed(st, out)
+        t_w += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = waveio.read(out)
+        t_r += time.perf_counter() - t0
+        need(len(back) == len(st), "phase I4 %s: %d traces back of %d"
+             % (out, len(back), len(st)))
+        for a, b in zip(back, st):
+            need(a.id == b.id and a.stats.starttime == b.stats.starttime
+                 and a.stats.sampling_rate == b.stats.sampling_rate
+                 and np.array_equal(a.data, b.data.astype(np.float64)),
+                 "phase I4 %s: trace %s differs" % (out, b.id))
+            nbytes += b.data.nbytes
+    say("phase I4: %d hour files of %s (%s samples) as miniSEED %s: write "
+        "%.1f MB/s, read %.1f MB/s (%.0f MB of samples)"
+        % (len(files), sta, st[0].data.dtype,
+           mseed._auto_encoding(st[0].data), nbytes / 1e6 / t_w,
+           nbytes / 1e6 / t_r, nbytes / 1e6))
+    t0 = time.perf_counter()
+    getdata.indexDirectory(dst_root)
+    t_idx = time.perf_counter() - t0
+    mfetch = getdata.DataFetcher("dir", directoryName=dst_root)
+    base = subspace._fetcher_con_chunks(mfetch, ss.clusters.stakey, None,
+                                        None)
+    db = os.path.join(tmpdir, "i4.db")
+    t0 = time.perf_counter()
+    ss.detex(subspaceDB=db, chunks=lambda s: base(s) if s == sta
+             else iter(()), **H2_PARAMS["detex"])
+    t_det = time.perf_counter() - t0
+    n_rows = 0
+    for i, table in enumerate(("ss_df", "sg_df")):
+        got = [[str(r["Sta"]), str(r["Name"]), float(r["STMP"]),
+                float(r["DS"]), float(r["Mag"])]
+               for r in util.loadSQLite(db, table) or []]
+        want = [r for r in rec["rows"][table] if r[0] == sta]
+        need(got == want, "phase I4 %s: %d rows from miniSEED, %d from npz; "
+             "first differing %s" % (table, len(got), len(want), next(
+                 ((a, b) for a, b in zip(got, want) if a != b), None)))
+        n_rows += len(got)
+    need(n_rows > 0, "phase I4: no rows for %s" % sta)
+    rng = np.random.default_rng(101)
+    counts = [np.cumsum(rng.integers(-2000, 2000, 360000)).astype(np.float64)
+              for _ in range(NC)]
+    st = Stream([Trace(c, dict(network="XX", station="M", channel="BH" + z,
+                               sampling_rate=SR, starttime=F_T0))
+                 for c, z in zip(counts, "ENZ")])
+    steim = []
+    for enc in ("STEIM2", "STEIM1"):
+        p = os.path.join(tmpdir, "counts_%s.msd" % enc)
+        t0 = time.perf_counter()
+        mseed.write_mseed(st, p, encoding=enc)
+        tw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mseed.read_mseed(p)
+        tr = time.perf_counter() - t0
+        need(len(back) == NC and all(
+            np.array_equal(a.data, b.data) for a, b in zip(back, st)),
+             "phase I4 %s round trip not bit for bit" % enc)
+        mb = sum(c.size for c in counts) * 4 / 1e6
+        steim.append("%s %.1f MB/s write, %.1f MB/s read, %.2f bytes a "
+                     "sample" % (enc, mb / tw, mb / tr,
+                                 os.path.getsize(p) / (mb * 1e6 / 4)))
+    say("phase I4: the miniSEED directory indexed in %.3f s and scanned by "
+        "SubSpace.detex in %.3f s: %d rows of %s identical to H2's; one "
+        "hour x 3 channels of integer counts bit for bit: %s"
+        % (t_idx, t_det, n_rows, sta, "; ".join(steim)))
+    return dict(write_mb_s=nbytes / 1e6 / t_w, read_mb_s=nbytes / 1e6 / t_r)
+
+
+def phase_i(dev, h2, tmpdir):
+    """Phase I: I1 the sharded scans against the unsharded ones, I2 the
+    engine on the mesh, I3 serving from H2's exported artifact, I4
+    miniSEED."""
+    mesh, how = i_mesh()
+    say("phase I: mesh of %d entries, %s: %s" % (
+        mesh.size, how, [str(d) for d in mesh]))
+    out = dict(mesh_size=mesh.size, a=i1_phase_a(dev, mesh))
+    torch.cuda.empty_cache()
+    out["f2_s"] = i1_f2(dev, mesh)
+    torch.cuda.empty_cache()
+    i1_raw(dev, mesh, tmpdir)
+    torch.cuda.empty_cache()
+    out["engine_s"] = i2_engine(dev, mesh, tmpdir)
+    i3_serving(dev, mesh, h2, tmpdir)
+    out["mseed"] = i4_mseed(dev, h2, tmpdir)
+    return out
+
+
+def hold_off_device(dev):
+    """B1, B2, B6, B7 and B10 held against their twins on ``dev`` (a card
+    other than cuda:0), each where the sharded scans launch it: B1 and B2
+    at phase A's geometry cut to 16 chunks and at phase B's, B6 on D3's
+    frames (90 s templates, n_c > W), B7 on one chunk of eight 30 s
+    templates, B10 on one chunk of a full-length bank."""
+    with torch.cuda.device(dev):
+        n30 = int(30 * SR * NC)
+        errs = {}
+        for r in (kernel_vs_twin(dev, 16, int(7200 * SR * NC), n30, 1, 4,
+                                 "sub", 91),
+                  kernel_vs_twin(dev, 8, int(3720 * SR * NC), n30, 128, 1,
+                                 "net", 92)):
+            for k, v in r.items():
+                errs[k] = max(errs.get(k, 0.0), v["err"])
+        rng = np.random.default_rng(93)
+        g = torch.Generator(device=dev).manual_seed(93)
+        x = torch.randn((2, int(7200 * SR * NC)), generator=g, device=dev)
+        blk, n_c = 16384, int(90 * SR)
+        _, _, _, W, _ = tds._os_geometry(x.shape[1] // NC, n_c, blk)
+        xq, _ = tds.standardize_demux(x, n_c, NC, blk)
+        frames = xq.unfold(2, blk, W).reshape(-1, blk).contiguous()
+        errs["rfft_ct_half"] = compare_half(frames, blk)["err"]
+        del xq, frames
+        xc = x[0, :int(3720 * SR * NC)]
+        bank = tds.build_bank([basis(rng, 1, n30) for _ in range(8)], NC,
+                              xc.shape[0], dev)
+        fin = chunk_finalize_inputs(bank, xc)
+        nv = torch.tensor([fin[-1]], dtype=torch.int32, device=dev)
+        errs["ds_finalize_os_scan"] = compare_os_scan(fin, nv, NBIN)["err"]
+        del fin
+        full = tds.build_bank([basis(rng, 2, n30) for _ in range(4)], NC,
+                              xc.shape[0], dev, prefer_os=False)
+        parts = tds.demux_parts(xc, full["Ufd2"], full["sum_u"],
+                                full["d_mask"], full["n_c"], NC,
+                                full["nfft2"])
+        k = ck.ds_finalize(*parts)
+        r = ref.ds_finalize_ref(*parts)
+        torch.cuda.synchronize(dev)
+        errs["ds_finalize"] = (k - r).abs().max().item()
+        need(errs["ds_finalize"] <= 1e-5, "ds_finalize on %s err %g"
+             % (dev, errs["ds_finalize"]))
+    say("kernels off cuda:0: B1, B2, B6, B7, B10 against their twins on %s "
+        "(%s): %s" % (dev, torch.cuda.get_device_name(dev),
+                      {k: "%.3g" % v for k, v in errs.items()}))
+    return errs
+
+
+def main_phase_i(dev):
+    """``--phases I``: the kernels built, phase H2 (phase I's SubSpace and
+    hour files), phase I and the kernels held off cuda:0; the launches of
+    H2 and I, the card's line and the ok line."""
+    launches = {}
+    tmp = tempfile.TemporaryDirectory()
+    for phase, fn, args in (
+            ("H2", phase_h2, (dev, os.path.join(tmp.name, "h2"))),
+            ("I", None, None)):
+        ck.reset_launches()
+        tscan.ROUTE_COUNTS.clear()
+        if fn is not None:
+            h2 = fn(*args)
+        else:
+            pi = phase_i(dev, h2["objs"], tmp.name)
+        launches[phase] = {k: v for k, v in ck.LAUNCHES.items() if v}
+    tmp.cleanup()
+    for k in ("fwd_prep_fold", "spec_ds_fold") + DENSE_KERNELS:
+        need(launches["I"].get(k, 0) > 0, "kernel %s did not run in phase I"
+             % k)
+    if torch.cuda.device_count() > 1:
+        hold_off_device(torch.device("cuda", torch.cuda.device_count() - 1))
+    say(json.dumps({"launches": launches, "phase_i": {
+        "mesh_size": pi["mesh_size"],
+        "phase_a_station_days_per_s": dict(zip(
+            ("sharded", "unsharded"), pi["a"]["rates"]["device"])),
+        "phase_a_host_station_days_per_s": dict(zip(
+            ("sharded", "unsharded"), pi["a"]["rates"]["host"])),
+        "engine_s": dict(zip(("mesh", "single"), pi["engine_s"])),
+        "mseed_mb_s": pi["mseed"]}}))
+
+
 def main():
+    import sys
+    args = sys.argv[1:]
+    if args not in ([], ["--phases", "I"]):
+        raise SystemExit("usage: chip_smoke.py [--phases I]")
     name = detex_torch.require_cuda()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2880,6 +3434,17 @@ def main():
         if ("entry function" in line or "registers" in line
                 or "spill" in line):
             say("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    need(native.available(), "the native host library did not build")
+    say("native host library: %.1f s (%s)" % (time.perf_counter() - t0,
+                                              native.library_path()))
+    if args:
+        main_phase_i(dev)
+        say(card_line())
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     n30 = int(30 * SR * NC)                          # 30 s templates
     say("phase 2: kernels vs twins, small test geometry")
@@ -3069,16 +3634,28 @@ def main():
         checks.append(hold_captured("H1 " + dtype, cap))
         del objs, cap
     with KernelCapture() as cap:
-        counted("H2", phase_h2, dev, os.path.join(tmp.name, "h2"))
+        h2 = counted("H2", phase_h2, dev, os.path.join(tmp.name, "h2"))
     checks.append(hold_captured("H2", cap))
     del cap
-    tmp.cleanup()
     h_phases = ("H1-double", "H1-single", "H2")
     h_launches = {k: sum(launches[p][k] for p in h_phases)
                   for k in KERNEL_INFO}
     say("phase H launches %s" % {k: v for k, v in h_launches.items() if v})
     for k in fused + DENSE_KERNELS:
         need(h_launches[k] > 0, "kernel %s did not run in phase H" % k)
+    torch.cuda.empty_cache()
+
+    say("phase I: several devices, the serving artifact's writer and "
+        "miniSEED")
+    counted("I", phase_i, dev, h2["objs"], tmp.name)
+    tmp.cleanup()
+    del h2
+    say("phase I launches %s" % {k: v for k, v in launches["I"].items()
+                                 if v})
+    for k in fused + DENSE_KERNELS:
+        need(launches["I"][k] > 0, "kernel %s did not run in phase I" % k)
+    if torch.cuda.device_count() > 1:
+        hold_off_device(torch.device("cuda", torch.cuda.device_count() - 1))
 
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
@@ -3086,7 +3663,8 @@ def main():
     # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
     # (ds_finalize); launches: every counted phase, A-H; engine_launches:
     # the engine's own, phases F1-F3; construct_launches: G1-G2;
-    # pipeline_launches: the key-file pipeline, H1-H2
+    # pipeline_launches: the key-file pipeline, H1-H2; mesh_launches:
+    # phase I
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]
@@ -3096,6 +3674,7 @@ def main():
             engine_launches=sum(launches[p][k] for p in ("F1", "F2", "F3")),
             construct_launches=sum(launches[p][k] for p in ("G1", "G2")),
             pipeline_launches=h_launches[k],
+            mesh_launches=launches["I"][k],
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

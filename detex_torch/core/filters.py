@@ -1,12 +1,11 @@
 """
 Host-side signal conditioning of the detection engine: the obspy-style
-Butterworth bandpass, linear detrend and decimation, in float64 with
-scipy.signal.
+Butterworth bandpass, linear detrend and decimation, in float64.
 
-Namesake of detex_tpu/core/filters.py, which runs the bandpass and the
-detrend in its native C++ library when that is built and with scipy
-otherwise; the port always uses scipy (the same arithmetic as detex_tpu's
-scipy path, within rounding of its native one).
+Namesake of detex_tpu/core/filters.py: the bandpass and the detrend run in
+the native host library (detex_torch.native, the same C++ source and
+flags as detex_tpu's, so the same bits) when it is built, and with
+scipy.signal otherwise, as detex_tpu's do.
 
 zerophase follows obspy: the SOS filter forward, then over the reversed
 signal, without padding (not scipy.filtfilt).
@@ -15,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 from scipy import signal as _sig
+
+from detex_torch import native as _native
 
 _sos_cache = {}
 
@@ -42,9 +43,12 @@ def _sosfilt(sos, data, zerophase):
 
 
 def bandpass(data, freqmin, freqmax, sr, corners=4, zerophase=False):
-    """Butterworth bandpass, matching obspy.signal.filter.bandpass."""
-    return _sosfilt(_bandpass_sos(freqmin, freqmax, sr, corners), data,
-                    zerophase)
+    """Butterworth bandpass, matching obspy.signal.filter.bandpass; the
+    native SOS filter when the host library is built."""
+    sos = _bandpass_sos(freqmin, freqmax, sr, corners)
+    if _native.available():
+        return _native.sosfilt(sos, data, zerophase=zerophase)
+    return _sosfilt(sos, data, zerophase)
 
 
 def lowpass(data, freq, sr, corners=4, zerophase=False):
@@ -54,7 +58,10 @@ def lowpass(data, freq, sr, corners=4, zerophase=False):
 
 
 def detrend_linear(data):
-    """Remove a least-squares line (scipy.signal.detrend)."""
+    """Remove a least-squares line (native when the host library is built,
+    else scipy.signal.detrend)."""
+    if _native.available():
+        return _native.detrend_linear(data)
     return _sig.detrend(np.asarray(data, dtype=np.float64), type="linear")
 
 

@@ -9,7 +9,8 @@ same ``DataFetcher`` options and generators (``getTemData``,
 encoded as per-depth integer ids; ``indkey``: the per-depth path-component
 vocabulary), the same seeded random draw of continuous chunks
 (``_divideIntoChunks``, which FAS's null depends on) and the same 10%
-sliver rule at a request's edges. Waveform files are npz (data/waveio.py).
+sliver rule at a request's edges. Waveform files are npz or miniSEED
+(data/waveio.read, which the index and every fetch read through).
 
 The client methods ("client", "iris", "neic", "uuss", "ewave") and
 ``makeDataDirectories`` download through obspy's FDSN, NEIC and Earthworm

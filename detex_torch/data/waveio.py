@@ -1,12 +1,13 @@
 """
 Waveform file IO.
 
-Namesake of detex_tpu/data/waveio.py for its native format, ``npz``: one
+Namesake of detex_tpu/data/waveio.py for its native formats: ``npz`` (one
 ``data_<i>`` array per trace and a JSON ``meta`` list of each trace's
-network, station, location, channel, sampling rate and start time, so
-either package reads the other's files. miniSEED (detex_tpu reads and
-writes it with its C++ host library) and the formats obspy reads are not
-ported yet (ROADMAP A20): asking for them raises.
+network, station, location, channel, sampling rate and start time) and
+miniSEED (data/mseed.py on the native host library), so either package
+reads the other's files. Formats only obspy reads (SAC, pickled streams)
+are not ported (ROADMAP A22): asking for them raises, as does miniSEED
+when the native library could not be built.
 """
 from __future__ import annotations
 
@@ -26,14 +27,29 @@ _META_KEYS = ("network", "station", "location", "channel", "sampling_rate")
 
 
 def _unported(what):
-    detex_torch.log(__name__, "%s is not ported yet (ROADMAP A20: miniSEED "
-                    "and the formats obspy reads); use format='npz'" % what,
+    detex_torch.log(__name__, "%s needs obspy, which the port does not use "
+                    "(ROADMAP A22); use format='npz' or 'mseed'" % what,
                     level="error", e=NotImplementedError)
 
 
+def _mseed():
+    """data/mseed.py, or NotImplementedError without the native library."""
+    from detex_torch.data import mseed
+    if not mseed.available():
+        detex_torch.log(__name__, "miniSEED needs the native host library, "
+                        "which g++ could not build (detex_torch.native)",
+                        level="error", e=NotImplementedError)
+    return mseed
+
+
 def write_stream(st, path, format="npz"):
-    """Write Stream ``st`` to ``path`` (".npz" appended when missing)."""
-    if str(format).lower() != "npz":
+    """Write Stream ``st`` to ``path``: format "npz" (".npz" appended when
+    missing) or "mseed" (data/mseed.write_mseed, lossless encoding by
+    default)."""
+    fmt = str(format).lower()
+    if fmt == "mseed":
+        return _mseed().write_mseed(st, path)
+    if fmt != "npz":
         _unported("writing format %s" % format)
     arrays = {}
     meta = []
@@ -51,13 +67,15 @@ def write_stream(st, path, format="npz"):
 
 
 def read(path):
-    """Read an npz waveform file into a Stream; None (with a warning) when
-    it cannot be read, as detex_tpu's read (reference getdata.read,
-    getdata.py:33-47)."""
+    """Read an npz or miniSEED waveform file into a Stream; None (with a
+    warning) when it cannot be read, as detex_tpu's read (reference
+    getdata.read, getdata.py:33-47). An npz file is ``path`` or
+    ``path + ".npz"``; any other file is read as miniSEED when its first
+    record header says so."""
     p = path if path.endswith(".npz") else path + ".npz"
     if not os.path.exists(p):
         if _looks_mseed(path):
-            _unported("reading miniSEED file %s" % path)
+            return _mseed().read_mseed(path)
         detex_torch.log(__name__, "Cannot read %s" % path, level="warning")
         return None
     try:

@@ -14,15 +14,19 @@ only merged and trimmed and filtered on the device (scan_chunks_raw).
 ``batchSize`` chunks go through one summary-only scan per bank
 (parallel/scan.scan_chunks, calc_triggers=False: histograms and maxima
 only; the kernels fwd_prep_fold + spec_ds_fold, per block of 128 templates
-past 128), dispatched asynchronously and materialized one batch later, so
-the host prepares the next batch, or the next station, while the device
-scans. Chunks whose maximum passes a detector's threshold (less a gate
-margin) are re-verified densely (ops/ds.run_bank_triggers_batch on the
-kept device batch: rfft_ct_fused, irfft_ct_fused, ds_finalize_os_fold,
-then the STA/LTA and the exact trigger extraction on the device), or in
-float64 on the host with dtype="double". Magnitudes are estimated on the
-host in numpy, and rows are written to SQLite (util.saveSQLite) in
-materialize order: station, batch, bank, triggered chunk, template.
+past 128), sharded across every CUDA device of the host when there are
+several (parallel/scan.engine_mesh; DETEX_TORCH_MESH=0 keeps one device),
+dispatched asynchronously and materialized one batch later, so the host
+prepares the next batch, or the next station, while the device scans.
+Chunks whose maximum passes a detector's threshold (less a gate margin)
+are re-verified densely on the engine's device
+(ops/ds.run_bank_triggers_batch on the kept device batch, or on the chunks
+uploaded again after a sharded scan: rfft_ct_fused, irfft_ct_fused,
+ds_finalize_os_fold, then the STA/LTA and the exact trigger extraction on
+the device), or in float64 on the host with dtype="double". Magnitudes are
+estimated on the host in numpy, and rows are written to SQLite
+(util.saveSQLite) in materialize order: station, batch, bank, triggered
+chunk, template.
 
 trigCon=1 (triggering on the STA/LTA of the DS) and batchSize 1 run the
 unbatched path: one chunk at a time through ops/ds.run_bank (the
@@ -36,11 +40,11 @@ import numpy as np
 import torch
 
 import detex_torch
+from detex_torch import native as _native
 from detex_torch import util as _util
 from detex_torch.construct import _applyFilter, multiplex
 from detex_torch.ops import ds as _ds
 from detex_torch.ops import prep as _prep
-from detex_torch.ops import rolling as _rolling
 from detex_torch.ops import stalta as _stalta
 from detex_torch.ops import triggers as _triggers
 from detex_torch.parallel import scan as _pscan
@@ -295,6 +299,10 @@ class _SSDetex(object):
                    devicePrep=devicePrep, gate_eps=gate_eps, open_batches=0,
                    station_done=False)
         bins = self.hist["Bins"] if self.calcHist else None
+        # with several CUDA devices the batches are sharded across all of
+        # them (the sharded scan uploads each shard to its device itself);
+        # the re-verify stays on the engine's device
+        mesh = _pscan.engine_mesh(self.device)
 
         def dispatch(batch):
             if not batch:
@@ -317,7 +325,7 @@ class _SSDetex(object):
                     lens.extend([0] * (B - len(batch)))
                     hist, maxds, *_ = _pscan.scan_chunks_raw(
                         Xc, lens, bank["H"], bank, th, nc, buff_samps=1,
-                        bins=bins, max_trig=1, dec=self.dpDec,
+                        bins=bins, max_trig=1, dec=self.dpDec, mesh=mesh,
                         calc_hist=self.calcHist, calc_triggers=False)
                     outs.append((bank, hist, maxds, None, None))
                     continue
@@ -328,6 +336,15 @@ class _SSDetex(object):
                     X[bi, :L] = MPcon[:L]
                     lens.append(L)
                 lens.extend([0] * (B - len(batch)))
+                if mesh is not None:
+                    # no batch is kept on a mesh: triggered chunks upload
+                    # again to the engine's device for the re-verify
+                    hist, maxds, *_ = _pscan.scan_chunks(
+                        X, bank, th, nc, buff_samps=1, bins=bins,
+                        max_trig=1, valid_lens=lens, mesh=mesh,
+                        calc_hist=self.calcHist, calc_triggers=False)
+                    outs.append((bank, hist, maxds, None, None))
+                    continue
                 # the engine uploads the batch itself and keeps it until
                 # materialize: the dense re-verify gathers its triggered
                 # chunks from it instead of uploading them again
@@ -659,7 +676,7 @@ class _SSDetex(object):
             pe = MPcon[trigIndex * nc - 5 * WFlen: trigIndex * nc]
         else:
             pe = MPcon[trigIndex * nc: trigIndex * nc + WFlen + 6 * WFlen]
-        rollingstd = _rolling.rolling_std(pe, WFlen)
+        rollingstd = _native.rolling_std(pe, WFlen)
         baseNoise = np.median(rollingstd) if len(rollingstd) else np.nan
         SNR = np.std(ConDat) / baseNoise if baseNoise else np.nan
         touse = mags > -15

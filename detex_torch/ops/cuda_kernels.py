@@ -27,6 +27,8 @@ Kernels, the TPU kernel each replaces, and sources:
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from detex_torch.kernels import build as _build
@@ -39,10 +41,20 @@ LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
             "hist_uniform": 0, "ds_finalize": 0}
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(kernel):
+    """One launch of ``kernel``; sharded scans launch from several host
+    threads, one a card."""
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _on_cuda(*tensors):
@@ -121,7 +133,7 @@ def fwd_prep_fold(xq, nc, n_c, blk, out_len):
             B, nc, Lp, m, W, D0, pad0, n_c, int(out_len), Rp, log2m,
             _stream(dev))
     _build.check(lib, rc, "fwd_prep_fold")
-    LAUNCHES["fwd_prep_fold"] += 1
+    _count("fwd_prep_fold")
     return fr, fi, a, power
 
 
@@ -176,7 +188,7 @@ def spec_ds_fold(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head, blk,
             B, S, D, nc, m, W, head, Rp, int(nbin), int(mode == "sub"),
             log2m, _stream(dev))
     _build.check(lib, rc, "spec_ds_fold")
-    LAUNCHES["spec_ds_fold"] += 1
+    _count("spec_ds_fold")
     return ds, pyr, hist
 
 
@@ -232,7 +244,7 @@ def rfft_ct_fused(x, n, stride=None, frames=1):
         rc = lib.detex_rfft_ct(_ptr(x), _ptr(stage), _ptr(tw), _ptr(out), N,
                                Lp, m, W, log2m, _stream(x.device))
     _build.check(lib, rc, "rfft_ct_fused")
-    LAUNCHES["rfft_ct_fused"] += 1
+    _count("rfft_ct_fused")
     return out
 
 
@@ -258,7 +270,7 @@ def irfft_ct_fused(spec, n):
         rc = lib.detex_irfft_ct(_ptr(spec), _ptr(stage), _ptr(tw), _ptr(out),
                                 N, log2m, _stream(spec.device))
     _build.check(lib, rc, "irfft_ct_fused")
-    LAUNCHES["irfft_ct_fused"] += 1
+    _count("irfft_ct_fused")
     return out
 
 
@@ -304,7 +316,7 @@ def ds_finalize_os_fold(cb, a, power, sum_u, nv, head, D, W, group=1,
             _ptr(pyr), _ptr(hist), BS, D, m, blk, W, head, int(group),
             int(nbin), _stream(dev))
     _build.check(lib, rc, "ds_finalize_os_fold")
-    LAUNCHES["ds_finalize_os_fold"] += 1
+    _count("ds_finalize_os_fold")
     return ds, pyr, hist
 
 
@@ -335,7 +347,7 @@ def rfft_ct_half(x, n, stride=None, frames=1):
                                     _ptr(fi), N, Lp, m, W, Rp, log2m,
                                     _stream(x.device))
     _build.check(lib, rc, "rfft_ct_half")
-    LAUNCHES["rfft_ct_half"] += 1
+    _count("rfft_ct_half")
     return fr, fi
 
 
@@ -386,7 +398,7 @@ def ds_finalize_os_scan(cb, a, power, sum_u, nv, head, D, W, nbin=0):
             _ptr(pyr), _ptr(hist), S, D, m, cb.shape[2], W, head, int(nbin),
             _stream(dev))
     _build.check(lib, rc, "ds_finalize_os_scan")
-    LAUNCHES["ds_finalize_os_scan"] += 1
+    _count("ds_finalize_os_scan")
     return ds, pyr, hist
 
 
@@ -409,7 +421,7 @@ def ds_finalize_os(cb, a, power, sum_u, head, D, W):
             _ptr(cb), _ptr(a), _ptr(power), _ptr(sum_u), _ptr(ds), S, D, m,
             cb.shape[2], W, head, _stream(dev))
     _build.check(lib, rc, "ds_finalize_os")
-    LAUNCHES["ds_finalize_os"] += 1
+    _count("ds_finalize_os")
     return ds
 
 
@@ -431,7 +443,7 @@ def hist_uniform(ds, nbin):
         rc = lib.detex_hist_uniform(_ptr(ds), _ptr(hist), S, L, int(nbin),
                                     _stream(ds.device))
     _build.check(lib, rc, "hist_uniform")
-    LAUNCHES["hist_uniform"] += 1
+    _count("hist_uniform")
     return hist
 
 
@@ -460,5 +472,5 @@ def ds_finalize(cc, a, power, sum_u):
                                    _ptr(sum_u), _ptr(ds), S, D, L,
                                    _stream(cc.device))
     _build.check(lib, rc, "ds_finalize")
-    LAUNCHES["ds_finalize"] += 1
+    _count("ds_finalize")
     return ds

@@ -441,16 +441,45 @@ def spec_ds_mode(B, S, Dmax, n_c, nc, blk_fft):
     return "net" if S % ROW_TILE == 0 else "sub"
 
 
+# samples per segment of row_std_mean's first reduction
+ROW_STAT_SEG = 4096
+
+
+def row_std_mean(X):
+    """Population std and mean of every row of a chunk batch X [B, L]
+    (float32, [B, 1] each), the same bits whatever B is: std_mean over
+    segments of ROW_STAT_SEG samples (one segment a reduction output, so
+    that the library never splits a row's sum differently for another
+    number of rows), then the segments' moments and the tail's combined in
+    float64 (Chan's pairwise update)."""
+    B, L = X.shape
+    C = ROW_STAT_SEG
+    K = L // C
+    tail = X[:, K * C:].to(torch.float64)
+    s1 = tail.sum(dim=1, keepdim=True)
+    if K:
+        sd, mu = torch.std_mean(X[:, :K * C].reshape(B, K, C), dim=-1,
+                                correction=0)
+        mu = mu.to(torch.float64)
+        s1 = s1 + C * mu.sum(dim=1, keepdim=True)
+    mean = s1 / L
+    m2 = ((tail - mean) ** 2).sum(dim=1, keepdim=True)
+    if K:
+        m2 = m2 + C * (sd.to(torch.float64) ** 2 + (mu - mean) ** 2).sum(
+            dim=1, keepdim=True)
+    return (m2 / L).sqrt().to(torch.float32), mean.to(torch.float32)
+
+
 def standardize_demux(X, n_c, nc, blk_fft):
     """The block input of both preps (fused and dense) from a chunk batch
     X [B, Lc] (float32 tensor): per-row standardization (mean and
-    population std, sd 0 -> 1), demuxed to [B, nc, L_c] with ``pad0``
-    leading zeros and zeros up to Lp = m*W + D0. Returns
+    population std by row_std_mean, sd 0 -> 1), demuxed to [B, nc, L_c]
+    with ``pad0`` leading zeros and zeros up to Lp = m*W + D0. Returns
     (xq [B, nc, Lp], out_len)."""
     B, Lc = X.shape
     L_c = Lc // nc
     out_len, pad0, D0, W, m = _os_geometry(L_c, n_c, blk_fft)
-    sd, mu = torch.std_mean(X, dim=1, correction=0, keepdim=True)
+    sd, mu = row_std_mean(X)
     inv = 1.0 / torch.where(sd == 0, torch.ones_like(sd), sd)
     xq = torch.empty((B, nc, m * W + D0), dtype=torch.float32,
                      device=X.device)

@@ -122,7 +122,12 @@ def spec_ds_fold_ref(ur, ui, fr, fi, a, power, sum_u, nv, mode, nc, W, head,
     w[0] = w[M] = float(blk)
     acc = torch.zeros((B, S, m * W), dtype=torch.float32, device=dev)
     for d in range(D):
-        Y = torch.einsum("sck,bcmk->bsmk", U[d], F) * w
+        # the channel sum as a plain multiply-add in channel order, as the
+        # kernel sums: every row's value independent of the batch's size
+        Y = U[d][None, :, 0, None, :] * F[:, None, 0]
+        for c in range(1, nc):
+            Y = Y + U[d][None, :, c, None, :] * F[:, None, c]
+        Y = Y * w
         x = torch.fft.irfft(Y, n=blk, dim=-1)[..., head:head + W]
         y = x.reshape(B, S, m * W) - sum_u[d][None, :, None] * a[:, None, :]
         acc += y * y

@@ -9,7 +9,8 @@ window sums over million-sample rows keep ~1e-12 relative accuracy.
 detex_tpu's one-row ``rolling_sum``. The prefix is two-level, as in
 detex_tpu (there a triangular matmul for the TPU's matrix unit): PyTorch's
 cumsum scans each row of a few long rows in one thread block on the card.
-rolling_std is the engine's host float64 form (numpy in, numpy out).
+rolling_std is the host float64 form (numpy in, numpy out) that
+native.rolling_std falls back to without the host library.
 """
 from __future__ import annotations
 
@@ -104,8 +105,8 @@ def window_stats_rows(xc, n_c, n):
 def rolling_std(x, n):
     """Trailing rolling sample standard deviation (ddof 1) of a host row,
     in float64: length len(x) - n + 1, empty when x is shorter than n (the
-    SNR noise level of the engine's magnitudes; detex_tpu computes it with
-    native.rolling_std, whose numpy form this is)."""
+    SNR noise level of the engine's magnitudes, which both packages take
+    from native.rolling_std; this is its numpy form)."""
     x = np.asarray(x, dtype=np.float64)
     if len(x) < n:
         return np.array([])

@@ -1,7 +1,7 @@
 """
 Batched continuous-data scan over a bank of any form.
 
-Namesake of detex_tpu/parallel/scan.py on one device. scan_chunks takes
+Namesake of detex_tpu/parallel/scan.py. scan_chunks takes
 detex_tpu's route (_os_fold_route), in its order, on an overlap-save bank:
 
   fused    one spec_ds_fold launch over the whole chunk batch, prepped by
@@ -35,21 +35,34 @@ of TEMPLATE_BLOCK templates (any S).
 
 The caps that send a batch down the list are detex_tpu's (ops/ds.py
 FUSED_DS_BYTES, FOLD_CB_BYTES); its Pallas tile budgets have no
-counterpart here (ROADMAP C20). The multi-device scan raises
-NotImplementedError naming its ROADMAP item.
+counterpart here (ROADMAP C20).
+
+With a mesh of more than one entry (parallel/mesh.py) scan_chunks and
+scan_chunks_raw hand off to scan_chunks_sharded / scan_chunks_raw_sharded:
+the batch is padded to a multiple of the mesh size with zero-length
+chunks (_pad_batch), each entry scans its run of rows on its device
+against its copy of the bank, by the route _os_fold_route picks for the
+per-shard batch (names + "+sharded"), and the histograms are summed on the
+mesh's first device while the maxima and triggers are joined in shard
+order. engine_mesh is the mesh the engine shards over: every CUDA device
+when there are several (DETEX_TORCH_MESH=0 turns it off).
 """
 from __future__ import annotations
 
+import os
+import threading
 from collections import Counter
 
 import numpy as np
 import torch
 
 import detex_torch
+from detex_torch.kernels import build as _build
 from detex_torch.ops import cuda_kernels as _ck
 from detex_torch.ops import ds as _ds
 from detex_torch.ops import prep as _prep
 from detex_torch.ops import triggers as _triggers
+from detex_torch.parallel import mesh as _pmesh
 
 DEFAULT_BINS = np.linspace(0, 1, 401)
 
@@ -77,9 +90,12 @@ def route_name(route, mode):
     return "plain"
 
 
-def _note_route(name, device_prep=False):
+def _note_route(name, device_prep=False, sharded=False):
     """Count, and log once per unique name, the route a scan dispatched;
-    ``device_prep`` appends "+devicePrep" as detex_tpu does."""
+    ``sharded`` appends "+sharded" and ``device_prep`` "+devicePrep", as
+    detex_tpu does."""
+    if sharded:
+        name += "+sharded"
     if device_prep:
         name += "+devicePrep"
     ROUTE_COUNTS[name] += 1
@@ -87,6 +103,100 @@ def _note_route(name, device_prep=False):
         _ROUTES_LOGGED.add(name)
         detex_torch.log(__name__, "scan kernel route: %s" % name)
     return name
+
+
+def engine_mesh(device=None):
+    """The mesh the detection engine shards its chunk batches over: every
+    CUDA device of the host when there is more than one and ``device``
+    (the engine's) is a CUDA device, else None (one device). The
+    environment variable DETEX_TORCH_MESH=0 turns it off."""
+    if os.environ.get("DETEX_TORCH_MESH", "1") == "0":
+        return None
+    if device is not None and torch.device(device).type != "cuda":
+        return None
+    if torch.cuda.device_count() < 2:
+        return None
+    return _pmesh.make_mesh()
+
+
+def _pad_batch(n_dev, X, nv):
+    """Round the chunk batch X (numpy or a tensor) up to a multiple of the
+    mesh size with zero-length, fully masked chunks: zero rows and 0 in
+    ``nv`` (valid lengths, numpy). Returns (Xp, nvp, B_orig)."""
+    B = X.shape[0]
+    Bp = -(-B // n_dev) * n_dev
+    if Bp == B:
+        return X, nv, B
+    if isinstance(X, torch.Tensor):
+        Xp = torch.cat([X, X.new_zeros((Bp - B,) + tuple(X.shape[1:]))])
+    else:
+        Xp = np.zeros((Bp,) + X.shape[1:], X.dtype)
+        Xp[:B] = X
+    nvp = np.zeros(Bp, nv.dtype)
+    nvp[:B] = nv
+    return Xp, nvp, B
+
+
+def _upload(x, dev):
+    """Rows of a chunk batch (numpy or a tensor) as float32 on ``dev``."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _run_shards(mesh, B, body):
+    """body(i, r0, r1) for every mesh entry i over its rows [r0, r1) of a
+    batch of B chunks; the results in mesh order. The entries of one
+    device run in order in one host thread, one thread for each distinct
+    CUDA device, so that every card is handed its work while another
+    card's host work (its upload, a trigger loop that waits on it) is
+    under way; entries on the CPU or on a single card run in the calling
+    thread."""
+    ranges = _pmesh.shard_chunks(mesh, B)
+    groups = {}
+    for i, dev in enumerate(mesh):
+        groups.setdefault(dev, []).append(i)
+
+    def run(idx):
+        return [(i, body(i, *ranges[i])) for i in idx]
+
+    if sum(d.type == "cuda" for d in groups) < 2:
+        pairs = run(range(len(mesh)))
+    else:
+        _build.load_library()        # built once, before the threads
+        results = {}
+
+        def work(key, idx):
+            try:
+                results[key] = run(idx)
+            except BaseException as e:   # re-raised in the calling thread
+                results[key] = e
+
+        threads = [threading.Thread(target=work, args=(k, g))
+                   for k, g in enumerate(groups.values())]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        pairs = []
+        for k in range(len(threads)):
+            if isinstance(results[k], BaseException):
+                raise results[k]
+            pairs += results[k]
+    out = [None] * len(mesh)
+    for i, r in pairs:
+        out[i] = r
+    return out
+
+
+def _gather(mesh, outs, B):
+    """The shards' (hist, maxds, tidx, tval, tcnt) as one result on the
+    mesh's first device: the histograms summed (exact in int32), the rest
+    joined in shard order and cut back to the B real chunks."""
+    dev = mesh[0]
+    hist = outs[0][0].to(dev)
+    for o in outs[1:]:
+        hist = hist + o[0].to(dev)
+    return (hist,) + tuple(torch.cat([o[k].to(dev) for o in outs])[:B]
+                           for k in range(1, 5))
 
 
 def _uniform_nbin(bins):
@@ -453,6 +563,24 @@ def _scan_chunks_loop(X, NV, arrs, thresholds, bins, demux, n_c, nc, nfft,
                          calc_triggers, X.device)
 
 
+def _scan_rows(route, mode, arrs, th, X, NV, st, bins, buff_samps, max_trig,
+               calc_hist, unb, calc_triggers):
+    """A chunk batch X [B, Lc] with valid DS lengths NV on X's device,
+    scanned by the route _os_fold_route picked (its route, mode, arrays
+    and thresholds): scan_chunks' outputs on that device."""
+    if route:
+        return _fold_chunks_fn(
+            X, NV, arrs, th, st["n_c"], st["nc"], st["nfft"],
+            int(buff_samps), int(max_trig), st["S"], bool(calc_hist), unb,
+            mode, calc_triggers=bool(calc_triggers))
+    bins_t = torch.as_tensor(np.asarray(bins), dtype=torch.float32,
+                             device=X.device)
+    return _scan_chunks_loop(
+        X, NV, arrs, th, bins_t, st["demux"], st["n_c"], st["nc"],
+        st["nfft"], int(buff_samps), int(max_trig), st["S"],
+        bool(calc_hist), unb, bool(calc_triggers))
+
+
 def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
                 valid_lens=None, mesh=None, calc_hist=True,
                 calc_triggers=True, _device_prep=False):
@@ -467,32 +595,68 @@ def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
     zero-capacity (and on the fused route the DS array is never written).
     Uniform [0, 1] bins count by the floor rule, other bins by
     np.histogram's rule. X may be a numpy array or a tensor; it is moved to
-    the bank's device."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device scan: ROADMAP A11")
+    the bank's device. With a ``mesh`` of more than one entry the batch is
+    sharded across it (scan_chunks_sharded)."""
+    if mesh is not None and mesh.size > 1:
+        return scan_chunks_sharded(
+            mesh, X, bank, thresholds, nc, buff_samps, bins=bins,
+            max_trig=max_trig, valid_lens=valid_lens, calc_hist=calc_hist,
+            calc_triggers=calc_triggers, _device_prep=_device_prep)
     if bins is None:
         bins = DEFAULT_BINS
     st = _bank_statics(bank, nc)
     dev = bank["sum_u"].device
-    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    X = _upload(X, dev)
     nv = _valid_lens(bank, nc, X, valid_lens)
     unb = _uniform_nbin(bins)
     route, mode, arrs, th = _os_fold_route(
         bank, st, int(X.shape[0]), int(X.shape[1]) // st["nc"], unb,
         thresholds)
     _note_route(route_name(route, mode), device_prep=_device_prep)
-    NV = torch.as_tensor(nv, device=dev)
-    if route:
-        return _fold_chunks_fn(
-            X, NV, arrs, th, st["n_c"], st["nc"], st["nfft"],
-            int(buff_samps), int(max_trig), st["S"], bool(calc_hist), unb,
-            mode, calc_triggers=bool(calc_triggers))
-    bins_t = torch.as_tensor(np.asarray(bins), dtype=torch.float32,
-                             device=dev)
-    return _scan_chunks_loop(
-        X, NV, arrs, th, bins_t, st["demux"], st["n_c"], st["nc"],
-        st["nfft"], int(buff_samps), int(max_trig), st["S"],
-        bool(calc_hist), unb, bool(calc_triggers))
+    return _scan_rows(route, mode, arrs, th, X,
+                      torch.as_tensor(nv, device=dev), st, bins, buff_samps,
+                      max_trig, calc_hist, unb, calc_triggers)
+
+
+def scan_chunks_sharded(mesh, X, bank, thresholds, nc, buff_samps,
+                        bins=None, max_trig=64, valid_lens=None,
+                        calc_hist=True, calc_triggers=True,
+                        _device_prep=False):
+    """scan_chunks across the entries of ``mesh`` (detex_tpu
+    scan.py:921-960): the batch X [B, Lc] (numpy or a tensor) is padded to
+    a multiple of the mesh size with zero-length chunks (_pad_batch), each
+    entry's run of rows goes straight to its device and is scanned there
+    against the bank's copy on that device (mesh.replicated) by the route
+    _os_fold_route picks for the per-shard batch, every shard dispatched
+    before any result is read (_run_shards). Returns scan_chunks' outputs
+    on the mesh's first device: the histograms summed, maxima and triggers
+    in chunk order, cut back to B."""
+    if bins is None:
+        bins = DEFAULT_BINS
+    st = _bank_statics(bank, nc)
+    if not isinstance(X, torch.Tensor):
+        X = np.asarray(X, np.float32)
+    nv = _valid_lens(bank, nc, X, valid_lens)
+    X, nv, B = _pad_batch(mesh.size, X, nv)
+    unb = _uniform_nbin(bins)
+    Bs = int(X.shape[0]) // mesh.size
+    # the route is chosen on the per-shard batch, as detex_tpu chooses it;
+    # each copy of the bank caches its own derived arrays
+    plans = [_os_fold_route(rep, st, Bs, int(X.shape[1]) // st["nc"], unb,
+                            thresholds)
+             for rep in _pmesh.replicated(mesh, bank)]
+    _note_route(route_name(*plans[0][:2]), sharded=True,
+                device_prep=_device_prep)
+
+    def body(i, r0, r1):
+        dev = mesh[i]
+        route, mode, arrs, th = plans[i]
+        return _scan_rows(route, mode, arrs, th, _upload(X[r0:r1], dev),
+                          torch.as_tensor(nv[r0:r1], device=dev), st, bins,
+                          buff_samps, max_trig, calc_hist, unb,
+                          calc_triggers)
+
+    return _gather(mesh, _run_shards(mesh, int(X.shape[0]), body), B)
 
 
 def _chunk_fn_raw(xc, Lv, H, arrs, thresholds, bins, n_c, nc, nfft2,
@@ -527,11 +691,16 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
     multiplexed chunks with valid lengths (lens // dec) * nc. On a
     full-length demuxed bank of any number of templates: route
     "raw-demux", ds_bank_demux_raw per chunk and template block. A
-    multiplexed bank raises ValueError, as in detex_tpu."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device scan: ROADMAP A11")
+    multiplexed bank raises ValueError, as in detex_tpu. With a ``mesh`` of
+    more than one entry the batch is sharded across it
+    (scan_chunks_raw_sharded)."""
+    if mesh is not None and mesh.size > 1:
+        return scan_chunks_raw_sharded(
+            mesh, Xc, lens, H, bank, thresholds, nc, buff_samps, bins=bins,
+            max_trig=max_trig, dec=dec, calc_hist=calc_hist,
+            calc_triggers=calc_triggers)
     dev = bank["sum_u"].device
-    Xc = torch.as_tensor(Xc, dtype=torch.float32, device=dev)
+    Xc = _upload(Xc, dev)
     lens = [int(v) for v in lens]
     kind = _ds.bank_kind(bank)
     if kind == "os":
@@ -544,10 +713,19 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
                            _device_prep=True)
     if kind != "demux":
         raise ValueError("scan_chunks_raw requires a demuxed bank")
-    S = int(bank["sum_u"].shape[0])
     if bins is None:
         bins = DEFAULT_BINS
     _note_route("raw-demux", device_prep=True)
+    return _raw_demux_rows(bank, Xc, lens, H, thresholds, nc, buff_samps,
+                           bins, max_trig, dec, calc_hist, calc_triggers)
+
+
+def _raw_demux_rows(bank, Xc, lens, H, thresholds, nc, buff_samps, bins,
+                    max_trig, dec, calc_hist, calc_triggers):
+    """The "raw-demux" route over raw chunks Xc [B, nc, L_raw] on the
+    device of ``bank`` (a full-length demuxed bank): one _chunk_fn_raw a
+    chunk, the outputs stacked as scan_chunks returns them."""
+    dev = bank["sum_u"].device
     arrs = (bank["Ufd2"], bank["sum_u"], bank["d_mask"])
     th = torch.as_tensor(np.asarray(thresholds, np.float32), device=dev)
     bins_t = torch.as_tensor(np.asarray(bins), dtype=torch.float32,
@@ -557,5 +735,63 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
                           int(nc), bank["nfft2"], int(buff_samps),
                           int(max_trig), int(dec), bool(calc_hist), unb,
                           bool(calc_triggers)) for b in range(Xc.shape[0])]
-    return _stack_chunks(outs, Xc.shape[0], S, bins_t.shape[0] - 1,
-                         bool(calc_triggers), dev)
+    return _stack_chunks(outs, Xc.shape[0], int(bank["sum_u"].shape[0]),
+                         bins_t.shape[0] - 1, bool(calc_triggers), dev)
+
+
+def scan_chunks_raw_sharded(mesh, Xc, lens, H, bank, thresholds, nc,
+                            buff_samps, bins=None, max_trig=64, dec=1,
+                            calc_hist=True, calc_triggers=True):
+    """scan_chunks_raw across the entries of ``mesh`` (detex_tpu
+    scan.py:963-1006): the raw batch Xc [B, nc, L_raw] and its lens padded
+    to a multiple of the mesh size with zero-length chunks, and each
+    entry's rows prepared and scanned on its device. On an overlap-save
+    bank each shard runs prep_multiplex_batch and then the route picked
+    for the per-shard batch, with valid DS lengths
+    max((lens_mux - n) // nc + 1, 0); on a full-length demuxed bank the
+    "raw-demux" route a chunk. Returns scan_chunks_sharded's outputs."""
+    if bins is None:
+        bins = DEFAULT_BINS
+    kind = _ds.bank_kind(bank)
+    if kind not in ("os", "demux"):
+        raise ValueError("scan_chunks_raw requires a demuxed bank")
+    if not isinstance(Xc, torch.Tensor):
+        Xc = np.asarray(Xc, np.float32)
+    lens = np.asarray([int(v) for v in lens], np.int64)
+    Xc, lens, B = _pad_batch(mesh.size, Xc, lens)
+    reps = _pmesh.replicated(mesh, bank)
+    dec, nc = int(dec), int(nc)
+    if kind == "demux":
+        _note_route("raw-demux", sharded=True, device_prep=True)
+
+        def body(i, r0, r1):
+            dev = mesh[i]
+            return _raw_demux_rows(
+                reps[i], _upload(Xc[r0:r1], dev), lens[r0:r1].tolist(),
+                H.to(dev), thresholds, nc, buff_samps, bins, max_trig, dec,
+                calc_hist, calc_triggers)
+
+        return _gather(mesh, _run_shards(mesh, int(Xc.shape[0]), body), B)
+    st = _bank_statics(bank, nc)
+    unb = _uniform_nbin(bins)
+    nfftp = (int(H.shape[0]) - 1) * 2 // dec
+    n = int(bank["n"])
+    # the route is chosen on the per-shard batch of multiplexed chunks
+    Bs = int(Xc.shape[0]) // mesh.size
+    plans = [_os_fold_route(rep, st, Bs, int(Xc.shape[2]) // dec, unb,
+                            thresholds) for rep in reps]
+    _note_route(route_name(*plans[0][:2]), sharded=True, device_prep=True)
+
+    def body(i, r0, r1):
+        dev = mesh[i]
+        route, mode, arrs, th = plans[i]
+        X, lens_mux = _prep.prep_multiplex_batch(
+            _upload(Xc[r0:r1], dev), lens[r0:r1].tolist(), H.to(dev), nfftp,
+            dec, nc)
+        nv = np.maximum((np.asarray(lens_mux) - n) // nc + 1, 0)
+        return _scan_rows(route, mode, arrs, th, X,
+                          torch.as_tensor(nv.astype(np.int32), device=dev),
+                          st, bins, buff_samps, max_trig, calc_hist, unb,
+                          calc_triggers)
+
+    return _gather(mesh, _run_shards(mesh, int(Xc.shape[0]), body), B)

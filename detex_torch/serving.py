@@ -1,17 +1,20 @@
 """
 Deployment artifacts and the serving scan.
 
-Namesake of detex_tpu/serving.py: ``load_detectors`` reads the plain
-``.npz`` detector artifact that ``detex_tpu.serving.export_detectors``
-writes (per detector ``U__<station>__<name>`` [D, n] float32, plus a JSON
-``meta`` entry with each station's nc, sampling rate and detectors, and
-the artifact's ``filt`` and ``decimate``) and builds banks on the card
-unless ``device`` says otherwise; ``scan_station`` scans a station's
-multiplexed chunks against them with trigger extraction on, and
+Namesake of detex_tpu/serving.py: ``export_detectors`` writes a
+SubSpace's detectors as the plain ``.npz`` artifact detex_tpu's
+export_detectors writes (per detector ``U__<station>__<name>`` [D, n]
+float32, plus a JSON ``meta`` entry with each station's nc, sampling rate
+and detectors, and the artifact's ``filt`` and ``decimate``), so either
+package loads the other's; ``load_detectors`` reads it and builds banks on
+the card unless ``device`` says otherwise; ``scan_station`` scans a
+station's multiplexed chunks against them with trigger extraction on, and
 ``scan_station_raw`` its raw channel chunks with the device prep
-(ops/prep.py) fused in front of the scan; ``triggers_to_frame`` turns
-either's triggers into detection rows of the ss_df schema.
+(ops/prep.py) fused in front of the scan, both on one device or sharded
+across a ``mesh`` (parallel/mesh.py); ``triggers_to_frame`` turns either's
+triggers into detection rows of the ss_df schema.
 
+    detex_torch.serving.export_detectors(ss, "detectors.npz")
     dep = detex_torch.serving.load_detectors("detectors.npz")
     out = detex_torch.serving.scan_station(dep, "TA.S00", chunk_matrix)
     out = detex_torch.serving.scan_station_raw(dep, "TA.S00", raw_chunks)
@@ -28,6 +31,57 @@ import torch
 from detex_torch.ops import ds as _ds
 from detex_torch.ops import prep as _prep
 from detex_torch.parallel import scan as _scan
+
+
+def export_detectors(ss, path="detectors.npz", useSingles=True):
+    """Write every SVD-defined subspace (and every single template with
+    its sample trims, with ``useSingles``) of SubSpace ``ss`` to one npz
+    (detex_tpu serving.py:25-76): per detector U [D, n] float32 under
+    ``U__<station>__<name>``, and a JSON ``meta`` with each station's nc,
+    sampling rate and detectors (name, kind, threshold, offsets, mags,
+    events) and the clusters' filt and decimate. Returns ``path``."""
+    arrays = {}
+    meta = {"stations": {}, "filt": list(ss.clusters.filt or []),
+            "decimate": ss.clusters.decimate, "version": 1}
+    for sta in ss.Stations:
+        dets = []
+        frames = []
+        if sta in ss.ssStations:
+            frames.append(("ss", ss.subspaces[sta]))
+        if useSingles and sta in ss.singStations:
+            frames.append(("sg", ss.singles[sta]))
+        nc = sr = None
+        for kind, rows in frames:
+            for row in rows:
+                if kind == "ss":
+                    if not row["SVDdefined"]:
+                        continue
+                    U = np.array([row["SVD"][x] for x in row["UsedSVDKeys"]])
+                else:
+                    tr = row["SampleTrims"]
+                    if not tr:
+                        continue
+                    mptd = list(row["MPtd"].values())[0]
+                    upr = mptd[tr["Starttime"]:tr["Endtime"]]
+                    U = np.array([upr / np.linalg.norm(upr)])
+                stats0 = list(row["Stats"].values())[0]
+                nc = stats0["Nc"]
+                sr = stats0["sampling_rate"]
+                arrays["U__%s__%s" % (sta, row["Name"])] = U.astype(
+                    np.float32)
+                dets.append(dict(
+                    name=row["Name"], kind=kind,
+                    threshold=float(row["Threshold"]),
+                    offsets=[float(x) for x in np.atleast_1d(row["Offsets"])],
+                    mags=[float(row["Stats"][e]["magnitude"])
+                          for e in row["Events"]],
+                    events=list(row["Events"])))
+        if dets:
+            meta["stations"][sta] = dict(nc=int(nc), sr=float(sr),
+                                         detectors=dets)
+    arrays["meta"] = np.array(json.dumps(meta))
+    np.savez(path, **arrays)
+    return path
 
 
 def load_detectors(path, chunk_sec=3600.0, conBuff=120.0, *, device="cuda"):

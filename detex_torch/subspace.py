@@ -773,13 +773,17 @@ class SubSpace(object):
         of conDatDuration + conBuff seconds are the fetcher's over each
         station key row's span, or over [utcStart, utcEnd] (detex_tpu
         detect.py:304-309), or come from ``chunks(sta)`` when the caller
-        passes it; the other options are detect.detex's. The classify and
-        UTC-save modes (``classifyEvents``, ``utcSaves``) are not ported
-        (ROADMAP A14) and raise, as ``multiprocess`` does in both
-        packages."""
+        passes it; the other options are detect.detex's. With more than
+        one CUDA device the engine shards its chunk batches across all of
+        them by itself (DETEX_TORCH_MESH=0 keeps one device); ``batchSize``
+        is used as given, and a batch that the device count does not
+        divide is padded with empty chunks. The classify and UTC-save
+        modes (``classifyEvents``, ``utcSaves``) are not ported (ROADMAP
+        A14) and raise, as ``multiprocess`` does in both packages."""
         if multiprocess:
             detex_torch.log(__name__, "multiprocess is not supported: the "
-                            "engine batches chunks on the card",
+                            "engine batches chunks on the card and shards "
+                            "them across every CUDA device by itself",
                             level="error")
         if classifyEvents is not None or utcSaves is not None:
             detex_torch.log(__name__, "classifyEvents and utcSaves are not "

@@ -121,33 +121,6 @@ def test_shape_ladders_match(k):
     assert tds.pad_dims(k) == jds.pad_dims(k)
 
 
-def _small_bank(S=3):
-    return tds.build_bank(_U_list(np.random.default_rng(5), S=S, D=1),
-                          NC, LC, "cpu", block_fft=BLK)
-
-
-@pytest.mark.parametrize("case", ["mesh", "mux"])
-def test_unported_routes_raise(case):
-    """Every route detex_tpu would take that the port has not ported yet
-    raises NotImplementedError naming its ROADMAP item: the multi-device
-    scan on an overlap-save bank ("mesh") and the raw scan of a
-    multiplexed bank ("mux"). The template-blocked routes are ported
-    (tests/test_torch_blocked.py)."""
-    X = np.zeros((2, LC), np.float32)
-    kw = dict(buff_samps=250, max_trig=4)
-    with pytest.raises(NotImplementedError) as err:
-        if case == "mesh":
-            tscan.scan_chunks(X, _small_bank(), np.ones(3), NC,
-                              mesh=object(), **kw)
-        else:
-            bank = tds.build_bank([np.ones((1, N + 1))], NC, LC, "cpu")
-            assert tds.bank_kind(bank) == "mux"
-            tscan.scan_chunks_raw(X.reshape(2, NC, -1), [LC // NC] * 2,
-                                  torch.ones(LC // NC + 1), bank, np.ones(1),
-                                  NC, mesh=object(), **kw)
-    assert "ROADMAP A" in str(err.value)
-
-
 def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
     """With no nvcc anywhere the kernel build raises; nothing falls back."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -227,7 +200,10 @@ def test_port_imports_without_jax_or_pandas():
     chunks of one station, writing its rows to SQLite, and a tiny
     createCluster -> createSubSpace -> attachPickTimes -> SVD(threshold)
     on the CPU, and writes a tiny SynthCatalog directory, indexes it and
-    reads one chunk back through the 'dir' fetcher. The imports are refused by a finder at the head of
+    reads one chunk back through the 'dir' fetcher, and runs a scan
+    sharded over a 4-entry CPU mesh (parallel.mesh) and a miniSEED
+    round trip of that chunk through the port's native library (native,
+    data.mseed). The imports are refused by a finder at the head of
     sys.meta_path (a None entry in sys.modules would also break scipy's
     check for JAX arrays inside scipy.cluster)."""
     code = (
@@ -331,6 +307,25 @@ def test_port_imports_without_jax_or_pandas():
         "cf = fetcher.DataFetcher('dir', directoryName=paths['conDir'])\n"
         "st = next(cf.getConData(paths['stationKey']))\n"
         "assert len(st) == 3 and len(st[0].data) == 37200\n"
+        "from detex_torch import native\n"
+        "from detex_torch.parallel import mesh\n"
+        "from detex_torch.data import mseed, waveio\n"
+        "m4 = mesh.make_mesh(devices=['cpu'] * 4)\n"
+        "scan.ROUTE_COUNTS.clear()\n"
+        "out4 = scan.scan_chunks(X[[0, 1, 0]], bank, np.ones(1), 3, 250,\n"
+        "                        mesh=m4)\n"
+        "out1 = scan.scan_chunks(X[[0, 1, 0]], bank, np.ones(1), 3, 250)\n"
+        "assert 'fused-sub+fusedprep+sharded' in scan.ROUTE_COUNTS\n"
+        "assert out4[0].equal(out1[0]) and out4[1].shape == (3, 1)\n"
+        "assert native.available()\n"
+        "assert str(native.library_path()).startswith(\n"
+        "    os.path.join(os.path.dirname(detex_torch.__file__), 'kernels'))\n"
+        "ms = os.path.join(tempfile.mkdtemp(), 'x.msd')\n"
+        "st.write(ms, 'mseed')\n"
+        "back = waveio.read(ms)\n"
+        "assert [t.id for t in back] == [t.id for t in st]\n"
+        "assert all(np.array_equal(a.data, b.data) for a, b in\n"
+        "           zip(back, st))\n"
         "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"

@@ -8,8 +8,8 @@ the catalog (events, hidden events, travel times, source wavelets), every
 written array, the index tables of one directory indexed by each package,
 and the chunks of getTemData and getConData (plain, trimmed to utcstart /
 utcend, and the seeded random draw FAS takes its null from), read with
-detex_tpu's scipy filters (its native library switched off: the detrend
-of getStream is scipy's in both). The key CSVs are byte-identical. The
+both packages' scipy filters (their native libraries switched off: the
+detrend of getStream is scipy's in both). The key CSVs are byte-identical. The
 port's readKey keeps pandas' column typing and its NaN for empty cells.
 """
 import filecmp
@@ -27,6 +27,7 @@ from detex_tpu.data import fetcher as jfetch
 from detex_tpu.data import keys as jkeys
 from detex_tpu.data import synth as jsynth
 from detex_tpu.data import waveio as jwaveio
+from detex_torch import native as tnative
 from detex_torch.core import Stream as TStream
 from detex_torch.core import Trace as TTrace
 from detex_torch.data import fetcher as tfetch
@@ -53,9 +54,11 @@ def cats(tmp_path_factory):
 
 @pytest.fixture()
 def scipy_filters(monkeypatch):
-    """detex_tpu's host filters on scipy (its native library off)."""
-    monkeypatch.setattr(jnative, "_TRIED", True)
-    monkeypatch.setattr(jnative, "_LIB", None)
+    """Both packages' host filters on scipy (their native libraries
+    off)."""
+    for lib in (jnative, tnative):
+        monkeypatch.setattr(lib, "_TRIED", True)
+        monkeypatch.setattr(lib, "_LIB", None)
 
 
 def _same_streams(a, b):
@@ -171,11 +174,8 @@ def test_npz_files_read_across_packages(tmp_path):
                   twaveio.read(str(tmp_path / "t.npz")))
     _same_streams(twaveio.read(str(tmp_path / "t")), tst)
     assert twaveio.read(str(tmp_path / "missing.npz")) is None
-    with pytest.raises(NotImplementedError, match="A20"):
-        tst.write(str(tmp_path / "x.msd"), "mseed")
-    (tmp_path / "r.msd").write_bytes(b"000001D " + bytes(56))
-    with pytest.raises(NotImplementedError, match="A20"):
-        twaveio.read(str(tmp_path / "r.msd"))
+    with pytest.raises(NotImplementedError, match="obspy"):
+        tst.write(str(tmp_path / "x.sac"), "sac")
 
 
 def _tables(db):

@@ -5,10 +5,11 @@ detex_tpu namesakes on the same inputs: the chunk preprocessing
 (rolling.rolling_std) and the SQLite rows (util.saveSQLite /
 loadSQLite).
 
-detex_tpu filters with its native C++ library when it is built and with
-scipy otherwise; the port always uses scipy. Its preprocessing is held
-bit for bit against detex_tpu's scipy path and within 1e-9 (relative to
-the trace's scale) against the native one.
+Both packages filter with the native C++ library (each its own build of
+native/detex_host.cpp) when it is built and with scipy otherwise. The
+port's preprocessing is held bit for bit against detex_tpu's on either
+path, and its native path within 1e-9 (relative to the trace's scale) of
+the scipy one.
 """
 import sqlite3
 
@@ -24,6 +25,7 @@ from detex_tpu.core import Trace as JTrace
 from detex_tpu.detect import SAR_COLS as JSAR_COLS
 from detex_tpu.ops import stalta as jstalta
 from detex_torch import construct as tcons
+from detex_torch import native as tnative
 from detex_torch import util as tutil
 from detex_torch.core import Stream as TStream
 from detex_torch.core import Trace as TTrace
@@ -82,15 +84,20 @@ FILTER_CASES = {
 @pytest.mark.parametrize("case", sorted(FILTER_CASES))
 def test_apply_filter_and_multiplex_match_jax(monkeypatch, case, native):
     """_applyFilter then multiplex on the same Stream: the same start time,
-    sampling rate and multiplexed samples as detex_tpu's, identical
-    against its scipy path and within 1e-9 of the scale against its
-    native library."""
+    sampling rate and multiplexed samples as detex_tpu's, identical with
+    both packages on scipy and with both on their native libraries; the
+    native path within 1e-9 of the scale of the scipy one."""
     pieces, filt, dec, dtype, fill = FILTER_CASES[case]
+
+    def scipy_only():
+        for lib in (jnative, tnative):
+            monkeypatch.setattr(lib, "_TRIED", True)
+            monkeypatch.setattr(lib, "_LIB", None)
+
     if not native:
-        monkeypatch.setattr(jnative, "_TRIED", True)
-        monkeypatch.setattr(jnative, "_LIB", None)
-    elif not jnative.available():
-        pytest.skip("detex_tpu's native library is not built here")
+        scipy_only()
+    elif not (jnative.available() and tnative.available()):
+        pytest.skip("the native library is not built here")
     js, ts = _streams(_pieces(np.random.default_rng(len(case)), pieces))
     jst = jcons._applyFilter(js, filt, dec, dtype, fillZeros=fill)
     tst = tcons._applyFilter(ts, filt, dec, dtype, fillZeros=fill)
@@ -102,12 +109,15 @@ def test_apply_filter_and_multiplex_match_jax(monkeypatch, case, native):
     got = tcons.multiplex(tst, 3)
     want = jcons.multiplex(jst, 3)
     assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
     if native:
-        scale = np.abs(want).max()
-        assert np.abs(got.astype(np.float64) - want).max() <= (
+        scipy_only()
+        _, ts = _streams(_pieces(np.random.default_rng(len(case)), pieces))
+        sp = tcons.multiplex(tcons._applyFilter(ts, filt, dec, dtype,
+                                                fillZeros=fill), 3)
+        scale = np.abs(sp).max()
+        assert np.abs(got.astype(np.float64) - sp).max() <= (
             1e-9 * scale if dtype == "double" else 1e-6 * scale)
-    else:
-        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("sta", [0, 1, 37])

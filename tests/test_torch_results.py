@@ -29,6 +29,7 @@ from detex_tpu import native as jnative
 from detex_tpu import results as jres
 from detex_tpu import util as jutil
 from detex_tpu.core.utc import UTCDateTime as JUTC
+from detex_torch import native as tnative
 from detex_torch import results as tres
 from detex_torch import util as tutil
 
@@ -241,12 +242,13 @@ def test_load_sqlite_sql_option(db):
 
 
 def test_write_detections_match_jax(db, monkeypatch):
-    """writeDetections of both packages (detex_tpu's getStream on scipy's
-    detrend): the same waveform files, array for array, and a
-    byte-identical new template key; every station of the station key
-    written for every new detection."""
-    monkeypatch.setattr(jnative, "_TRIED", True)
-    monkeypatch.setattr(jnative, "_LIB", None)
+    """writeDetections of both packages (their getStream on scipy's
+    detrend, both native libraries off): the same waveform files, array
+    for array, and a byte-identical new template key; every station of the
+    station key written for every new detection."""
+    for lib in (jnative, tnative):
+        monkeypatch.setattr(lib, "_TRIED", True)
+        monkeypatch.setattr(lib, "_LIB", None)
     got, want = _both(db, "default")
     out = {}
     for tag, res in (("t", got), ("j", want)):
