@@ -163,10 +163,39 @@ port's paths through the entry points a user calls:
                bit; write and read MB/s.
            With several cards, B1, B2, B6, B7 and B10 are held against
            their twins on the last one.
+  phase J  the engine's classify and UTC-save modes on the per-chunk path
+           (ops/ds.run_bank: rfft_ct_fused, irfft_ct_fused,
+           ds_finalize_os), saved objects and quality_check, on H2's
+           objects at full width:
+           J1  SubSpace.detex(classifyEvents=<H2's template key>) over both
+               stations: one EventCors_<sta>.pkl a station, a row for each
+               (event, subspace), each row's DS within 2e-5 of the float64
+               oracle on the same multiplexed event chunk, every training
+               event above 0.8 on its own subspace;
+           J2  utcSaves at the hidden events' times: each saved row spans
+               its time, its MPcon is the host multiplex of its hour, its
+               SSdetect within 2e-5 of the float64 oracle with the argmax
+               at the oracle's (or a near tie, printed); classify and
+               utcSaves with a 5 s template buffer cut every DS vector by
+               int((duration - 5) * sr) samples;
+           J3  H2's detex at batchSize 1 against H2's batched rows (same
+               rows, STMP exact, DS within 2e-5), then trigCon 1 at
+               batchSize 1 (every DS_STALTA above the threshold, every
+               hidden event among the rows); station-hours/s of each run;
+           J4  ClusterStream.write -> util.loadClusters ->
+               createSubSpace(clust=path) equal to the in-memory call,
+               SubSpace.write -> util.loadSubSpace, whose detex over eight
+               hours of one station gives the original's rows; a pickle
+               naming a detex_tpu class refused without importing it;
+           J5  quality_check.check_data_quality on H2's continuous
+               directory: every file passes.
+           Every kernel the phase launches is held against its twin on the
+           inputs of its first launch.
 
 ``python3 chip_smoke.py --phases I`` builds the kernels and the native
 library and runs phase H2 (phase I's SubSpace and hour files), phase I
 and the holds on the last card alone, for a four-card machine.
+``--phases J`` runs phase H2 and phase J alone.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -176,7 +205,8 @@ nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
 counts its launches over every phase ("launches"), over the engine's
 phases F1-F3 ("engine_launches"), over the construction phases G1-G2
 ("construct_launches"), over the key-file pipeline H1-H2
-("pipeline_launches") and over phase I ("mesh_launches").
+("pipeline_launches"), over phase I ("mesh_launches") and over phase J
+("modes_launches").
 """
 from __future__ import annotations
 
@@ -202,6 +232,7 @@ from detex_torch.parallel import scan as tscan
 from detex_torch import construct, detect, fas, native, serving, util
 from detex_torch.ops import xcorr
 from detex_torch.core import Stream, Trace
+from detex_torch.core.utc import UTCDateTime
 
 NC = 3
 SR = 100.0
@@ -2346,7 +2377,8 @@ def phase_g2(dev, g, tmpdir):
     t0 = time.perf_counter()
     cl = construct.createCluster(streams=g["streams"],
                                  templates=g["templates"], CCreq=0.5,
-                                 filt=G_FILT, trim=list(G_TRIM), device=dev)
+                                 filt=G_FILT, trim=list(G_TRIM),
+                                 saveclust=False, device=dev)
     stages["cluster"] = time.perf_counter() - t0
     by_src = {}
     for e in g["events"]:
@@ -2534,7 +2566,8 @@ def case1_run(params, dtype, workdir, device):
     clust = stage("cluster", detex_torch.createCluster,
                   fetch_arg=paths["eventDir"],
                   stationKey=paths["stationKey"],
-                  templateKey=paths["templateKey"], dtype=dtype,
+                  templateKey=paths["templateKey"], saveclust=False,
+                  fileName=os.path.join(workdir, "clust.pkl"), dtype=dtype,
                   device=device, **p["createCluster"])
     cfetcher = getdata.DataFetcher("dir", directoryName=paths["conDir"])
     ss = stage("subspace", detex_torch.createSubSpace, clust=clust,
@@ -3381,6 +3414,410 @@ def hold_off_device(dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase J: the engine's classify and UTC-save modes on the per-chunk path,
+# saved objects, quality_check
+# ---------------------------------------------------------------------------
+
+J_STALTA = dict(trigCon=1, triggerLTATime=60, triggerSTATime=2,
+                staltaThreshold=4.0)
+
+
+def j_prepped(st, ss, dtype="single"):
+    """A chunk prepped as the engine preps it (_applyFilter at ``dtype``,
+    multiplex): (multiplexed samples, start timestamp, sampling rate)."""
+    st = construct._applyFilter(st, ss.clusters.filt, ss.clusters.decimate,
+                                dtype)
+    return (construct.multiplex(st, NC), st[0].stats.starttime.timestamp,
+            st[0].stats.sampling_rate)
+
+
+def j_detectors(ss, issubspace=True):
+    """{(sta, name): U} of the engine's detectors of ``ss``."""
+    return {(sta, d["name"]): d["U"]
+            for sta, st in ss._stations(issubspace).items()
+            for d in st["detectors"]}
+
+
+def j_in(workdir, fn):
+    """fn() run in ``workdir`` (the modes write their tables to the
+    working directory), and its wall seconds."""
+    os.makedirs(workdir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+
+def j1_classify(h2, tmpdir):
+    """J1: SubSpace.detex(classifyEvents=<the template key>) over every
+    station: one EventCors_<sta>.pkl a station with a row for each
+    (event, subspace); each row's DS within 2e-5 of the float64 oracle
+    (ds_numpy) on the same multiplexed event chunk; every training event
+    classified into its own subspace: its DS there above that subspace's
+    threshold and above its DS on every other subspace of the station
+    (the lowest such DS is printed: a training event's DS on its own
+    subspace is the energy the basis captures of it, which the 0.9
+    average capture of SVD's selectValue does not bound per event)."""
+    from detex_torch.data.keys import readKey
+    ss, paths = h2["ss"], h2["paths"]
+    wd = os.path.join(tmpdir, "j1")
+    wall = j_in(wd, lambda: ss.detex(
+        subspaceDB="j1.db", classifyEvents=paths["templateKey"],
+        useSingles=False))
+    fet = ss.clusters.fetcher
+    temkey = readKey(paths["templateKey"], "template")
+    dets = j_detectors(ss)
+    n_rows, err = 0, 0.0
+    low, own = [], []
+    for sta in ss.ssStations:
+        rows = util.readRows(os.path.join(wd, "EventCors_%s.pkl" % sta))
+        need(all(list(r) == detect.EVENT_COR_COLS for r in rows),
+             "phase J1 %s: EventCors columns" % sta)
+        got = {(r["Name"], r["TimeStamp"]): r["DS"] for r in rows}
+        names = [r["Name"] for r in ss.subspaces[sta]]
+        skey = [r for r in ss.clusters.stakey
+                if r["STATION"] == sta.split(".")[1]]
+        n_ev = 0
+        for st, ev in fet.getTemData(temkey, skey, returnName=True):
+            x, tstamp, _ = j_prepped(st, ss)
+            n_ev += 1
+            for name in names:
+                need((name, tstamp) in got, "phase J1 %s: no row for %s on "
+                     "%s" % (sta, name, ev))
+                ds64 = tds.ds_numpy(x, dets[(sta, name)], NC).max()
+                err = max(err, abs(got[(name, tstamp)] - ds64))
+            for row in ss.subspaces[sta]:
+                if ev not in row["Events"]:
+                    continue
+                mine = got[(row["Name"], tstamp)]
+                own.append(mine)
+                if mine <= row["Threshold"] or any(
+                        got[(nm, tstamp)] >= mine for nm in names
+                        if nm != row["Name"]):
+                    low.append((sta, row["Name"], ev, mine, {
+                        nm: got[(nm, tstamp)] for nm in names}))
+        need(len(rows) == n_ev * len(names) and n_ev == len(temkey),
+             "phase J1 %s: %d rows for %d events x %d subspaces"
+             % (sta, len(rows), n_ev, len(names)))
+        n_rows += len(rows)
+    need(err <= 2e-5, "phase J1 classify DS err %g vs the float64 oracle"
+         % err)
+    need(own and not low, "phase J1 training events not classified into "
+         "their own subspace: %s" % low)
+    say("phase J1: classify %d events x %d stations: %d EventCors rows, DS "
+        "err vs float64 %.3g; every training event (%d) classified into its "
+        "own subspace, its DS there %.4f to %.4f; %.3f s (%s)"
+        % (len(temkey), len(ss.ssStations), n_rows, err, len(own),
+           min(own), max(own), wall, card_line()))
+    return dict(wall=wall, err=err)
+
+
+def j_hours(h2):
+    """Station-hours of continuous data the engine scans."""
+    cf, ss = h2["cfetcher"], h2["ss"]
+    n = 0
+    for sta in ss.Stations:
+        skey = [r for r in ss.clusters.stakey
+                if r["STATION"] == sta.split(".")[1]]
+        for r in skey:
+            span = (UTCDateTime(r["ENDTIME"]).timestamp -
+                    UTCDateTime(r["STARTTIME"]).timestamp)
+            n += span / cf.conDatDuration
+    return n
+
+
+def j2_utc_saves(h2, tmpdir):
+    """J2: utcSaves at the hidden events' times: every saved row spans its
+    time, its MPcon is the host multiplex of the same hour, its SSdetect
+    within 2e-5 of the float64 oracle with the argmax at the oracle's (or
+    at a near tie of it, printed). Then classify and utcSaves together
+    with the template fetcher's conBuff at 5 s: every DS vector shorter
+    than at the default conBuff by int((duration - 5) * sr) samples."""
+    ss, cf, cat = h2["ss"], h2["cfetcher"], h2["cat"]
+    times = [e["time"] for e in cat.hidden]
+    wd = os.path.join(tmpdir, "j2")
+    wall = j_in(wd, lambda: ss.detex(subspaceDB="j2.db", utcSaves=times,
+                                     useSingles=False))
+    rows = util.readRows(os.path.join(wd, "UTCsaves.pkl"))
+    dets = j_detectors(ss)
+    need(all(list(r) == detect.UTC_SAVE_COLS for r in rows),
+         "phase J2 UTCsaves columns")
+    covered = set()
+    keys = {r["STATION"]: r for r in ss.clusters.stakey}
+    cache = {}
+    err, ties = 0.0, 0
+    for r in rows:
+        need(all(r["TS1"] <= t <= r["TS2"] for t in r["utcSaves"]),
+             "phase J2 row %s %s spans %.3f-%.3f, not %s" % (
+                 r["Station"], r["Name"], r["TS1"], r["TS2"],
+                 r["utcSaves"]))
+        covered.update((r["Station"], float(t)) for t in r["utcSaves"])
+        key = (r["Station"], r["TS1"])
+        if key not in cache:
+            t0 = np.floor(r["TS1"] / cf.conDatDuration) * cf.conDatDuration
+            st = next(cf.getConData([keys[r["Station"].split(".")[1]]],
+                                    utcstart=t0, utcend=t0 +
+                                    cf.conDatDuration + cf.conBuff), None)
+            need(st is not None, "phase J2: no chunk at %.0f" % t0)
+            cache[key] = j_prepped(st, ss)[0]
+        x = cache[key]
+        need(np.array_equal(r["MPcon"], x), "phase J2 %s %s: MPcon is not "
+             "the host multiplex of its hour" % (r["Station"], r["Name"]))
+        ds64 = tds.ds_numpy(x, dets[(r["Station"], r["Name"])], NC)
+        need(ds64.shape == r["SSdetect"].shape, "phase J2 SSdetect length "
+             "%d, oracle %d" % (len(r["SSdetect"]), len(ds64)))
+        err = max(err, float(np.abs(r["SSdetect"] - ds64).max()))
+        i, i64 = int(np.argmax(r["SSdetect"])), int(np.argmax(ds64))
+        if i != i64:
+            need(ds64[i64] - ds64[i] <= 2e-5, "phase J2 %s %s argmax %d, "
+                 "oracle %d (%.6f against %.6f)" % (
+                     r["Station"], r["Name"], i, i64, ds64[i], ds64[i64]))
+            ties += 1
+            say("phase J2 %s %s: argmax %d, oracle %d: a near tie (%.3g)"
+                % (r["Station"], r["Name"], i, i64, ds64[i64] - ds64[i]))
+    need(err <= 2e-5, "phase J2 SSdetect err %g vs the float64 oracle"
+         % err)
+    need({t for _, t in covered} == set(times) and
+         len(covered) == len(times) * len(ss.ssStations),
+         "phase J2: saved %d (station, time) pairs of %d"
+         % (len(covered), len(times) * len(ss.ssStations)))
+    # classify + utcSaves with a short template buffer
+    fet = ss.clusters.fetcher
+    row0 = ss.subspaces[ss.ssStations[0]][0]
+    ev0 = row0["Events"][0]
+    sr = row0["Stats"][ev0]["sampling_rate"]
+    t_ev = UTCDateTime(h2["clust"].templates[ev0]["time"]).timestamp + 3
+    dur = (row0["SampleTrims"]["Endtime"] -
+           row0["SampleTrims"]["Starttime"]) / (sr * NC)
+    lens = {}
+    old = fet.conBuff
+    try:
+        for buff in (old, 5.0):
+            fet.conBuff = buff
+            wdb = os.path.join(tmpdir, "j2_%g" % buff)
+            j_in(wdb, lambda: ss.detex(
+                subspaceDB="c.db", classifyEvents=h2["paths"]["templateKey"],
+                utcSaves=[t_ev], useSingles=False))
+            saved = util.readRows(os.path.join(wdb, "UTCsaves.pkl"))
+            lens[buff] = {(r["Station"], r["Name"]): len(r["SSdetect"])
+                          for r in saved}
+    finally:
+        fet.conBuff = old
+    cut = int((dur - 5.0) * sr)
+    need(lens[old] and sorted(lens[old]) == sorted(lens[5.0]) and all(
+        lens[old][k] - lens[5.0][k] == cut for k in lens[old]),
+        "phase J2 conBuff trim: lengths %s and %s, expected a cut of %d"
+        % (lens[old], lens[5.0], cut))
+    rate = j_hours(h2) / wall
+    say("phase J2: utcSaves at %d hidden-event times: %d rows, MPcon the "
+        "host multiplex, SSdetect err vs float64 %.3g, %d near-tie argmax; "
+        "%.3f s, %.3f station-hours/s; classify at conBuff 5 s cuts %d "
+        "samples from %d DS vectors (%s)" % (
+            len(times), len(rows), err, ties, wall, rate, cut,
+            len(lens[5.0]), card_line()))
+    return dict(wall=wall, rate=rate, err=err)
+
+
+def j3_unbatched(h2, tmpdir):
+    """J3: H2's detex on the per-chunk path (batchSize 1) against H2's
+    batched rows (same rows, STMP exact, DS within 2e-5); then trigCon 1
+    (STA/LTA of the DS) at batchSize 1: every row's DS_STALTA above the
+    threshold and every hidden event inside a row's window (10 s margin,
+    as phase H verifies them)."""
+    ss, cat = h2["ss"], h2["cat"]
+    hours = j_hours(h2)
+    out = {}
+    db1 = os.path.join(tmpdir, "j3_b1.db")
+    out["batch1"] = j_in(tmpdir, lambda: ss.detex(
+        subspaceDB=db1, batchSize=1, **H2_PARAMS["detex"]))
+    n_rows, err = 0, 0.0
+    for table in ("ss_df", "sg_df"):
+        def srt(rows):
+            return sorted(rows, key=lambda r: (r["Sta"], r["Name"],
+                                               r["STMP"]))
+        got = srt(util.loadSQLite(db1, table) or [])
+        want = srt(util.loadSQLite(h2["db"], table) or [])
+        need([(r["Sta"], r["Name"], r["STMP"]) for r in got] ==
+             [(r["Sta"], r["Name"], r["STMP"]) for r in want],
+             "phase J3 %s: %d per-chunk rows, %d batched, (Sta, Name, "
+             "STMP) differ" % (table, len(got), len(want)))
+        if got:
+            err = max(err, max(abs(a["DS"] - b["DS"])
+                               for a, b in zip(got, want)))
+        n_rows += len(got)
+    need(n_rows > 0 and err <= 2e-5, "phase J3 batchSize 1: %d rows, DS "
+         "err %g against the batched rows" % (n_rows, err))
+    db2 = os.path.join(tmpdir, "j3_tc1.db")
+    out["trigcon1"] = j_in(tmpdir, lambda: ss.detex(
+        subspaceDB=db2, batchSize=1, useSingles=False, **J_STALTA))
+    rows = util.loadSQLite(db2, "ss_df") or []
+    need(rows and all(r["DS_STALTA"] > J_STALTA["staltaThreshold"]
+                      for r in rows), "phase J3 trigCon 1: %d rows, DS_STALTA"
+         " at or under the threshold" % len(rows))
+    missed = [e["time"] for e in cat.hidden if not any(
+        r["MSTAMPmin"] - 10 <= e["time"] <= r["MSTAMPmax"] + 10
+        for r in rows)]
+    need(not missed, "phase J3 trigCon 1 misses hidden events %s" % missed)
+    say("phase J3: per-chunk path (batchSize 1) %.3f s, %.3f station-hours/s"
+        " (batched H2 detex %.3f s, %.3f station-hours/s): %d rows equal to "
+        "the batched rows, DS err %.3g; trigCon 1 %.3f s, %.3f "
+        "station-hours/s, %d rows, every hidden event among them (%s)"
+        % (out["batch1"], hours / out["batch1"], h2["detex_s"],
+           hours / h2["detex_s"], n_rows, err, out["trigcon1"],
+           hours / out["trigcon1"], len(rows), card_line()))
+    return dict(err=err, rates={k: hours / v for k, v in out.items()},
+                walls=out)
+
+
+FOREIGN_PICKLE = b"\x80\x02cdetex_tpu.subspace\nClusterStream\nq\x00)\x81q\x01."
+
+
+def j4_objects(dev, h2, tmpdir, n_hours=8):
+    """J4: ClusterStream.write -> util.loadClusters -> createSubSpace(clust
+    = the path), its rows equal to createSubSpace on the cluster in
+    memory; SubSpace.write -> util.loadSubSpace, whose detex over n_hours
+    of the first station gives the original's rows; a pickle naming a
+    detex_tpu class refused without importing detex_tpu."""
+    import sys
+    from detex_torch import subspace
+    clust, ss, cf = h2["clust"], h2["ss"], h2["cfetcher"]
+    t0 = time.perf_counter()
+    clust.write()
+    back = util.loadClusters(clust.filename, device=dev)
+    need([c.clusts for c in back.clusters] == [c.clusts for c in
+                                                clust.clusters],
+         "phase J4 loaded clusters differ")
+    kw = dict(dtype="single", conDatFetcher=cf, **H2_PARAMS["createSubSpace"])
+    a = construct.createSubSpace(clust=clust.filename, device=dev, **kw)
+    b = construct.createSubSpace(clust=clust, **kw)
+    for sta in b.subspaces:
+        for ra, rb in zip(a.subspaces[sta], b.subspaces[sta]):
+            need(ra["Events"] == rb["Events"] and all(
+                np.array_equal(ra["AlignedTD"][e], rb["AlignedTD"][e])
+                for e in rb["Events"]), "phase J4 %s %s: createSubSpace "
+                 "from the path differs" % (sta, rb["Name"]))
+    path = os.path.join(tmpdir, "j4_subspace.pkl")
+    ss.write(path)
+    ss2 = util.loadSubSpace(path, device=dev)
+    t_io = time.perf_counter() - t0
+    sta = ss.Stations[0]
+    skey = [r for r in ss.clusters.stakey
+            if r["STATION"] == sta.split(".")[1]]
+    start = UTCDateTime(skey[0]["STARTTIME"]).timestamp
+    base = subspace._fetcher_con_chunks(cf, ss.clusters.stakey, start,
+                                        start + n_hours * cf.conDatDuration)
+
+    def chunks(s):
+        return base(s) if s == sta else iter(())
+    tables = []
+    for obj, tag in ((ss, "orig"), (ss2, "loaded")):
+        db = os.path.join(tmpdir, "j4_%s.db" % tag)
+        obj.detex(subspaceDB=db, chunks=chunks, **H2_PARAMS["detex"])
+        tables.append({t: util.loadSQLite(db, t, columns=True)
+                       for t in ("ss_df", "sg_df")})
+    n_rows = 0
+    for t in tables[0]:
+        a, b = tables[0][t], tables[1][t]
+        need(sorted(a) == sorted(b) and all(
+            np.array_equal(np.asarray(a[c]), np.asarray(b[c]),
+                           equal_nan=np.asarray(a[c]).dtype.kind == "f")
+            for c in a), "phase J4 %s: the loaded SubSpace's rows differ"
+             % t)
+        n_rows += len(a["STMP"])
+    need(n_rows > 0, "phase J4: no rows in %d hours of %s" % (n_hours, sta))
+    bad = os.path.join(tmpdir, "j4_foreign.pkl")
+    with open(bad, "wb") as fh:
+        fh.write(FOREIGN_PICKLE)
+    try:
+        util.loadClusters(bad, device=dev)
+    except NotImplementedError:
+        pass
+    else:
+        need(False, "phase J4: a detex_tpu pickle was not refused")
+    need("detex_tpu" not in sys.modules, "phase J4: detex_tpu was imported")
+    say("phase J4: ClusterStream and SubSpace written and loaded (%.3f s, "
+        "%.1f MB and %.1f MB), createSubSpace from the path equal to the "
+        "in-memory one, %d rows of %d hours of %s identical after the load, "
+        "a detex_tpu pickle refused" % (
+            t_io, os.path.getsize(clust.filename) / 1e6,
+            os.path.getsize(path) / 1e6, n_rows, n_hours, sta))
+
+
+def j5_quality(h2):
+    """J5: check_data_quality on H2's continuous directory: every file
+    passes."""
+    from detex_torch import quality_check
+    rows = quality_check.check_data_quality(h2["paths"]["conDir"])
+    bad = [r["FileName"] for r in rows if not r["ok"]]
+    need(rows and not bad, "phase J5: %d files, failing %s"
+         % (len(rows), bad))
+    say("phase J5: check_data_quality: %d files, all ok" % len(rows))
+    return len(rows)
+
+
+def phase_j(dev, h2, tmpdir):
+    """Phase J: J1 classify, J2 UTC saves, J3 the per-chunk path against
+    the batched one, J4 saved objects, J5 quality_check, on H2's
+    objects (``h2`` phase_h2's result)."""
+    h2 = dict(h2["objs"], detex_s=h2["stages"]["detex"])
+    t0 = time.perf_counter()
+    out = dict(j1=j1_classify(h2, tmpdir), j2=j2_utc_saves(h2, tmpdir),
+               j3=j3_unbatched(h2, tmpdir))
+    j4_objects(dev, h2, tmpdir)
+    out["j5"] = j5_quality(h2)
+    out["wall"] = time.perf_counter() - t0
+    say("phase J: %.1f s with its checks (%s)" % (out["wall"], card_line()))
+    return out
+
+
+# the per-chunk path's kernels (ops/ds.run_bank on an overlap-save bank)
+MODES_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os")
+
+
+def run_phase_j(dev, h2, tmpdir, counted, launches):
+    """Phase J counted, with the first launch of every kernel captured and
+    held against its twin; the per-chunk path's kernels must have run."""
+    with KernelCapture() as cap:
+        counted("J", phase_j, dev, h2, tmpdir)
+    held = hold_captured("J", cap)
+    say("phase J launches %s" % {k: v for k, v in launches["J"].items()
+                                 if v})
+    for k in MODES_KERNELS:
+        need(launches["J"][k] > 0 and k in held, "kernel %s did not run, or "
+             "was not held, in phase J" % k)
+    return held
+
+
+def main_phase_j(dev):
+    """``--phases J``: the kernels built, phase H2 (phase J's SubSpace and
+    hour files), phase J with its holds; the launches of H2 and J, the
+    card's line and the ok line."""
+    launches = {}
+
+    def counted(phase, fn, *args):
+        ck.reset_launches()
+        tscan.ROUTE_COUNTS.clear()
+        out = fn(*args)
+        launches[phase] = dict(ck.LAUNCHES)
+        return out
+
+    tmp = tempfile.TemporaryDirectory()
+    h2 = counted("H2", phase_h2, dev, os.path.join(tmp.name, "h2"))
+    held = run_phase_j(dev, h2, tmp.name, counted, launches)
+    tmp.cleanup()
+    say(json.dumps({"launches": {p: {k: v for k, v in ls.items() if v}
+                                 for p, ls in launches.items()},
+                    "phase_j_holds": {k: v["err"] for k, v in
+                                      held.items()}}))
+
+
 def main_phase_i(dev):
     """``--phases I``: the kernels built, phase H2 (phase I's SubSpace and
     hour files), phase I and the kernels held off cuda:0; the launches of
@@ -3416,8 +3853,8 @@ def main_phase_i(dev):
 def main():
     import sys
     args = sys.argv[1:]
-    if args not in ([], ["--phases", "I"]):
-        raise SystemExit("usage: chip_smoke.py [--phases I]")
+    if args not in ([], ["--phases", "I"], ["--phases", "J"]):
+        raise SystemExit("usage: chip_smoke.py [--phases I|J]")
     name = detex_torch.require_cuda()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3439,7 +3876,7 @@ def main():
     say("native host library: %.1f s (%s)" % (time.perf_counter() - t0,
                                               native.library_path()))
     if args:
-        main_phase_i(dev)
+        (main_phase_i if args[1] == "I" else main_phase_j)(dev)
         say(card_line())
         say(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3648,23 +4085,29 @@ def main():
     say("phase I: several devices, the serving artifact's writer and "
         "miniSEED")
     counted("I", phase_i, dev, h2["objs"], tmp.name)
-    tmp.cleanup()
-    del h2
     say("phase I launches %s" % {k: v for k, v in launches["I"].items()
                                  if v})
     for k in fused + DENSE_KERNELS:
         need(launches["I"][k] > 0, "kernel %s did not run in phase I" % k)
     if torch.cuda.device_count() > 1:
         hold_off_device(torch.device("cuda", torch.cuda.device_count() - 1))
+    torch.cuda.empty_cache()
+
+    say("phase J: the engine's classify and UTC-save modes on the per-chunk "
+        "path, saved objects, quality_check")
+    checks.append(run_phase_j(dev, h2, tmp.name, counted, launches))
+    tmp.cleanup()
+    del h2
 
     # ms / plain_ms / library_ms / bound_ms: kernel, twin and the PyTorch
     # call computing the same function, at phase A's full shape (scan
     # kernels), at phase C's re-verify shape (dense kernels), at phase D's
     # shapes (per-chunk kernels and rfft_ct_half) and at phase E2's
-    # (ds_finalize); launches: every counted phase, A-H; engine_launches:
+    # (ds_finalize); launches: every counted phase, A-J; engine_launches:
     # the engine's own, phases F1-F3; construct_launches: G1-G2;
     # pipeline_launches: the key-file pipeline, H1-H2; mesh_launches:
-    # phase I
+    # phase I; modes_launches: the classify and UTC-save modes and the
+    # per-chunk path, phase J
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]
@@ -3675,6 +4118,7 @@ def main():
             construct_launches=sum(launches[p][k] for p in ("G1", "G2")),
             pipeline_launches=h_launches[k],
             mesh_launches=launches["I"][k],
+            modes_launches=launches["J"][k],
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

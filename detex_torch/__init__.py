@@ -4,15 +4,18 @@ detex_torch: PyTorch + CUDA port of detex_tpu's pipeline: the data layer
 and the 'dir' DataFetcher, the synthetic Case1 catalog), detector
 construction (``createCluster`` / ``createSubSpace``,
 ``subspace.SubSpace``: all-pairs clustering, alignment, pick trims, SVD,
-FAS thresholds), association and verification (``detResults``), its
-detection engine (``detect.detex``: batched scan, dense re-verify,
-triggers, magnitudes and SQLite rows), its scans over every bank form
-(template-blocked past 128 templates), the device preprocessing of raw
-chunks and serving.
+FAS thresholds; saved and loaded as pickles of the port's own objects),
+association and verification (``detResults``), its detection engine
+(``detect.detex``: batched scan, dense re-verify, triggers, magnitudes
+and SQLite rows; the per-chunk path with the classify and UTC-save
+modes), the directory quality audit and the location-program interop,
+its scans over every bank form (template-blocked past 128 templates),
+the device preprocessing of raw chunks and serving.
 
 The package mirrors detex_tpu's layout (``data/``, ``construct.py``,
-``subspace.py``, ``fas.py``, ``results.py``, ``align.py``, ``stats.py``, ``detect.py``, ``util.py``,
-``serving.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``, ``ops/prep.py``,
+``subspace.py``, ``fas.py``, ``results.py``, ``align.py``, ``stats.py``,
+``detect.py``, ``util.py``, ``serving.py``, ``quality_check.py``,
+``interop.py``, ``core/``, ``ops/ds.py``, ``ops/dft.py``, ``ops/prep.py``,
 ``ops/rolling.py``, ``ops/stalta.py``, ``ops/triggers.py``,
 ``ops/xcorr.py``, ``ops/subsample.py``, ``ops/svd.py``,
 ``parallel/scan.py``) so every ported function has an obvious namesake

@@ -299,9 +299,9 @@ def createCluster(CCreq=0.5, fetch_arg="EventWaveForms",
     fetcher are not used. Each event is filtered (``filt`` [freqmin,
     freqmax, corners, zerophase], ``decimate``), checked and multiplexed;
     each station's pairs are correlated in one ops/xcorr.xcorr_all_pairs
-    call on ``device`` (the card unless "cpu"). ``saveclust`` and
-    ``fileName`` are accepted, but nothing is written: the port does not
-    pickle its objects (ROADMAP A18)."""
+    call on ``device`` (the card unless "cpu"). With ``saveclust`` the
+    ClusterStream is pickled to ``fileName`` (ClusterStream.write; read
+    back by util.loadClusters or createSubSpace(clust=fileName))."""
     from detex_torch.subspace import ClusterStream
 
     if torch.device(device).type == "cuda":
@@ -341,11 +341,14 @@ def createCluster(CCreq=0.5, fetch_arg="EventWaveForms",
         row.update(CCs=cc, Lags=lag, Subsamp=sub,
                    Link=linkage(_flatNoNan(DISSIM_OFFSET - cc)))
     eventListAll = sorted(set.union(*[set(row["Events"]) for row in TRDF]))
-    return ClusterStream(
+    clust = ClusterStream(
         TRDF, templates, streams, eventListAll, CCreq,
         list(filt) if filt is not None else None, decimate, list(trim),
         eventsOnAllStations, enforceOrigin, device, temkey=temkey,
         stakey=stakey, fetcher=fetcher, fileName=fileName)
+    if saveclust:
+        clust.write()
+    return clust
 
 
 def _fetchTemplates(fetcher, stakey, temkey, trim, phases):
@@ -397,16 +400,22 @@ def createSubSpace(Pf=10 ** -12, clust="clust.pkl", minEvents=2,
     without one reads ContinuousWaveForms, as detex_tpu's does. Its chunks
     are conDatDuration + conBuff seconds long; without a fetcher the
     ``conDatDuration`` and ``conBuff`` given here say how long the
-    caller's chunks are. ``clust`` must be a ClusterStream: loading a
-    pickled one is not ported (ROADMAP A18). ``device`` defaults to the
-    cluster's."""
+    caller's chunks are. ``clust`` is a ClusterStream or the path of one
+    that ClusterStream.write pickled (loaded by util.loadClusters on
+    ``device``). ``device`` defaults to the cluster's (the card for a
+    loaded one)."""
+    from detex_torch import util as _util
     from detex_torch.subspace import ClusterStream, SubSpace
 
-    if not isinstance(clust, ClusterStream):
-        detex_torch.log(__name__, "clust must be a ClusterStream (the port "
-                        "does not load pickled clusters)", level="error",
+    if isinstance(clust, (str, os.PathLike)):
+        cl = _util.loadClusters(clust, device="cuda" if device is None
+                                else device)
+    elif isinstance(clust, ClusterStream):
+        cl = clust
+    else:
+        detex_torch.log(__name__, "Invalid clust type, must be a path or "
+                        "ClusterStream instance", level="error",
                         e=ValueError)
-    cl = clust
     if isinstance(conDatFetcher, getdata.DataFetcher):
         cfetcher = conDatFetcher
     elif isinstance(conDatFetcher, (str, os.PathLike)):

@@ -8,7 +8,7 @@ detex_tpu). A small, numpy-friendly subset of ``obspy.UTCDateTime``:
   ``:`` and detex-style ``-`` time separators, e.g. ``2007-12-05T19-16-32``),
   other UTCDateTime instances, and datetime objects
 - ``timestamp``, ``datetime``, ``year``, ``julday``, ``hour``, ``minute``,
-  ``second``
+  ``second``, ``microsecond``
 - arithmetic with seconds (+/-), differences, rich comparisons
 - ISO string repr ending in 'Z'
 """
@@ -100,6 +100,10 @@ class UTCDateTime(object):
     @property
     def second(self):
         return self.datetime.second
+
+    @property
+    def microsecond(self):
+        return self.datetime.microsecond
 
     # -- arithmetic ---------------------------------------------------------
     def __add__(self, other):

@@ -28,9 +28,19 @@ estimated on the host in numpy, and rows are written to SQLite
 (util.saveSQLite) in materialize order: station, batch, bank, triggered
 chunk, template.
 
-trigCon=1 (triggering on the STA/LTA of the DS) and batchSize 1 run the
-unbatched path: one chunk at a time through ops/ds.run_bank (the
-per-chunk kernels) with host histograms.
+trigCon=1 (triggering on the STA/LTA of the DS), batchSize 1 and the
+classify and UTC-save modes run the per-chunk (unbatched) path: one chunk
+at a time through ops/ds.run_bank (rfft_ct_fused, irfft_ct_fused and
+ds_finalize_os on the bank's overlap-save blocks) with host histograms.
+The classify mode (``classifyEvents``) scans the template events
+themselves, each cut at its tail by the template fetcher's buffer
+(_conTrimSamps), and writes one row (Sta, Name, DS maximum, TimeStamp)
+for every detector on every event to ``<eventCorFile>_<NET.STA>.pkl``
+after each station; ``utcSaves`` keeps the multiplexed chunk and the DS
+vector of every detector on every chunk spanning one of the given times
+and writes them to ``UTCsaves.pkl`` once the run ends. Both tables are
+lists of row dicts with detex_tpu's columns (util.readRows), written in
+the working directory; detections land in SQLite in these modes too.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import detex_torch
 from detex_torch import native as _native
 from detex_torch import util as _util
 from detex_torch.construct import _applyFilter, multiplex
+from detex_torch.core.utc import UTCDateTime
 from detex_torch.ops import ds as _ds
 from detex_torch.ops import prep as _prep
 from detex_torch.ops import stalta as _stalta
@@ -54,6 +65,10 @@ MAX_TRIGGERS = 4096  # reference kill switch at 4000 (detect.py:433-436)
 #: detection-row columns (reference _CreateCoeffArray's Sar frame)
 SAR_COLS = ["DS", "DS_STALTA", "STMP", "Name", "Sta", "MSTAMPmin",
             "MSTAMPmax", "Mag", "SNR", "ProEnMag"]
+#: columns of the classify mode's EventCors rows and of the UTC saves
+EVENT_COR_COLS = ["Sta", "Name", "DS", "TimeStamp"]
+UTC_SAVE_COLS = ["Station", "Name", "Threshold", "offset", "TS1", "TS2",
+                 "utcSaves", "MPcon", "SSdetect"]
 
 # device memory for the scan batches the engine keeps for the dense
 # re-verify (up to two at once: in flight and materializing); a larger
@@ -81,17 +96,23 @@ class _SSDetex(object):
     per event), "sr": sampling rate (or one per event), "nc" (optional,
     len(channels)), "detectors": [{"name", "U" [D, n], "WFs" [E, n],
     "mags" [E], "events" [E], "offsets", "threshold"}, ...]}}: the
-    fields detex_tpu's _prepareDetectors reads off a SubSpace row.
+    fields detex_tpu's _prepareDetectors reads off a SubSpace row; the
+    classify mode's tail trim also reads a detector's "SampleTrims" and
+    "waveforms" (its AlignedTD or MPtd) where it has them.
     ``chunks(sta)`` yields (Stream, utc1, utc2). ``dataLength`` is the
-    chunk length in seconds (conDatDuration + conBuff). The histograms
-    land in ``self.hist``: {"Bins": edges, sta: {name: counts}}."""
+    chunk length in seconds (conDatDuration + conBuff, or the template
+    fetcher's timeBeforeOrigin + timeAfterOrigin when classifying), and
+    ``conBuff`` the buffer the classify mode's tail trim measures against.
+    The histograms land in ``self.hist``: {"Bins": edges, sta: {name:
+    counts}}."""
 
     def __init__(self, stations, chunks, subspaceDB, dataLength, filt=None,
                  decimate=None, issubspace=True, trigCon=0,
                  triggerLTATime=5, triggerSTATime=0, staltaThreshold=None,
                  calcHist=True, dtype="single", estimateMags=True,
                  fillZeros=False, batchSize=8, devicePrep=False,
-                 device="cuda"):
+                 classifyEvents=None, eventCorFile="EventCors",
+                 utcSaves=None, conBuff=0.0, device="cuda"):
         if torch.device(device).type == "cuda":
             detex_torch.require_cuda()
         self.device = torch.device(device)
@@ -99,10 +120,13 @@ class _SSDetex(object):
         self.batchSize = int(batchSize)
         self.devicePrep = bool(devicePrep)
         self.dpDec = int(decimate or 1) if devicePrep else 1
-        if self.devicePrep and (self.batchSize <= 1 or trigCon != 0):
+        self.classify = classifyEvents is not None
+        if self.devicePrep and (self.classify or utcSaves is not None or
+                                self.batchSize <= 1 or trigCon != 0):
             detex_torch.log(__name__, "devicePrep requires the batched scan "
-                            "path (trigCon=0, batchSize > 1); falling back "
-                            "to host preprocessing", level="warning")
+                            "path (trigCon=0, no classifyEvents/utcSaves, "
+                            "batchSize > 1); falling back to host "
+                            "preprocessing", level="warning")
             self.devicePrep = False
         self.filt = filt
         self.decimate = decimate
@@ -117,6 +141,19 @@ class _SSDetex(object):
         self.trigCon = trigCon
         self.subspaceDB = subspaceDB
         self.chunks = chunks
+        self.eventCorFile = eventCorFile
+        self.conBuff = conBuff
+        self.utcSaves = None
+        if utcSaves is not None:
+            try:
+                ts = [UTCDateTime(x).timestamp for x in utcSaves]
+            except (ValueError, TypeError):
+                detex_torch.log(__name__, "utcSaves must be an iterable of "
+                                "UTCDateTime-readable objects",
+                                level="error")
+            self.utcSaves = np.array(ts)
+        self.UTCSaveList = []
+        self.eventCorList = []
 
         self.hist = {}
         if calcHist:
@@ -132,7 +169,13 @@ class _SSDetex(object):
         for sta, station in stations.items():
             if len(station["detectors"]) > 0:
                 self.hist[sta] = self._corStations(station, sta)
+            if self.classify and self.eventCorList:
+                _util.writeRows(self.eventCorList,
+                                "%s_%s.pkl" % (self.eventCorFile, sta))
+                self.eventCorList = []
         self._drainInflight()
+        if self.UTCSaveList:
+            _util.writeRows(self.UTCSaveList, "UTCsaves.pkl")
 
     # ------------------------------------------------------------------
     def _corStations(self, station, sta):
@@ -223,7 +266,7 @@ class _SSDetex(object):
     def _corDat(self, threshold, sta, channels, names, dets, samplingRate):
         """Stream one station's chunks and detect (reference
         detect.py:137-218): the batched path, or one chunk at a time for
-        trigCon=1 and batchSize 1."""
+        trigCon=1, batchSize 1 and the classify and UTC-save modes."""
         tableName = "ss_df" if self.issubspace else "sg_df"
         histdic = ({na: np.zeros(len(self.hist["Bins"]) - 1) for na in names}
                    if self.calcHist else None)
@@ -231,18 +274,21 @@ class _SSDetex(object):
         det, banks, devicePrep = self._prepareDetectors(dets, sta, channels,
                                                         samplingRate)
         datGen = self.chunks(sta)
-        if self.batchSize > 1 and self.trigCon == 0:
+        if (self.batchSize > 1 and self.trigCon == 0 and not self.classify
+                and self.utcSaves is None):
             return self._corDatBatched(threshold, sta, names, det, banks, nc,
                                        datGen, histdic, tableName, devicePrep)
         # trigCon=1 triggers on staltaThreshold, not the DS Threshold
         trigth = self._trigThresholds(threshold)
+        tail_trim = self._conTrimSamps(dets, nc, samplingRate)
         rows, numdets = [], 0
         for st, utc1, utc2 in datGen:
             if st is None or len(st) < 1:
                 detex_torch.log(__name__, "could not get data on %s from %s "
                                 "to %s" % (sta, utc1, utc2), level="warning")
                 continue
-            result = self._scanChunk(st, det, banks, nc, sta, utc1, utc2)
+            result = self._scanChunk(st, det, banks, nc, sta, utc1, utc2,
+                                     tail_trim=tail_trim)
             if result is None:
                 continue
             dsdict, MPcon, sr, tstamp = result
@@ -250,16 +296,23 @@ class _SSDetex(object):
                 if self.calcHist:
                     hg, _ = np.histogram(dsvec, bins=self.hist["Bins"])
                     histdic[name] = histdic[name] + hg
+                maxds = float(dsvec.max()) if len(dsvec) else 0.0
                 stalta_vec = None
                 if not self.fillZeros and self.triggerLTATime:
                     stalta_vec = self._dsStalta(
                         dsvec, self.triggerLTATime * sr,
                         self.triggerSTATime * sr)
+                if self.utcSaves is not None:
+                    self._makeUTCSaveDF(name, threshold, sta, det, MPcon,
+                                        dsvec, sr, tstamp)
+                if self.classify:
+                    self.eventCorList.append(dict(zip(
+                        EVENT_COR_COLS, [sta, name, maxds, tstamp])))
                 if self.trigCon == 1:
                     trig_val = (float(np.nanmax(stalta_vec))
                                 if stalta_vec is not None else 0.0)
                 else:
-                    trig_val = float(dsvec.max()) if len(dsvec) else 0.0
+                    trig_val = maxds
                 if trig_val > trigth[name]:
                     rows.extend(self._checkedRows(self._createCoeffArray(
                         dsvec, stalta_vec, name, trigth, sta, det, MPcon,
@@ -539,10 +592,49 @@ class _SSDetex(object):
         while self._inflight:
             self._materializeOne()
 
-    def _scanChunk(self, st, det, banks, nc, sta, utc1, utc2):
-        """Filter, multiplex and run every bank on one chunk (reference
-        _getRA, detect.py:220-296): ({name: DS vector}, MPcon, sr, tstamp),
-        or None for a chunk that cannot be used."""
+    def _conTrimSamps(self, dets, nc, sr):
+        """The classify mode's tail trim in multiplexed samples (detex_tpu
+        detect.py:765-790, reference _getConTrims): each event chunk loses
+        median(template duration) - conBuff seconds at its end when that is
+        positive, so energy past the template span in the trailing buffer
+        is not classified. A detector's duration is its SampleTrims
+        window, or its shortest waveform, or its template length. The
+        reference's slice was a no-op; this is the trim it meant, as
+        detex_tpu applies it. Continuous chunks are never trimmed."""
+        if not self.classify:
+            return 0
+        ctrims = []
+        for d in dets:
+            trims = d.get("SampleTrims") or {}
+            wfs = d.get("waveforms")
+            if "Starttime" in trims and "Endtime" in trims:
+                n = trims["Endtime"] - trims["Starttime"]
+            elif wfs:
+                n = min(len(w) for w in wfs.values())
+            else:
+                n = np.asarray(d["U"]).shape[1]
+            ctrims.append(self.conBuff - n / (sr * nc))
+        ctrim = float(np.median(ctrims)) if ctrims else 0.0
+        return int(-ctrim * sr * nc) if ctrim < 0 else 0
+
+    def _makeUTCSaveDF(self, name, threshold, sta, det, MPcon, dsvec, sr,
+                       tstamp):
+        """Keep the chunk and the DS vector of detector ``name`` when the
+        chunk spans one of the requested times (reference
+        detect.py:298-316)."""
+        TS1 = tstamp
+        TS2 = tstamp + len(dsvec) / sr
+        inUTCs = (self.utcSaves > TS1) & (self.utcSaves < TS2)
+        if np.any(inUTCs):
+            self.UTCSaveList.append(dict(zip(UTC_SAVE_COLS, [
+                sta, name, threshold[name], det[name]["offsets"], TS1, TS2,
+                self.utcSaves[inUTCs], MPcon, dsvec])))
+
+    def _scanChunk(self, st, det, banks, nc, sta, utc1, utc2, tail_trim=0):
+        """Filter, multiplex (cut ``tail_trim`` samples at the end) and
+        run every bank on one chunk (reference _getRA,
+        detect.py:220-296): ({name: DS vector}, MPcon, sr, tstamp), or
+        None for a chunk that cannot be used."""
         try:
             conSt = _applyFilter(st, self.filt, self.decimate, self.dtype,
                                  fillZeros=self.fillZeros)
@@ -554,6 +646,8 @@ class _SSDetex(object):
             return None
         sr = conSt[0].stats.sampling_rate
         MPcon = multiplex(conSt, nc)
+        if tail_trim > 0:
+            MPcon = MPcon[:max(len(MPcon) - int(tail_trim), 0)]
         tstamp = conSt[0].stats.starttime.timestamp
         if len(MPcon) <= max(d["n"] for d in det.values()):
             detex_torch.log(__name__, "data block on %s from %s to %s is too "
@@ -757,7 +851,8 @@ def detex(stations, chunks, subspaceDB="SubSpace.db", conDatDuration=3600.0,
           trigCon=0, triggerLTATime=5, triggerSTATime=0,
           staltaThreshold=None, calcHist=True, dtype="single",
           estimateMags=True, fillZeros=False, batchSize=8, devicePrep=False,
-          device="cuda"):
+          classifyEvents=None, eventCorFile="EventCors", utcSaves=None,
+          dataLength=None, device="cuda"):
     """Run the detection engine over every station's continuous chunks and
     append the detections to table ``ss_df`` (subspace detectors,
     ``issubspace``) or ``sg_df`` (single templates) of the SQLite
@@ -776,6 +871,16 @@ def detex(stations, chunks, subspaceDB="SubSpace.db", conDatDuration=3600.0,
     ``devicePrep`` filters raw chunks on the device. Runs on ``device``
     (the card unless "cpu" is asked for).
 
+    ``classifyEvents`` (anything but None, as detex_tpu's template key is
+    there) runs the classify
+    mode: ``chunks(sta)`` yields the template events, ``dataLength``
+    seconds long (default conDatDuration + conBuff), each cut at its end
+    by the tail trim against ``conBuff``, and every detector's DS maximum
+    on every event is a row of ``<eventCorFile>_<NET.STA>.pkl``.
+    ``utcSaves`` (times UTCDateTime reads) keeps each chunk spanning one
+    of them, with every detector's DS vector, in ``UTCsaves.pkl``. Both
+    modes run the per-chunk path and still write their detections.
+
     Returns the DS histograms as SubSpace.histSubSpaces holds them:
     {"Bins": edges, sta: {name: counts}} (without ``calcHist``, {sta:
     None})."""
@@ -788,11 +893,15 @@ def detex(stations, chunks, subspaceDB="SubSpace.db", conDatDuration=3600.0,
     if trigCon == 1 and staltaThreshold is None:
         detex_torch.log(__name__, "trigCon=1 requires staltaThreshold (float "
                         "or {detector-name: float})", level="error")
-    return _SSDetex(stations, chunks, subspaceDB, conDatDuration + conBuff,
+    if dataLength is None:
+        dataLength = conDatDuration + conBuff
+    return _SSDetex(stations, chunks, subspaceDB, dataLength,
                     filt=filt, decimate=decimate, issubspace=issubspace,
                     trigCon=trigCon, triggerLTATime=triggerLTATime,
                     triggerSTATime=triggerSTATime,
                     staltaThreshold=staltaThreshold, calcHist=calcHist,
                     dtype=dtype, estimateMags=estimateMags,
                     fillZeros=fillZeros, batchSize=batchSize,
-                    devicePrep=devicePrep, device=device).hist
+                    devicePrep=devicePrep, classifyEvents=classifyEvents,
+                    eventCorFile=eventCorFile, utcSaves=utcSaves,
+                    conBuff=conBuff, device=device).hist

@@ -13,9 +13,15 @@ the empirical null of fas.py (beta fit with scipy on the host), and
 detection is the engine of detect.py. FAS's null chunks and detection's
 continuous chunks come from the SubSpace's fetcher (``cfetcher``, the
 'dir' DataFetcher of data/fetcher.py) as detex_tpu draws them, or from a
-``chunks(sta)`` callable the caller passes. The interactive picker, the
-plots, the hypoDD writer and the pickle writers of detex_tpu are not part
-of the port.
+``chunks(sta)`` callable the caller passes; the classify mode of detection
+reads the template events through the cluster's fetcher.
+
+``ClusterStream.write``, ``Cluster.write`` and ``SubSpace.write`` pickle
+the port's objects (util.py: no tensor and no caller's callable in the
+state, loaded back by util.loadClusters / loadSubSpace through a
+restricted unpickler); ``ClusterStream.writeSimpleHypoDDInput`` writes
+hypoDD's dt.cc. The interactive and automatic pickers and the plots of
+detex_tpu are still to be ported (ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -112,6 +118,67 @@ class ClusterStream(object):
         """The station row of ``sta`` ("NET.STA")."""
         return self.trdf[self.stalist.index(sta)]
 
+    def __getstate__(self):
+        return _util.host_state(self.__dict__)
+
+    def writeSimpleHypoDDInput(self, fileName="dt.cc", coef=1, minCC=.35):
+        """Write hypoDD's cross-correlation file (dt.cc) from each
+        station's upper-triangle CC, lag and subsample matrices (detex_tpu
+        subspace.py:105-153, reference subspace.py:70-155): one "# n1 n2
+        0.0" header per template pair (numbers from the template key's
+        order, zero-padded), then a "STA lag CC**coef S" line for every
+        station where the pair's CC reaches ``minCC``. Needs a cluster
+        made from key files with enforceOrigin=True."""
+        if not self.enforceOrigin:
+            detex_torch.log(__name__, "Sample lags are not meaningful unless "
+                            "origin times are enforced; re-run createCluster "
+                            "with enforceOrigin=True", level="error")
+        if self.temkey is None:
+            detex_torch.log(__name__, "writeSimpleHypoDDInput numbers the "
+                            "events by the template key: make the cluster "
+                            "from key files", level="error")
+        reqZeros = int(np.ceil(np.log10(max(len(self.temkey), 2))))
+        fmt = "{:0%dd}" % reqZeros
+        temnum = {r["NAME"]: num for num, r in enumerate(self.temkey)}
+        obs = {}  # (num1, num2) -> [line, ...] in stalist order
+        for sta in self.stalist:
+            key = list(self[sta].key)
+            row = self.row(sta)
+            m = len(key)
+            cc = np.asarray(row["CCs"], np.float64)
+            lag = np.asarray(row["Lags"], np.float64)
+            sub = np.asarray(row["Subsamp"], np.float64)
+            sr = row["Stats"][key[0]]["sampling_rate"]
+            Nc = row["Stats"][key[0]]["Nc"]
+            iu, ju = np.triu_indices(m, k=1)
+            vals = cc[iu, ju]
+            good = np.isfinite(vals) & (vals >= minCC)
+            secs = lag[iu, ju] / (sr * Nc) + sub[iu, ju]
+            for i, j, c, lg in zip(iu[good], ju[good], vals[good],
+                                   secs[good]):
+                ni = temnum.get(key[i])
+                nj = temnum.get(key[j])
+                if ni is None or nj is None:
+                    continue
+                # the matrices run key[i] -> key[j]; the lag flips when the
+                # template key orders the pair the other way
+                pair, lg = ((ni, nj), lg) if ni < nj else ((nj, ni), -lg)
+                obs.setdefault(pair, []).append(
+                    "%s %0.4f %0.4f S" % (sta, lg, c ** coef))
+        lines = []
+        for (n1, n2) in sorted(obs):
+            lines.append("# %s %s 0.0" % (fmt.format(n1), fmt.format(n2)))
+            lines.extend(obs[(n1, n2)])
+        with open(fileName, "w") as fil:
+            fil.write("\n".join(lines) + ("\n" if lines else ""))
+
+    def write(self):
+        """Pickle this ClusterStream to ``self.filename`` (reference
+        subspace.py:261-267); util.loadClusters reads it."""
+        detex_torch.log(__name__, "writing ClusterStream instance as %s"
+                        % self.filename)
+        _util.saveObject(self, self.filename)
+
     def updateReqCC(self, reqCC):
         """Re-threshold clusters without recomputing correlations: a float
         for every station, a {station: float} dict or a list in station
@@ -199,6 +266,12 @@ class Cluster(object):
                               for mem in members.values() if len(mem) == 1)
         self.clustcount = sum(len(c) for c in self.clusts)
 
+    def write(self):
+        """Pickle this Cluster to clust.pkl, as detex_tpu's does
+        (subspace.py:352-356)."""
+        detex_torch.log(__name__, "writing cluster instance as clust.pkl")
+        _util.saveObject(self, "clust.pkl")
+
     def __repr__(self):
         return ("Cluster(station=%s, %d events, %d clusters, %d singles)"
                 % (self.station, len(self.key), len(self.clusts),
@@ -220,6 +293,17 @@ def _read_picks(pksFile):
     for r in rows:
         r["TimeStamp"] = float(r["TimeStamp"])
     return rows
+
+
+def _fetcher_tem_chunks(fetcher, stakey, eveKey):
+    """chunks(sta) of the classify mode from the cluster's fetcher: the
+    template events of ``eveKey`` on the station key rows of the station
+    code, with their times (detex_tpu detect.py:118-124, 303-306)."""
+    def chunks(sta):
+        skey = [r for r in stakey if r["STATION"] == sta.split(".")[1]]
+        return fetcher.getTemData(eveKey, skey, returnName=False,
+                                  returnTimes=True)
+    return chunks
 
 
 def _fetcher_con_chunks(fetcher, stakey, utcStart, utcEnd):
@@ -745,10 +829,13 @@ class SubSpace(object):
                     upr = mptd[tr["Starttime"]:tr["Endtime"]] if tr else mptd
                     U = np.array([upr / np.linalg.norm(upr)])
                     WFs = np.array([upr])
+                wfs = row.get("AlignedTD")
                 dets.append(dict(
                     name=row["Name"], U=U, WFs=WFs, events=events,
                     mags=[row["Stats"][x]["magnitude"] for x in events],
-                    offsets=row["Offsets"], threshold=row["Threshold"]))
+                    offsets=row["Offsets"], threshold=row["Threshold"],
+                    SampleTrims=tr, waveforms=wfs if isinstance(wfs, dict)
+                    else row.get("MPtd")))
             if not dets:
                 continue
             row = rows[0]
@@ -777,18 +864,38 @@ class SubSpace(object):
         one CUDA device the engine shards its chunk batches across all of
         them by itself (DETEX_TORCH_MESH=0 keeps one device); ``batchSize``
         is used as given, and a batch that the device count does not
-        divide is padded with empty chunks. The classify and UTC-save
-        modes (``classifyEvents``, ``utcSaves``) are not ported (ROADMAP
-        A14) and raise, as ``multiprocess`` does in both packages."""
+        divide is padded with empty chunks. ``multiprocess`` raises, as in
+        both packages.
+
+        ``classifyEvents`` (a template key, path or rows) runs the classify
+        mode over the key's events, read through the cluster's fetcher
+        (getTemData, timeBeforeOrigin + timeAfterOrigin seconds) and cut
+        at their tails against its conBuff: one row per detector and event
+        in ``<eventCorFile>_<NET.STA>.pkl`` in the working directory.
+        ``utcSaves`` (times) keeps the chunks and DS vectors spanning them
+        in UTCsaves.pkl. Both run the per-chunk path whatever
+        ``batchSize`` is, and write their tables as lists of row dicts
+        (util.readRows); detections still land in ``subspaceDB``."""
         if multiprocess:
             detex_torch.log(__name__, "multiprocess is not supported: the "
                             "engine batches chunks on the card and shards "
                             "them across every CUDA device by itself",
                             level="error")
-        if classifyEvents is not None or utcSaves is not None:
-            detex_torch.log(__name__, "classifyEvents and utcSaves are not "
-                            "ported (ROADMAP A14)", level="error",
-                            e=NotImplementedError)
+        kw = dict(conBuff=self.conBuff)
+        if classifyEvents is not None:
+            fetcher = self.clusters.fetcher
+            if fetcher is None or chunks is not None:
+                detex_torch.log(__name__, "classifyEvents reads the template "
+                                "events through the cluster's fetcher: make "
+                                "the cluster from key files and pass no "
+                                "chunks", level="error", e=ValueError)
+            chunks = _fetcher_tem_chunks(
+                fetcher, self.clusters.stakey,
+                _util.readKey(classifyEvents, "template"))
+            kw.update(classifyEvents=classifyEvents,
+                      dataLength=(fetcher.timeBeforeOrigin +
+                                  fetcher.timeAfterOrigin),
+                      conBuff=fetcher.conBuff)
         if chunks is None:
             if self.cfetcher is None:
                 detex_torch.log(__name__, "detex needs continuous data: "
@@ -805,7 +912,8 @@ class SubSpace(object):
             else:
                 detex_torch.log(__name__, "Not deleting old subspace "
                                 "database %s" % subspaceDB)
-        kw = dict(conDatDuration=self.conDatDuration, conBuff=self.conBuff,
+        kw.update(conDatDuration=self.conDatDuration,
+                  eventCorFile=eventCorFile, utcSaves=utcSaves,
                   filt=self.clusters.filt, decimate=self.clusters.decimate,
                   trigCon=trigCon, triggerLTATime=triggerLTATime,
                   triggerSTATime=triggerSTATime,
@@ -868,6 +976,15 @@ class SubSpace(object):
             _util.saveSQLite(rows, db, table, ["Name", "Sta", "Value"])
 
     # ------------------------------------------------------------------
+    def __getstate__(self):
+        # the caller's null-chunk callable is not kept
+        return dict(_util.host_state(self.__dict__), _fasChunks=None)
+
+    def write(self, filename="subspace.pkl"):
+        """Pickle this SubSpace to ``filename`` (reference
+        subspace.py:2018-2026); util.loadSubSpace reads it."""
+        _util.saveObject(self, filename)
+
     def __getitem__(self, key):
         if isinstance(key, int):
             return self.subspaces[self.ssStations[key]]

@@ -156,7 +156,7 @@ def phase_g(dev):
     cl = construct.createCluster(streams=g["streams"],
                                  templates=g["templates"],
                                  filt=cs.G_FILT, trim=list(cs.G_TRIM),
-                                 device=dev)
+                                 saveclust=False, device=dev)
     ss = construct.createSubSpace(clust=cl, dtype="single",
                                   conDatDuration=cs.F_SEC - 120.0,
                                   conBuff=120.0)

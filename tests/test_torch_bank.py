@@ -197,7 +197,9 @@ def test_port_imports_without_jax_or_pandas():
     detector construction, the data layer and results included) and runs a CPU scan, a dense
     re-verify, a per-chunk ("plain") scan, run_bank, a full-length bank's
     scan and raw scan with the device prep, the detection engine on two
-    chunks of one station, writing its rows to SQLite, and a tiny
+    chunks of one station, writing its rows to SQLite, imports
+    quality_check and interop, classifies one chunk (the classify mode's
+    EventCors table written and read back as row dicts), and a tiny
     createCluster -> createSubSpace -> attachPickTimes -> SVD(threshold)
     on the CPU, and writes a tiny SynthCatalog directory, indexes it and
     reads one chunk back through the 'dir' fetcher, and runs a scan
@@ -269,6 +271,16 @@ def test_port_imports_without_jax_or_pandas():
         "assert hist['XX.S1']['d0'].sum() == 2 * (35000 - 560 + 1)\n"
         "rows = detex_torch.util.loadSQLite(db, 'ss_df')\n"
         "assert [r['STMP'] for r in rows] == [1e9 + 1400.0 + 9000 / 25.0]\n"
+        "from detex_torch import quality_check, interop\n"
+        "cwd, wdir = os.getcwd(), tempfile.mkdtemp()\n"
+        "os.chdir(wdir)\n"
+        "detect.detex(stations, lambda sta: iter([next(chunks(sta))]),\n"
+        "             'c.db', conDatDuration=1300.0, conBuff=100.0,\n"
+        "             classifyEvents=True, device='cpu')\n"
+        "ec = detex_torch.util.readRows('EventCors_XX.S1.pkl')\n"
+        "assert [list(r) for r in ec] == [['Sta', 'Name', 'DS', 'TimeStamp']]\n"
+        "assert ec[0]['Name'] == 'd0' and ec[0]['TimeStamp'] == 1e9\n"
+        "os.chdir(cwd)\n"
         "from detex_torch import construct, subspace, fas, align, stats\n"
         "from detex_torch.ops import xcorr\n"
         "r2 = np.random.default_rng(1)\n"
@@ -287,7 +299,7 @@ def test_port_imports_without_jax_or_pandas():
         "                      Event=name, Phase='P'))\n"
         "cl = construct.createCluster(streams=streams, templates=templates,\n"
         "                             filt=[1, 8, 2, 1], trim=[4, 12],\n"
-        "                             device='cpu')\n"
+        "                             saveclust=False, device='cpu')\n"
         "assert sorted(map(sorted, cl['S1'].clusts)) == \\\n"
         "    [['ev0', 'ev2'], ['ev1', 'ev3']]\n"
         "assert cl['S1'].singles == ['ev4']\n"
