@@ -191,11 +191,27 @@ port's paths through the entry points a user calls:
                directory: every file passes.
            Every kernel the phase launches is held against its twin on the
            inputs of its first launch.
+  phase K  the Case1 path on automatic picks, on H2's hour files and
+           cluster at full width (dtype single):
+           K1  util.autoPickPhases over H2's event directory (44 station /
+               event streams): the picks' distance to H2's phase file
+               printed (median, largest); the file read back by
+               attachPickTimes on a fresh SubSpace, every detector with a
+               picked event trimmed;
+           K2  createSubSpace -> autoPickTimes(duration=30) in place of
+               attachPickTimes -> SVD with FAS at H2's settings -> detex
+               over all 96 station-hours -> detResults: every hidden event
+               that H2 verified verified again, the verified rows' DS
+               within 2e-5 of the float64 oracle; stage seconds and the
+               detex's station-hours/s beside H2's.
+           Every kernel the phase launches is held against its twin on the
+           inputs of its first launch.
 
 ``python3 chip_smoke.py --phases I`` builds the kernels and the native
 library and runs phase H2 (phase I's SubSpace and hour files), phase I
 and the holds on the last card alone, for a four-card machine.
-``--phases J`` runs phase H2 and phase J alone.
+``--phases J`` runs phase H2 and phase J alone, ``--phases K`` phase H2
+and phase K.
 
 Each phase runs with the kernels' launch counts set to 0 just before it
 and read just after. Data and weights are random from fixed seeds. Every
@@ -205,8 +221,8 @@ nvidia-smi, and {"ok": true, "device": {...}}. Each kernel's record
 counts its launches over every phase ("launches"), over the engine's
 phases F1-F3 ("engine_launches"), over the construction phases G1-G2
 ("construct_launches"), over the key-file pipeline H1-H2
-("pipeline_launches"), over phase I ("mesh_launches") and over phase J
-("modes_launches").
+("pipeline_launches"), over phase I ("mesh_launches"), over phase J
+("modes_launches") and over phase K ("picks_launches").
 """
 from __future__ import annotations
 
@@ -2778,7 +2794,7 @@ def hold_captured(tag, cap):
     return res
 
 
-def h2_oracle(objs, dtype):
+def h2_oracle(objs, dtype, tag="H2"):
     """The float64 oracle of every row of a detection that verified a
     hidden event: the row's chunk fetched and prepped as the engine preps
     it (getConData's chunk, _applyFilter at ``dtype``, multiplex), DS by
@@ -2825,11 +2841,11 @@ def h2_oracle(objs, dtype):
                 if 0 <= i and i / srd + tstamp == r["STMP"] and \
                         len(ds64) > min(i, 1):
                     hits.append(abs(r["DS"] - ds64[min(i, 1)]))
-            need(hits, "phase H2 row %s %s at %.3f: no chunk holds it"
-                 % (sta, name, r["STMP"]))
+            need(hits, "phase %s row %s %s at %.3f: no chunk holds it"
+                 % (tag, sta, name, r["STMP"]))
             errs.append(min(hits))
-    need(errs and max(errs) <= 2e-5, "phase H2 planted rows' DS err %s vs "
-         "the float64 oracle" % (max(errs) if errs else None))
+    need(errs and max(errs) <= 2e-5, "phase %s planted rows' DS err %s vs "
+         "the float64 oracle" % (tag, max(errs) if errs else None))
     return len(errs), max(errs)
 
 
@@ -3781,41 +3797,192 @@ def phase_j(dev, h2, tmpdir):
 MODES_KERNELS = ("rfft_ct_fused", "irfft_ct_fused", "ds_finalize_os")
 
 
-def run_phase_j(dev, h2, tmpdir, counted, launches):
-    """Phase J counted, with the first launch of every kernel captured and
-    held against its twin; the per-chunk path's kernels must have run."""
+# ---------------------------------------------------------------------------
+# phase K: the Case1 path on automatic picks (H2's files and cluster)
+# ---------------------------------------------------------------------------
+
+# the Case1 path's kernels: the batched scan and the re-verify and FAS
+PICKS_KERNELS = ("fwd_prep_fold", "spec_ds_fold") + DENSE_KERNELS
+
+
+def k1_auto_phases(h2, tmpdir):
+    """K1: util.autoPickPhases over H2's event directory (every station /
+    event stream, cut as H2's directories cut them, bandpassed [1, 10, 2,
+    true], STA/LTA 0.5 / 5 s, threshold 3); its picks against H2's
+    PhasePicks.csv, printed and not gated; the file read back by
+    attachPickTimes on a fresh SubSpace of H2's cluster, where every
+    subspace and single with a picked event must get its trims."""
+    from detex_torch.data import keys
+    paths = h2["paths"]
+    out = os.path.join(tmpdir, "AutoPhasePicks.csv")
+    d = H2_PARAMS["directories"]
+    t0 = time.perf_counter()
+    rows = util.autoPickPhases(
+        templateKey=paths["templateKey"], stationKey=paths["stationKey"],
+        fetch=paths["eventDir"], fileName=out, tb4=d["tb4"], taft=d["taft"])
+    secs = time.perf_counter() - t0
+    truth = {(r["Station"], r["Event"]): r["TimeStamp"]
+             for r in keys.read_csv(paths["phaseKey"])[1]}
+    errs = np.array([abs(r["TimeStamp"] - truth[(r["Station"], r["Event"])])
+                     for r in rows if (r["Station"], r["Event"]) in truth])
+    need(len(errs) > 0, "phase K1: no automatic pick matches a pick of "
+         "H2's phase file")
+    ss = detex_torch.createSubSpace(clust=h2["clust"], dtype="single",
+                                    conDatFetcher=h2["cfetcher"],
+                                    **H2_PARAMS["createSubSpace"])
+    ss.attachPickTimes(pksFile=out, **H2_PARAMS["attachPickTimes"])
+    picked = {(r["Station"], r["Event"]) for r in rows}
+    bare = [(sta, r["Name"]) for frames in (ss.subspaces, ss.singles)
+            for sta, rs in frames.items() for r in rs
+            if not r["SampleTrims"]
+            and any((sta, e) in picked for e in r["Events"])]
+    need(not bare, "phase K1: attachPickTimes gave no trims to %s from "
+         "the automatic picks" % bare)
+    n_rows = sum(len(rs) for frames in (ss.subspaces, ss.singles)
+                 for rs in frames.values())
+    say("phase K1: autoPickPhases %.3f s: %d picks of %d station / event "
+        "streams; |auto - H2's picks| median %.3f s, largest %.3f s; "
+        "attachPickTimes trimmed %d of %d detectors from the file"
+        % (secs, len(rows), len(truth), float(np.median(errs)),
+           float(errs.max()), n_rows - len(bare), n_rows))
+    return dict(picks=len(rows), streams=len(truth),
+                median_s=float(np.median(errs)), max_s=float(errs.max()),
+                seconds=secs)
+
+
+def hidden_verified(vers, hidden):
+    """The hidden origin times that a verified window brackets within 10 s
+    (case1_verified's rule)."""
+    return sorted(t for t in hidden
+                  if any(v["MSTAMPmin"] - 10 <= t <= v["MSTAMPmax"] + 10
+                         for v in vers))
+
+
+def k_trims(ss):
+    """{"sta name": [Starttime, Endtime]} of every detector of ``ss``."""
+    return {"%s %s" % (sta, r["Name"]): [r["SampleTrims"].get("Starttime"),
+                                         r["SampleTrims"].get("Endtime")]
+            for frames in (ss.subspaces, ss.singles)
+            for sta, rs in frames.items() for r in rs}
+
+
+def k2_auto_trims(h2, tmpdir):
+    """K2: createSubSpace from H2's cluster -> autoPickTimes(duration=30)
+    in place of attachPickTimes -> SVD with FAS at H2's settings -> detex
+    over all of H2's station-hours -> detResults. Gates: every hidden
+    event H2 verified is verified again (a miss prints its rows and the
+    trims autoPickTimes chose, then fails), and the verified rows' DS
+    within 2e-5 of the float64 oracle."""
+    from detex_torch import results
+    p, paths, cf = H2_PARAMS, h2["paths"], h2["cfetcher"]
+    stages = {}
+
+    def stage(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    ss = stage("subspace", detex_torch.createSubSpace, clust=h2["clust"],
+               dtype="single", conDatFetcher=cf, **p["createSubSpace"])
+    stage("autopick", ss.autoPickTimes, duration=30)
+    with Clock((fas, "_initFAS")) as fc:
+        stage("svd", ss.SVD, **p["SVD"])
+    stages["fas"] = fc.seconds["_initFAS"]
+    stages["svd"] -= stages["fas"]
+    workdir = os.path.join(tmpdir, "k2")
+    os.makedirs(workdir, exist_ok=True)
+    db = os.path.join(workdir, "SubSpace.db")
+    stage("detex", ss.detex, subspaceDB=db, **p["detex"])
+    res = stage("results", results.detResults, ssDB=db,
+                templateKey=paths["templateKey"],
+                stationKey=paths["stationKey"], veriFile=paths["veriFile"],
+                fetch=cf, **p["detResults"])
+    hidden = [e["time"] for e in h2["cat"].hidden]
+    want = hidden_verified(h2["res"].Vers, hidden)
+    got = hidden_verified(res.Vers, hidden)
+    say("phase K2: trims (multiplexed samples) from autoPickTimes %s; "
+        "from H2's phase file %s" % (json.dumps(k_trims(ss)),
+                                     json.dumps(k_trims(h2["ss"]))))
+    missed = sorted(set(want) - set(got))
+    for t in missed:
+        near = [(str(r["Sta"]), str(r["Name"]), float(r["STMP"]),
+                 float(r["DS"])) for table in ("ss_df", "sg_df")
+                for r in util.loadSQLite(db, table) or []
+                if abs(r["STMP"] - t) < 60]
+        say("phase K2: hidden event at %.3f not verified; rows within 60 s: "
+            "%s" % (t, near))
+    need(not missed, "phase K2: hidden events %s verified on H2's picks "
+         "were not verified on automatic trims" % missed)
+    n_rows, err = h2_oracle(dict(ss=ss, cfetcher=cf, res=res), "single",
+                            tag="K2")
+    n_hours = p["synth"]["n_stations"] * p["synth"]["span_hours"]
+    rate = n_hours / stages["detex"]
+    h2_rate = n_hours / h2["detex_s"]
+    say("phase K2: %s: stages (s) %s; %d of %d hidden events verified (H2: "
+        "%d); %d verified rows vs float64 oracle DS err %.3g; detex %.3f "
+        "station-hours/s (H2 on its picks: %.3f)"
+        % (card_line(), json.dumps({k: round(v, 3) for k, v in
+                                    stages.items()}),
+           len(got), len(hidden), len(want), n_rows, err, rate, h2_rate))
+    return dict(stages=stages, verified=len(got), oracle_err=err,
+                station_hours_per_s=rate, h2_station_hours_per_s=h2_rate)
+
+
+def phase_k(dev, h2, tmpdir):
+    """Phase K: K1 automatic phase picks, K2 the Case1 path on automatic
+    trims, on H2's files and cluster (``h2`` phase_h2's result)."""
+    h2 = dict(h2["objs"], detex_s=h2["stages"]["detex"])
+    t0 = time.perf_counter()
+    out = dict(k1=k1_auto_phases(h2, tmpdir), k2=k2_auto_trims(h2, tmpdir))
+    out["wall"] = time.perf_counter() - t0
+    say("phase K: %.1f s with its checks (%s)" % (out["wall"], card_line()))
+    return out
+
+
+# the phases that run on H2's objects: their function and the kernels
+# their path must launch
+ON_H2 = {"J": (phase_j, MODES_KERNELS), "K": (phase_k, PICKS_KERNELS)}
+
+
+def run_on_h2(phase, dev, h2, tmpdir, counted, launches):
+    """Phase J or K counted, with the first launch of every kernel
+    captured and held against its twin; the kernels of its path must have
+    run."""
+    fn, kernels = ON_H2[phase]
     with KernelCapture() as cap:
-        counted("J", phase_j, dev, h2, tmpdir)
-    held = hold_captured("J", cap)
-    say("phase J launches %s" % {k: v for k, v in launches["J"].items()
-                                 if v})
-    for k in MODES_KERNELS:
-        need(launches["J"][k] > 0 and k in held, "kernel %s did not run, or "
-             "was not held, in phase J" % k)
+        counted(phase, fn, dev, h2, tmpdir)
+    held = hold_captured(phase, cap)
+    say("phase %s launches %s" % (phase, {
+        k: v for k, v in launches[phase].items() if v}))
+    for k in kernels:
+        need(launches[phase][k] > 0 and k in held, "kernel %s did not run, "
+             "or was not held, in phase %s" % (k, phase))
     return held
 
 
-def main_phase_j(dev):
-    """``--phases J``: the kernels built, phase H2 (phase J's SubSpace and
-    hour files), phase J with its holds; the launches of H2 and J, the
-    card's line and the ok line."""
+def main_after_h2(dev, phase):
+    """``--phases J`` or ``--phases K``: the kernels built, phase H2 (the
+    phase's SubSpace, cluster and hour files), then the phase with its
+    holds; the launches of H2 and the phase."""
     launches = {}
 
-    def counted(phase, fn, *args):
+    def counted(tag, fn, *args):
         ck.reset_launches()
         tscan.ROUTE_COUNTS.clear()
         out = fn(*args)
-        launches[phase] = dict(ck.LAUNCHES)
+        launches[tag] = dict(ck.LAUNCHES)
         return out
 
     tmp = tempfile.TemporaryDirectory()
     h2 = counted("H2", phase_h2, dev, os.path.join(tmp.name, "h2"))
-    held = run_phase_j(dev, h2, tmp.name, counted, launches)
+    held = run_on_h2(phase, dev, h2, tmp.name, counted, launches)
     tmp.cleanup()
     say(json.dumps({"launches": {p: {k: v for k, v in ls.items() if v}
                                  for p, ls in launches.items()},
-                    "phase_j_holds": {k: v["err"] for k, v in
-                                      held.items()}}))
+                    "phase_%s_holds" % phase.lower(): {
+                        k: v["err"] for k, v in held.items()}}))
 
 
 def main_phase_i(dev):
@@ -3853,8 +4020,9 @@ def main_phase_i(dev):
 def main():
     import sys
     args = sys.argv[1:]
-    if args not in ([], ["--phases", "I"], ["--phases", "J"]):
-        raise SystemExit("usage: chip_smoke.py [--phases I|J]")
+    if args and (len(args) != 2 or args[0] != "--phases"
+                 or args[1] not in ("I", "J", "K")):
+        raise SystemExit("usage: chip_smoke.py [--phases I|J|K]")
     name = detex_torch.require_cuda()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3876,7 +4044,10 @@ def main():
     say("native host library: %.1f s (%s)" % (time.perf_counter() - t0,
                                               native.library_path()))
     if args:
-        (main_phase_i if args[1] == "I" else main_phase_j)(dev)
+        if args[1] == "I":
+            main_phase_i(dev)
+        else:
+            main_after_h2(dev, args[1])
         say(card_line())
         say(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4095,7 +4266,12 @@ def main():
 
     say("phase J: the engine's classify and UTC-save modes on the per-chunk "
         "path, saved objects, quality_check")
-    checks.append(run_phase_j(dev, h2, tmp.name, counted, launches))
+    checks.append(run_on_h2("J", dev, h2, tmp.name, counted, launches))
+    torch.cuda.empty_cache()
+
+    say("phase K: the Case1 path on automatic picks (autoPickPhases, "
+        "autoPickTimes) at H2's full width")
+    checks.append(run_on_h2("K", dev, h2, tmp.name, counted, launches))
     tmp.cleanup()
     del h2
 
@@ -4107,7 +4283,8 @@ def main():
     # the engine's own, phases F1-F3; construct_launches: G1-G2;
     # pipeline_launches: the key-file pipeline, H1-H2; mesh_launches:
     # phase I; modes_launches: the classify and UTC-save modes and the
-    # per-chunk path, phase J
+    # per-chunk path, phase J; picks_launches: Case1 on automatic picks,
+    # phase K
     kernels = []
     for k, (src, replaces) in KERNEL_INFO.items():
         bound_ms, bound_by = times[k]["bound"]
@@ -4119,6 +4296,7 @@ def main():
             pipeline_launches=h_launches[k],
             mesh_launches=launches["I"][k],
             modes_launches=launches["J"][k],
+            picks_launches=launches["K"][k],
             max_abs_err=max(r[k]["err"] for r in checks + [times] if k in r),
             ms=times[k]["ms"], plain_ms=times[k]["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,

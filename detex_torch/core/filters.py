@@ -1,6 +1,7 @@
 """
 Host-side signal conditioning of the detection engine: the obspy-style
-Butterworth bandpass, linear detrend and decimation, in float64.
+Butterworth bandpass, lowpass and highpass, linear detrend, demean and
+decimation, in float64.
 
 Namesake of detex_tpu/core/filters.py: the bandpass and the detrend run in
 the native host library (detex_torch.native, the same C++ source and
@@ -55,6 +56,17 @@ def lowpass(data, freq, sr, corners=4, zerophase=False):
     sos = _sig.iirfilter(corners, freq / (0.5 * sr), btype="lowpass",
                          ftype="butter", output="sos")
     return _sosfilt(sos, data, zerophase)
+
+
+def highpass(data, freq, sr, corners=4, zerophase=False):
+    sos = _sig.iirfilter(corners, freq / (0.5 * sr), btype="highpass",
+                         ftype="butter", output="sos")
+    return _sosfilt(sos, data, zerophase)
+
+
+def demean(data):
+    data = np.asarray(data)
+    return data - data.mean()
 
 
 def detrend_linear(data):

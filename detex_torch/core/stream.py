@@ -2,9 +2,10 @@
 Lightweight numpy-backed Trace/Stream containers of the detection engine.
 
 Namesake of detex_tpu/core/stream.py (a copy of what the engine's filter
-path and the data layer call: sort, copy, merge, trim, slice, split,
-detrend, filter, decimate, select, get_gaps, write). Gaps are NaN runs inside a merged trace; ``split()`` recovers the
-contiguous segments, as obspy's masked-array merge / split do.
+path, the data layer and the pickers call: sort, copy, merge, trim, slice,
+split, detrend, filter, decimate, select, get_gaps, write, max). Gaps are
+NaN runs inside a merged trace; ``split()`` recovers the contiguous
+segments, as obspy's masked-array merge / split do.
 """
 from __future__ import annotations
 
@@ -335,6 +336,12 @@ class Stream(object):
         """Write the stream to ``path`` (data/waveio.write_stream)."""
         from detex_torch.data import waveio
         waveio.write_stream(self, path, format=format)
+
+    def max(self):
+        """The largest absolute sample of each trace (0.0 for an empty
+        one), NaN gaps ignored."""
+        return [float(np.nanmax(np.abs(t.data))) if len(t) else 0.0
+                for t in self.traces]
 
 
 def _wmatch(value, pattern):

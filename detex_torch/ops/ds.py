@@ -369,6 +369,15 @@ def ds_bank(x, Ufd, sum_u, d_mask, n, nc, nfft):
     return (y * y).sum(dim=1) / _safe_power(power)
 
 
+def ds_single(x, Ufd, sum_u, n, nc, nfft):
+    """DS of one multiplexed chunk x [Lc] against one subspace (detex_tpu
+    ds.ds_single): Ufd [D, R] the spectra of its reversed basis
+    (prep_basis_fd), sum_u [D]; the single-template case of ds_bank,
+    [ceil((Lc - n + 1) / nc)]."""
+    d_mask = torch.ones(1, Ufd.shape[0], dtype=torch.bool, device=Ufd.device)
+    return ds_bank(x, Ufd[None], sum_u[None], d_mask, n, nc, nfft)[0]
+
+
 def ds_bank_chunks(X, Ufd, sum_u, d_mask, n, nc, nfft):
     """ds_bank over a chunk batch X [B, Lc], one chunk at a time:
     [B, S, out_len]."""

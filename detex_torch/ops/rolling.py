@@ -5,8 +5,8 @@ Namesake of detex_tpu/ops/rolling.py. Every window sum subtracts the row
 mean before the prefix sum and adds ``n * mean`` back per window (the
 prefix stays an O(sqrt(L)) random walk), and the prefix runs in float64, so
 window sums over million-sample rows keep ~1e-12 relative accuracy.
-``rolling_sum_rows`` takes any leading dims and so also stands in for
-detex_tpu's one-row ``rolling_sum``. The prefix is two-level, as in
+``rolling_sum_rows`` takes any leading dims; ``rolling_sum`` is
+detex_tpu's one-row form of it. The prefix is two-level, as in
 detex_tpu (there a triangular matmul for the TPU's matrix unit): PyTorch's
 cumsum scans each row of a few long rows in one thread block on the card.
 rolling_std is the host float64 form (numpy in, numpy out) that
@@ -47,6 +47,13 @@ def rolling_sum_rows(x, n):
     c = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
     k = max(c.shape[-1] - n, 0)
     return c[..., n:] - c[..., :k] + n * mu
+
+
+def rolling_sum(x, n):
+    """Sliding-window sums of one row x [L] (a tensor, on its own device;
+    a host array goes to the CPU): float64 [L - n + 1] (detex_tpu's
+    rolling_sum)."""
+    return rolling_sum_rows(torch.as_tensor(x), n)
 
 
 def rolling_mean(x, n):

@@ -128,13 +128,14 @@ def _all_pairs_full(X, II, JJ, n, nc, nfft, pair_batch):
     return out
 
 
-def xcorr_all_pairs(X, nc, pair_batch=PAIR_BATCH, device="cuda"):
+def xcorr_all_pairs(X, nc, nfft=None, pair_batch=PAIR_BATCH,
+                    dtype=torch.float32, device="cuda"):
     """All-pairs normalized cross-correlation of multiplexed, equal-length
     event waveforms X [N, n] (host numpy) with ``nc`` interleaved
-    channels, in float32 on ``device``. The full path transforms at the
-    reference's fft_len_for(n), the polyphase path at
-    fft_len_for(n // nc); ``pair_batch`` pairs share one inverse
-    transform.
+    channels, in ``dtype`` (float32, or float64) on ``device``. The full
+    path transforms at ``nfft`` (default the reference's fft_len_for(n)),
+    the polyphase path at fft_len_for(n // nc) whatever ``nfft`` is, as in
+    detex_tpu; ``pair_batch`` pairs share one inverse transform.
 
     Returns (cc, lag, subsamp) [N, N] numpy float64: the upper triangle
     (i < j) filled, the rest NaN (cc, subsamp) or 0 (lag), as detex_tpu's
@@ -147,7 +148,7 @@ def xcorr_all_pairs(X, nc, pair_batch=PAIR_BATCH, device="cuda"):
     sub = np.full((N, N), np.nan)
     if len(iu) == 0:
         return cc, lag, sub
-    Xd = torch.as_tensor(X, dtype=torch.float32, device=device)
+    Xd = torch.as_tensor(X, dtype=dtype, device=device)
     II = torch.as_tensor(iu, device=device)
     JJ = torch.as_tensor(ju, device=device)
     if n % nc == 0:
@@ -155,7 +156,8 @@ def xcorr_all_pairs(X, nc, pair_batch=PAIR_BATCH, device="cuda"):
                                  fft_len_for(n // nc), int(pair_batch))
     else:
         parts = _all_pairs_full(Xd, II, JJ, int(n), int(nc),
-                                fft_len_for(n), int(pair_batch))
+                                fft_len_for(n) if nfft is None
+                                else int(nfft), int(pair_batch))
     mx, lg, sb = (torch.cat(p).cpu().numpy() for p in zip(*parts))
     cc[iu, ju] = mx
     lag[iu, ju] = lg
@@ -163,11 +165,13 @@ def xcorr_all_pairs(X, nc, pair_batch=PAIR_BATCH, device="cuda"):
     return cc, lag, sub
 
 
-def ccx2(mptd1, mptd2, nc, device="cuda"):
+def ccx2(mptd1, mptd2, nc, nfft=None, dtype=torch.float32, device="cuda"):
     """Max cc, integer lag and subsample shift of one pair (the reference's
-    _CCX2, construct.py:425-466)."""
+    _CCX2, construct.py:425-466); ``nfft`` and ``dtype`` as in
+    xcorr_all_pairs."""
     X = np.stack([np.asarray(mptd1), np.asarray(mptd2)])
-    cc, lag, sub = xcorr_all_pairs(X, nc, device=device)
+    cc, lag, sub = xcorr_all_pairs(X, nc, nfft=nfft, dtype=dtype,
+                                   device=device)
     return cc[0, 1], lag[0, 1], sub[0, 1]
 
 

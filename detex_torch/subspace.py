@@ -20,8 +20,11 @@ reads the template events through the cluster's fetcher.
 the port's objects (util.py: no tensor and no caller's callable in the
 state, loaded back by util.loadClusters / loadSubSpace through a
 restricted unpickler); ``ClusterStream.writeSimpleHypoDDInput`` writes
-hypoDD's dt.cc. The interactive and automatic pickers and the plots of
-detex_tpu are still to be ported (ROADMAP A18).
+hypoDD's dt.cc. Trims come from a pick file (``attachPickTimes``), from
+picks made by hand (``pickTimes``, streamPick.py) or from the STA/LTA of
+the aligned waveforms (``autoPickTimes``). The plots and printers
+(``dendro``, ``simMatrix``, ``plotEvents``, ``plotThresholds``, ...)
+import matplotlib when they are called; nothing else here needs it.
 """
 from __future__ import annotations
 
@@ -108,10 +111,12 @@ class ClusterStream(object):
         self.device = device
         self.stalist = [row["Station"] for row in trdf]
         self.stalist2 = [x.split(".")[1] for x in self.stalist]
+        locations = _event_locations(temkey)
         self.clusters = [
             Cluster(row["Station"],
                     eventList if eventsOnAllStations else row["Events"],
-                    row.get("Link"), ccReq)
+                    row.get("Link"), ccReq, CCs=row.get("CCs"),
+                    locations=locations)
             for row in trdf]
 
     def row(self, sta):
@@ -196,6 +201,23 @@ class ClusterStream(object):
             for num, ccr in enumerate(reqCC):
                 self[num].updateReqCC(ccr)
 
+    def printAtr(self):
+        for cl in self.clusters:
+            cl.printAtr()
+
+    def dendro(self, **kwargs):
+        for cl in self.clusters:
+            cl.dendro(**kwargs)
+
+    def simMatrix(self, groupClusts=False, savename=False, returnMat=False,
+                  **kwargs):
+        return [cl.simMatrix(groupClusts, savename, returnMat, **kwargs)
+                for cl in self.clusters]
+
+    def plotEvents(self, projection=None, plotSingles=True, **kwargs):
+        for cl in self.clusters:
+            cl.plotEvents(projection, plotSingles, **kwargs)
+
     def __getitem__(self, key):
         if isinstance(key, int):
             return self.clusters[key]
@@ -214,15 +236,31 @@ class ClusterStream(object):
         return "ClusterStream with %d stations" % len(self.stalist)
 
 
+def _event_locations(temkey):
+    """{event: (LAT, LON)} of the first template-key row of each name
+    (what the event map plots), empty without a key."""
+    locs = {}
+    for r in temkey or []:
+        locs.setdefault(r["NAME"], (float(r["LAT"]), float(r["LON"])))
+    return locs
+
+
 class Cluster(object):
     """Per-station clustering state (reference subspace.py:290-712):
     ``link`` the scipy single-linkage tree over the events ``key``,
-    ``clusts`` / ``singles`` at ``ccReq``."""
+    ``clusts`` / ``singles`` at ``ccReq``; ``CCs`` the station's [m, m]
+    correlation matrix over ``key`` (upper triangle) and ``locations``
+    {event: (LAT, LON)} from the template key, for the plots."""
 
-    def __init__(self, station, eventList, link, ccReq):
+    nonClustColor = "0.6"   # the singles' color on the event map
+
+    def __init__(self, station, eventList, link, ccReq, CCs=None,
+                 locations=None):
         self.link = link
         self.station = station
         self.key = list(eventList)
+        self.CCs = CCs
+        self.locations = dict(locations or {})
         self.updateReqCC(ccReq)
 
     def updateReqCC(self, newccReq):
@@ -265,6 +303,84 @@ class Cluster(object):
         self.singles = sorted(self.key[mem[0]]
                               for mem in members.values() if len(mem) == 1)
         self.clustcount = sum(len(c) for c in self.clusts)
+
+    # -- plots ------------------------------------------------------------
+    def dendro(self, hideEventLabels=True, show=True, saveName=False,
+               **kwargs):
+        """Dendrogram of the linkage (reference subspace.py:415-460),
+        colored at 1 - ccReq; the figure, saved to ``saveName`` if
+        given."""
+        import matplotlib.pyplot as plt
+        from scipy.cluster.hierarchy import dendrogram
+        fig, ax = plt.subplots(figsize=(9, 5))
+        labels = None if hideEventLabels else self.key
+        dendrogram(self.link, color_threshold=1 - self.ccReq, labels=labels,
+                   ax=ax, **kwargs)
+        ax.set_ylabel("Dissimilarity (1 - CC)")
+        ax.set_title("%s (ccReq=%.2f)" % (self.station, self.ccReq))
+        if saveName:
+            fig.savefig(saveName)
+        if show:  # pragma: no cover - interactive
+            plt.show()
+        plt.close(fig)
+        return fig
+
+    def simMatrix(self, groupClusts=False, savename=False, returnMat=False,
+                  show=False, **kwargs):
+        """Image of the symmetric similarity matrix, events in key order or,
+        with ``groupClusts``, cluster by cluster then the singles
+        (reference subspace.py:628-688); the matrix with ``returnMat``."""
+        import matplotlib.pyplot as plt
+        m = len(self.key)
+        cc = np.asarray(self.CCs, np.float64)
+        full = np.where(np.isnan(cc), 0.0, cc)
+        full = full + full.T + np.eye(m)
+        order = np.arange(m)
+        if groupClusts:
+            order = np.asarray([self.key.index(e) for cl in self.clusts
+                                for e in cl]
+                               + [self.key.index(e) for e in self.singles])
+        mat = full[np.ix_(order, order)]
+        fig, ax = plt.subplots()
+        im = ax.imshow(mat, vmin=0, vmax=1, interpolation="nearest")
+        fig.colorbar(im, ax=ax, label="correlation coefficient")
+        ax.set_title(self.station)
+        if savename:
+            fig.savefig(savename)
+        if show:  # pragma: no cover
+            plt.show()
+        plt.close(fig)
+        return mat if returnMat else None
+
+    def plotEvents(self, projection=None, plotSingles=True, show=False,
+                   **kwargs):
+        """Longitude / latitude scatter of the events, colored by cluster,
+        singles in grey (the reference's basemap plot without a map
+        projection, subspace.py:462-626); events without a location are
+        left out. Returns the figure."""
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots()
+        groups = [("clust %d" % ci, cl, {}) for ci, cl in
+                  enumerate(self.clusts)]
+        if plotSingles:
+            groups.append(("singles", self.singles,
+                           dict(c=self.nonClustColor)))
+        for label, evs, kw in groups:
+            locs = [self.locations[e] for e in evs if e in self.locations]
+            ax.scatter([x[1] for x in locs], [x[0] for x in locs],
+                       label=label, **kw)
+        ax.set_xlabel("Longitude")
+        ax.set_ylabel("Latitude")
+        ax.legend(fontsize=7)
+        ax.set_title(self.station)
+        if show:  # pragma: no cover
+            plt.show()
+        plt.close(fig)
+        return fig
+
+    def printAtr(self):
+        print("%s had %d events and %d clusters with ccReq=%.3f"
+              % (self.station, len(self.key), len(self.clusts), self.ccReq))
 
     def write(self):
         """Pickle this Cluster to clust.pkl, as detex_tpu's does
@@ -614,6 +730,135 @@ class SubSpace(object):
     # ------------------------------------------------------------------
     # Picks
     # ------------------------------------------------------------------
+    def pickTimes(self, duration=30, traceLimit=15, repick=False,
+                  subspaces=True, singles=True, pickerFactory=None):
+        """Pick each unpicked subspace and single by hand and define its
+        SampleTrims from the picks (reference subspace.py:1328-1416): the
+        group's aligned waveforms open in ``pickerFactory(stream)``
+        (default streamPick.streamPick, the matplotlib picker: q / a / w
+        / s pick P / Pend / S / Send at the cursor, "v" goes on, escape
+        stops with the progress kept); the earliest pick opens the
+        window, ``duration`` seconds (or the latest pick) close it.
+        ``pickerFactory`` may be any callable ``stream -> obj`` whose
+        ``._picks`` and ``.KeepGoing`` the loop reads, so a script can
+        pick without a window; attachPickTimes(pksFile) and
+        autoPickTimes() need none."""
+        if pickerFactory is None:
+            from detex_torch.streamPick import streamPick as pickerFactory
+        if subspaces:
+            if self._pickTimes(self.subspaces, duration, traceLimit,
+                               pickerFactory, repick=repick) is False:
+                return
+        if singles:
+            self._pickTimes(self.singles, duration, traceLimit,
+                            pickerFactory, repick=repick)
+
+    def _pickTimes(self, trdfDict, duration, traceLimit, pickerFactory,
+                   repick=False):
+        """The picking loop over one {station: rows} dict; False when the
+        user stopped it."""
+        for sta in trdfDict:
+            for row in trdfDict[sta]:
+                if row["SampleTrims"] and not repick:
+                    continue
+                st = self._makeOpStream(row, traceLimit)
+                pks = pickerFactory(st)
+                d1 = {b.phase_hint: b.time.timestamp
+                      for b in pks._picks if b}
+                if d1:
+                    eves, starttimes, Nc, Sr = self._getStats(row)
+                    # the picked traces are the multiplexed waveforms at
+                    # sr 1 from time 0: a pick's timestamp is its sample;
+                    # the window opens at a channel-aligned sample
+                    fp = int(min(d1.values()))
+                    d1["Starttime"] = fp - fp % Nc
+                    stime = d1["Starttime"]
+                    if duration:
+                        d1["Endtime"] = stime + int(duration * Sr * Nc)
+                        d1["DurationSeconds"] = duration
+                    else:
+                        etime = int(max(d1.values()))
+                        d1["Endtime"] = etime
+                        d1["DurationSeconds"] = (etime - stime) / (Sr * Nc)
+                    wfs = self._waveforms(row)
+                    _quantize_trims(d1, Nc,
+                                    max_len=min(len(wfs[e]) for e in eves))
+                    stime = d1["Starttime"]
+                    row["SampleTrims"] = d1
+                    stats = row["Stats"]
+                    for event in eves:
+                        stN = stats[event]["starttime"] + stime / (Nc * Sr)
+                        stats[event]["starttime"] = stN
+                        stats[event]["offset"] = (
+                            stN - stats[event]["origintime"])
+                if not pks.KeepGoing:
+                    detex_torch.log(__name__, "aborting picking, progress "
+                                    "saved")
+                    return False
+            self._updateOffsets()
+        return True
+
+    @staticmethod
+    def _waveforms(row):
+        """A row's {event: waveform}: the aligned ones of a subspace, the
+        multiplexed one of a single."""
+        wfs = row.get("AlignedTD")
+        return wfs if isinstance(wfs, dict) else row["MPtd"]
+
+    def _makeOpStream(self, row, traceLimit):
+        """A group's waveforms as a Stream to pick: one trace per event
+        (channel = event name, sampling rate 1 from time 0, so pick
+        timestamps are multiplexed samples; reference
+        subspace.py:1418-1441), at most ``traceLimit``."""
+        from detex_torch.core.stream import Stream, Trace
+        st = Stream()
+        wfs = self._waveforms(row)
+        for key in row["Events"][:traceLimit]:
+            st += Trace(data=np.asarray(wfs[key]),
+                        header=dict(channel=key,
+                                    network=str(row.get("Name", "")),
+                                    station=row["Station"]))
+        return st
+
+    def autoPickTimes(self, duration=30, staTime=0.5, ltaTime=5.0,
+                      repick=False):
+        """SampleTrims without picks (detex_tpu's extension): for each
+        unpicked subspace and single, the classic STA/LTA
+        (ops/stalta.classic_sta_lta) of the mean absolute aligned
+        waveform; the window opens 0.5 s before its largest ratio,
+        snapped to a channel, runs ``duration`` seconds and is quantized
+        as attachPickTimes' windows are. Start times and offsets move
+        with it."""
+        from detex_torch.ops.stalta import classic_sta_lta
+        for trdfDict in (self.subspaces, self.singles):
+            for sta in trdfDict:
+                for row in trdfDict[sta]:
+                    if row["SampleTrims"] and not repick:
+                        continue
+                    eves, starttimes, Nc, Sr = self._getStats(row)
+                    wfs = [self._waveforms(row)[e] for e in eves]
+                    short = min(len(x) for x in wfs)
+                    stack = np.mean(np.abs(np.vstack(
+                        [w[:short] for w in wfs])), axis=0)
+                    cft = classic_sta_lta(stack, staTime * Sr * Nc,
+                                          ltaTime * Sr * Nc)
+                    onset = int(np.argmax(cft)) if cft.max() > 0 else 0
+                    start = max(onset - int(0.5 * Sr * Nc), 0)
+                    start -= start % Nc
+                    end = start + int(duration * Sr * Nc)
+                    end -= end % Nc
+                    end = min(end, short)
+                    d1 = {"Starttime": int(start), "Endtime": int(end),
+                          "DurationSeconds": duration}
+                    _quantize_trims(d1, Nc, max_len=short)
+                    start = d1["Starttime"]
+                    row["SampleTrims"] = d1
+                    for event in eves:
+                        st = row["Stats"][event]
+                        st["starttime"] = st["starttime"] + start / (Nc * Sr)
+                        st["offset"] = st["starttime"] - st["origintime"]
+        self._updateOffsets()
+
     def attachPickTimes(self, pksFile="PhasePicks.csv", function="median",
                         defaultDuration=30):
         """Attach phase picks (a CSV with columns TimeStamp, Station,
@@ -974,6 +1219,106 @@ class SubSpace(object):
                     rows.append([skey, sta,
                                  json.dumps(np.asarray(val).tolist())])
             _util.saveSQLite(rows, db, table, ["Name", "Sta", "Value"])
+
+    # ------------------------------------------------------------------
+    # Plots and printers (reference subspace.py:1144-1325); each returns
+    # its figures, one a subspace
+    # ------------------------------------------------------------------
+    def _figures(self, draw, show, want=lambda row: True):
+        """One figure a subspace row that ``want`` accepts, drawn by
+        ``draw(ax, sta, row)``; closed after (shown first with
+        ``show``)."""
+        import matplotlib.pyplot as plt
+        figs = []
+        for sta in self.ssStations:
+            for row in self.subspaces[sta]:
+                if not want(row):
+                    continue
+                fig, ax = plt.subplots()
+                draw(ax, sta, row)
+                figs.append(fig)
+                if show:  # pragma: no cover
+                    plt.show()
+                plt.close(fig)
+        return figs
+
+    def plotThresholds(self, conDatNum=None, xlim=(-.01, .5), show=False,
+                       **kwargs):
+        """Each subspace's null histogram (as a density), its beta fit and
+        its threshold."""
+        def draw(ax, sta, row):
+            bins = np.asarray(row["FAS"]["bins"])
+            centers = 0.5 * (bins[1:] + bins[:-1])
+            hist = np.asarray(row["FAS"]["hist"], dtype=float)
+            width = bins[1] - bins[0]
+            ax.bar(centers, hist / max(hist.sum() * width, 1e-12),
+                   width=width, alpha=0.5, label="empirical null")
+            b = row["FAS"]["betadist"]
+            xs = np.linspace(xlim[0] + 1e-6, xlim[1], 400)
+            ax.plot(xs, scipy.stats.beta.pdf(xs, b[0], b[1]),
+                    label="beta fit")
+            ax.axvline(row["Threshold"], color="r", ls="--",
+                       label="threshold")
+            ax.set_xlim(*xlim)
+            ax.set_title("%s %s" % (sta, row["Name"]))
+            ax.legend()
+        return self._figures(draw, show, lambda row: isinstance(
+            row["FAS"], dict) and "hist" in row["FAS"])
+
+    def plotFracEnergy(self, show=False):
+        """Each event's fractional energy captured against the dimension,
+        their average and the dimension used."""
+        def draw(ax, sta, row):
+            for ev in row["Events"]:
+                ax.plot(row["FracEnergy"][ev], alpha=.4)
+            ax.plot(row["FracEnergy"]["Average"], "k", lw=2,
+                    label="average")
+            ax.axvline(row["NumBasis"], color="r", ls="--",
+                       label="NumBasis")
+            ax.set_xlabel("dimension of representation")
+            ax.set_ylabel("fractional energy captured")
+            ax.set_title("%s %s" % (sta, row["Name"]))
+            ax.legend()
+        return self._figures(draw, show, lambda row: isinstance(
+            row["FracEnergy"], dict))
+
+    def plotAlignedEvents(self, show=False):
+        """The aligned (and trimmed) waveforms, each scaled to its largest
+        absolute value."""
+        def draw(ax, sta, row):
+            for ev in row["Events"]:
+                wf = np.asarray(row["AlignedTD"][ev], dtype=float)
+                st = row["SampleTrims"]
+                if "Starttime" in st:
+                    wf = wf[st["Starttime"]:st["Endtime"]]
+                ax.plot(wf / (np.abs(wf).max() or 1), alpha=.5)
+            ax.set_title("%s %s aligned" % (sta, row["Name"]))
+        return self._figures(draw, show)
+
+    def plotBasisVectors(self, show=False):
+        """The used basis vectors, offset by 0.2 each."""
+        def draw(ax, sta, row):
+            for i, key in enumerate(row["UsedSVDKeys"]):
+                ax.plot(np.asarray(row["SVD"][key]) + i * 0.2, alpha=.8)
+            ax.set_title("%s %s basis" % (sta, row["Name"]))
+        return self._figures(draw, show, lambda row: isinstance(
+            row["SVD"], dict))
+
+    def plotOffsetTimes(self, show=False):
+        """A histogram of each subspace's event offsets (start time minus
+        origin time)."""
+        def draw(ax, sta, row):
+            ax.hist([row["Stats"][x]["offset"] for x in row["Events"]])
+            ax.set_title("%s %s offsets" % (sta, row["Name"]))
+        return self._figures(draw, show)
+
+    def printOffsets(self):
+        for station in self.ssStations:
+            for row in self.subspaces[station]:
+                off = row["Offsets"]
+                print("%s, %s, min=%3f, max=%3f, range=%3f"
+                      % (row["Station"], row["Name"], off[0], off[2],
+                         off[2] - off[0]))
 
     # ------------------------------------------------------------------
     def __getstate__(self):

@@ -18,10 +18,15 @@ Saved objects and tables are standard-library pickles:
 
 Every loader unpickles through ``RestrictedUnpickler``, which admits only
 the port's classes, numpy, builtins, collections and torch's storage
-types. A pickle of detex_tpu or of the original Detex (classes of
-``detex_tpu.*``, ``detex.*`` or ``pandas.*``) is refused with
-NotImplementedError before anything of it is imported: converting such
-pickles is detex_tpu's migrate.py, not yet ported.
+types. A pickle of the original Detex (classes of ``detex.*``) goes on to
+migrate.py, which converts it into the port's objects; one of detex_tpu
+or of pandas is refused with NotImplementedError before anything of it
+is imported.
+
+Phase picks (``pickPhases`` by hand in streamPick.py's picker,
+``autoPickPhases`` by STA/LTA) are written to the pick CSV that
+SubSpace.attachPickTimes reads, without pandas; ``readLog`` reads the log
+file of detex_torch.setLogger.
 
 Namesake of detex_tpu/util.py's saveSQLite / loadSQLite (reference
 util.py:870-931): the same tables (``ss_df``, ``sg_df``), column order,
@@ -184,27 +189,49 @@ _ALLOWED_TORCH = {("torch._utils", "_rebuild_tensor_v2"),
                   ("torch._utils", "_rebuild_tensor"),
                   ("torch.storage", "_load_from_bytes"),
                   ("torch", "device")}
-_FOREIGN_MODULES = ("detex_tpu", "detex", "pandas")
 
 
 def _under(module, roots):
     return any(module == r or module.startswith(r + ".") for r in roots)
 
 
+class DetexPickle(NotImplementedError):
+    """A pickle that names the original Detex package: the loaders hand
+    it to migrate.py."""
+
+
 class RestrictedUnpickler(pickle.Unpickler):
     """An Unpickler that resolves only the port's classes, numpy, the
-    builtin types, collections and torch's storage types. detex_tpu, Detex
-    and pandas classes raise NotImplementedError (their conversion is the
-    migrate module, not yet ported); any other name raises
-    pickle.UnpicklingError. Nothing is imported for a refused name."""
+    builtin types, collections and torch's storage types; any other name
+    raises pickle.UnpicklingError, and nothing is imported for a refused
+    name. Three foreign packages raise NotImplementedError instead, each
+    saying what holds for it: a name of the original Detex (``detex.*``)
+    raises DetexPickle, which loadClusters / loadSubSpace catch to convert
+    the pickle with migrate.py; a detex_tpu name is refused (detex_tpu's
+    own objects have no conversion, in its migrate.py either); a pandas
+    name (a pickled DataFrame, such as detex_tpu's tables) is refused,
+    since only migrate reads DataFrames, inside a Detex object."""
 
     def find_class(self, module, name):
-        if _under(module, _FOREIGN_MODULES):
-            detex_torch.log(__name__, "%s.%s is a class of detex_tpu, Detex "
-                            "or pandas: converting their pickles is "
-                            "detex_tpu's migrate.py, which is not ported "
-                            "yet (ROADMAP A20)" % (module, name),
+        if _under(module, ("detex",)):
+            detex_torch.log(__name__, "%s.%s is a class of the original "
+                            "Detex: util.loadClusters / loadSubSpace "
+                            "convert its pickles with migrate.py"
+                            % (module, name), level="error", e=DetexPickle)
+        if _under(module, ("detex_tpu",)):
+            detex_torch.log(__name__, "%s.%s is a class of detex_tpu, whose "
+                            "pickles the port does not read: migrate.py "
+                            "converts only the original Detex's, as "
+                            "detex_tpu's migrate does; rebuild the object "
+                            "with detex_torch" % (module, name),
                             level="error", e=NotImplementedError)
+        if _under(module, ("pandas",)):
+            detex_torch.log(__name__, "%s.%s: a pickled pandas object (such "
+                            "as a detex_tpu table) is not read here; the "
+                            "port's tables are lists of row dicts, and only "
+                            "migrate.py reads DataFrames, inside a Detex "
+                            "object" % (module, name), level="error",
+                            e=NotImplementedError)
         if (module, name) in _ALLOWED_TORCH or \
                 (module == "torch" and name.endswith("Storage")) or \
                 (module == "builtins" and name in _ALLOWED_BUILTINS):
@@ -275,14 +302,20 @@ def _on_device(value, device, seen):
 def _load_object(filename, device):
     if torch.device(device).type == "cuda":
         detex_torch.require_cuda()
-    return _on_device(_restricted_load(filename), device, set())
+    try:
+        obj = _restricted_load(filename)
+    except DetexPickle:
+        from detex_torch import migrate
+        return migrate.load(filename, device=device)
+    return _on_device(obj, device, set())
 
 
 def loadClusters(filename="clust.pkl", device="cuda"):
     """Load a ClusterStream written by ClusterStream.write or saveObject,
     its tensors (if any) on ``device`` and its ``device`` set to it (the
-    card unless the caller asks for "cpu"). A detex_tpu or Detex pickle
-    raises NotImplementedError."""
+    card unless the caller asks for "cpu"). A pickle of the original
+    Detex is converted by migrate.py; a detex_tpu pickle raises
+    NotImplementedError."""
     from detex_torch.subspace import ClusterStream
     obj = _load_object(filename, device)
     if not isinstance(obj, ClusterStream):
@@ -336,3 +369,142 @@ def get_number_channels(st):
         detex_torch.log(__name__, "function only takes streams with exactly "
                         "1 station", level="error")
     return len({tr.stats.channel for tr in st})
+
+
+# ---------------------------------------------------------------------------
+# Phase picks (reference util.py:1006-1101 and its streamPick.py GUI)
+# ---------------------------------------------------------------------------
+
+PICK_COLUMNS = ["TimeStamp", "Station", "Event", "Phase", "Channel",
+                "Seconds"]
+AUTO_PICK_COLUMNS = ["TimeStamp", "Station", "Event", "Phase"]
+
+
+def seeWaveFroms(fetch="ContinuousWaveForms", templatekey="TemplateKey.csv",
+                 stationkey="StationKey.csv", outFile="PhasePicks.csv",
+                 **kwargs):
+    """pickPhases over ``fetch``, by default the continuous-data directory
+    (what the reference's template browser, util.py:1104-1190, meant to
+    do; it shipped reading undefined names)."""
+    return pickPhases(fetch=fetch, templatekey=templatekey,
+                      stationkey=stationkey, pickFile=outFile, **kwargs)
+
+
+def pickPhases(fetch="EventWaveForms", templatekey="TemplateKey.csv",
+               stationkey="StationKey.csv", pickFile="PhasePicks.csv",
+               skipIfExists=True, pickerFactory=None, **kwargs):
+    """Pick phases by hand on every station / event stream of the
+    template key (reference util.py:1007-1101): each stream opens in
+    ``pickerFactory(stream)`` (default streamPick.streamPick: q / a / w /
+    s pick P / Pend / S / Send at the cursor, "v" goes on, escape stops);
+    the picks are added to ``pickFile`` (columns TimeStamp, Station,
+    Event, Phase, Channel, Seconds, sorted by Station then Event), saved
+    every 10 events and when the user stops. With ``skipIfExists`` the
+    station / event pairs already in the file are not shown again.
+    ``pickerFactory`` may be any callable ``stream -> obj`` with
+    ``._picks`` and ``.KeepGoing``; kwargs go to quickFetch. Returns the
+    file's rows."""
+    from detex_torch.data import fetcher as getdata
+    from detex_torch.data import keys
+    if pickerFactory is None:
+        from detex_torch.streamPick import streamPick as pickerFactory
+    temkey = readKey(templatekey, key_type="template")
+    stakey = readKey(stationkey, key_type="station")
+    fetcher = getdata.quickFetch(fetch, **kwargs)
+    ets = {}  # station -> events already picked, to skip
+    rows = []
+    if os.path.exists(pickFile):
+        old = keys.read_csv(pickFile)[1]
+        if len(old) < 1:
+            os.remove(pickFile)
+        else:
+            rows = old
+            if skipIfExists:
+                for r in old:
+                    ets.setdefault(r["Station"], []).append(r["Event"])
+
+    def _save():
+        out = keys.sort_rows(rows, ["Station", "Event"])
+        keys.write_csv(pickFile, PICK_COLUMNS, out)
+        return out
+
+    count = 0
+    for st, event in fetcher.getTemData(temkey, stakey, skipDict=ets,
+                                        returnName=True):
+        if st is None or len(st) < 1:
+            continue
+        count += 1
+        pks = pickerFactory(st)
+        sta = "%s.%s" % (st[0].stats.network, st[0].stats.station)
+        for b in pks._picks:
+            if not b:
+                continue
+            tstamp = b["time"].timestamp
+            rows.append({"TimeStamp": tstamp, "Station": sta,
+                         "Event": event, "Phase": b.phase_hint,
+                         "Channel": b["waveform_id"]["channel_code"],
+                         "Seconds": "%3.5f" % tstamp})
+        if not pks.KeepGoing:
+            detex_torch.log(__name__, "Exiting picking GUI, progress saved "
+                            "in %s" % pickFile)
+            return _save()
+        if count % 10 == 0:
+            _save()
+    return _save()
+
+
+def autoPickPhases(templateKey="TemplateKey.csv", stationKey="StationKey.csv",
+                   fetch="EventWaveForms", fileName="PhasePicks.csv",
+                   staTime=0.5, ltaTime=5.0, threshold=3.0,
+                   filt=(1, 10, 2, True), tb4=10, taft=120, phase="P"):
+    """Pick phases without a window (detex_tpu's extension): for every
+    station / event stream, ``tb4`` s before to ``taft`` s after the
+    origin, the vertical channel (or the first) bandpassed with ``filt``
+    (the host filter, native when built), its classic STA/LTA, and the
+    first sample where it reaches ``threshold`` as a ``phase`` pick.
+    Written to ``fileName`` with columns TimeStamp, Station, Event, Phase,
+    every 10 picks and at the end. Returns the rows."""
+    from detex_torch.data import fetcher as getdata
+    from detex_torch.data import keys
+    from detex_torch.ops.stalta import classic_sta_lta
+    temkey = readKey(templateKey, "template")
+    stakey = readKey(stationKey, "station")
+    fetcher = getdata.quickFetch(fetch)
+    rows = []
+    for srow in stakey:
+        skey = [r for r in stakey if r["STATION"] == srow["STATION"]]
+        for st, name in fetcher.getTemData(temkey, skey, tb4, taft,
+                                           returnName=True):
+            if filt is not None:
+                st.filter("bandpass", freqmin=filt[0], freqmax=filt[1],
+                          corners=filt[2], zerophase=filt[3])
+            stz = st.select(component="Z")
+            tr = stz[0] if len(stz) else st[0]
+            sr = tr.stats.sampling_rate
+            cft = classic_sta_lta(tr.data, staTime * sr, ltaTime * sr)
+            above = np.flatnonzero(cft >= threshold)
+            if len(above) == 0:
+                continue
+            rows.append(dict(TimeStamp=tr.stats.starttime.timestamp
+                             + above[0] / sr,
+                             Station="%s.%s" % (srow["NETWORK"],
+                                                srow["STATION"]),
+                             Event=name, Phase=phase))
+            if len(rows) % 10 == 0:
+                keys.write_csv(fileName, AUTO_PICK_COLUMNS, rows)
+    keys.write_csv(fileName, AUTO_PICK_COLUMNS, rows)
+    return rows
+
+
+def readLog(logpath="detex_torch.log"):
+    """The lines of the log file detex_torch.setLogger writes, as a list
+    of {"Time", "Mod", "Level", "Msg"} dicts (reference util.py:972-987;
+    a tab inside a message stays in Msg)."""
+    rows = []
+    with open(logpath) as fh:
+        for line in fh:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) >= 4:
+                rows.append(dict(zip(("Time", "Mod", "Level", "Msg"),
+                                     parts[:3] + ["\t".join(parts[3:])])))
+    return rows

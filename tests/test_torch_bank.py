@@ -192,28 +192,33 @@ def test_wrappers_dispatch_on_device():
 
 
 def test_port_imports_without_jax_or_pandas():
-    """In a process where jax, detex_tpu and pandas cannot be imported,
-    detex_torch still imports (the engine, its host modules, core, the
-    detector construction, the data layer and results included) and runs a CPU scan, a dense
-    re-verify, a per-chunk ("plain") scan, run_bank, a full-length bank's
-    scan and raw scan with the device prep, the detection engine on two
-    chunks of one station, writing its rows to SQLite, imports
-    quality_check and interop, classifies one chunk (the classify mode's
-    EventCors table written and read back as row dicts), and a tiny
-    createCluster -> createSubSpace -> attachPickTimes -> SVD(threshold)
-    on the CPU, and writes a tiny SynthCatalog directory, indexes it and
-    reads one chunk back through the 'dir' fetcher, and runs a scan
-    sharded over a 4-entry CPU mesh (parallel.mesh) and a miniSEED
-    round trip of that chunk through the port's native library (native,
-    data.mseed). The imports are refused by a finder at the head of
-    sys.meta_path (a None entry in sys.modules would also break scipy's
-    check for JAX arrays inside scipy.cluster)."""
+    """In a process where jax, detex_tpu, pandas and matplotlib cannot be
+    imported, detex_torch still imports (the engine, its host modules,
+    core, the detector construction, the data layer and results included)
+    and runs a CPU scan, a dense re-verify, a per-chunk ("plain") scan,
+    run_bank, a full-length bank's scan and raw scan with the device prep,
+    the detection engine on two chunks of one station, writing its rows
+    to SQLite, imports quality_check and interop, classifies one chunk
+    (the classify mode's EventCors table written and read back as row
+    dicts), and a tiny createCluster -> createSubSpace -> attachPickTimes
+    -> SVD(threshold) on the CPU, and writes a tiny SynthCatalog
+    directory, indexes it and reads one chunk back through the 'dir'
+    fetcher, and runs a scan sharded over a 4-entry CPU mesh
+    (parallel.mesh) and a miniSEED round trip of that chunk through the
+    port's native library (native, data.mseed); it imports the pickers,
+    the plots' module and migrate, runs autoPickTimes on the tiny
+    SubSpace, autoPickPhases on the SynthCatalog's events and the log
+    file's round trip, and holds that a detex_tpu pickle is refused
+    before import while a Detex pickle reaches migrate. The imports are
+    refused by a finder at the head of sys.meta_path (a None entry in
+    sys.modules would also break scipy's check for JAX arrays inside
+    scipy.cluster)."""
     code = (
         "import sys, importlib.abc\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'pandas',\n"
-        "                                  'detex_tpu'):\n"
+        "                                  'detex_tpu', 'matplotlib'):\n"
         "            raise ImportError('refused: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import numpy as np\n"
@@ -338,7 +343,38 @@ def test_port_imports_without_jax_or_pandas():
         "assert [t.id for t in back] == [t.id for t in st]\n"
         "assert all(np.array_equal(a.data, b.data) for a, b in\n"
         "           zip(back, st))\n"
-        "bad = [m for m in ('jax', 'pandas', 'detex_tpu')\n"
+        "import detex_torch.streamPick, detex_torch.migrate\n"
+        "from detex_torch.util import (pickPhases, seeWaveFroms,\n"
+        "                              autoPickPhases, readLog)\n"
+        "from detex_torch.ops.rolling import rolling_sum\n"
+        "from detex_torch.ops.ds import ds_single\n"
+        "ss2 = construct.createSubSpace(clust=cl)\n"
+        "ss2.autoPickTimes(duration=4)\n"
+        "rows = ss2.subspaces['XX.S1'] + ss2.singles['XX.S1']\n"
+        "assert all(r['SampleTrims'] for r in rows) and len(rows) == 3\n"
+        "pk = os.path.join(tempfile.mkdtemp(), 'picks.csv')\n"
+        "autoPickPhases(paths['templateKey'], paths['stationKey'],\n"
+        "               paths['eventDir'], pk, tb4=5, taft=20)\n"
+        "assert open(pk).readline().strip() == \\\n"
+        "    'TimeStamp,Station,Event,Phase'\n"
+        "lg = os.path.join(tempfile.mkdtemp(), 'x.log')\n"
+        "detex_torch.setLogger(lg)\n"
+        "detex_torch.log('m', 'logged')\n"
+        "detex_torch.closeLogger()\n"
+        "assert readLog(lg)[0]['Msg'] == 'm: logged'\n"
+        "for body, says in (\n"
+        "        (b'cdetex_tpu.subspace\\nSubSpace\\n', 'of detex_tpu'),\n"
+        "        (b'cdetex.subspace\\nSubSpace\\n', 'Detex SubSpace')):\n"
+        "    fp = os.path.join(tempfile.mkdtemp(), 'old.pkl')\n"
+        "    with open(fp, 'wb') as fh:\n"
+        "        fh.write(b'\\x80\\x02' + body + b'q\\x00)\\x81q\\x01.')\n"
+        "    try:\n"
+        "        detex_torch.util.loadSubSpace(fp, device='cpu')\n"
+        "    except NotImplementedError as e:\n"
+        "        assert says in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('not refused: ' + says)\n"
+        "bad = [m for m in ('jax', 'pandas', 'detex_tpu', 'matplotlib')\n"
         "       if sys.modules.get(m) is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
