@@ -41,16 +41,24 @@ vector of every detector on every chunk spanning one of the given times
 and writes them to ``UTCsaves.pkl`` once the run ends. Both tables are
 lists of row dicts with detex_tpu's columns (util.readRows), written in
 the working directory; detections land in SQLite in these modes too.
+
+Every stage opens a span of detex_torch.trace (banks; fetch, prep,
+dispatch > batch, upload, scan; materialize > wait, gate, reverify, rows,
+hist) and counts chunks, batches, re-verified chunks and rows, rows
+written and bytes copied each way; README.md lists them.
 """
 from __future__ import annotations
 
+import itertools
 from collections import deque
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 import detex_torch
 from detex_torch import native as _native
+from detex_torch import trace as _trace
 from detex_torch import util as _util
 from detex_torch.construct import _applyFilter, multiplex
 from detex_torch.core.utc import UTCDateTime
@@ -165,6 +173,8 @@ class _SSDetex(object):
         # scans; materialized in order (FIFO), so the rows keep it
         self._inflight = deque()
         self._inflight_depth = 1
+        # a batch's dispatch and materialize spans share its id
+        self._batch_ids = itertools.count()
 
         for sta, station in stations.items():
             if len(station["detectors"]) > 0:
@@ -271,9 +281,10 @@ class _SSDetex(object):
         histdic = ({na: np.zeros(len(self.hist["Bins"]) - 1) for na in names}
                    if self.calcHist else None)
         nc = len(channels)
-        det, banks, devicePrep = self._prepareDetectors(dets, sta, channels,
-                                                        samplingRate)
-        datGen = self.chunks(sta)
+        with _trace.span("banks"):
+            det, banks, devicePrep = self._prepareDetectors(
+                dets, sta, channels, samplingRate)
+        datGen = iter(self.chunks(sta))
         if (self.batchSize > 1 and self.trigCon == 0 and not self.classify
                 and self.utcSaves is None):
             return self._corDatBatched(threshold, sta, names, det, banks, nc,
@@ -282,7 +293,12 @@ class _SSDetex(object):
         trigth = self._trigThresholds(threshold)
         tail_trim = self._conTrimSamps(dets, nc, samplingRate)
         rows, numdets = [], 0
-        for st, utc1, utc2 in datGen:
+        while True:
+            with _trace.span("fetch"):
+                item = next(datGen, None)
+            if item is None:
+                break
+            st, utc1, utc2 = item
             if st is None or len(st) < 1:
                 detex_torch.log(__name__, "could not get data on %s from %s "
                                 "to %s" % (sta, utc1, utc2), level="warning")
@@ -314,15 +330,16 @@ class _SSDetex(object):
                 else:
                     trig_val = maxds
                 if trig_val > trigth[name]:
-                    rows.extend(self._checkedRows(self._createCoeffArray(
-                        dsvec, stalta_vec, name, trigth, sta, det, MPcon,
-                        nc, sr, tstamp), sta))
-                    if len(rows) > FLUSH_ROWS:
-                        _util.saveSQLite(rows, self.subspaceDB, tableName,
-                                         SAR_COLS)
-                        numdets += len(rows)
-                        rows = []
-        _util.saveSQLite(rows, self.subspaceDB, tableName, SAR_COLS)
+                    with _trace.span("rows"):
+                        rows.extend(self._checkedRows(self._createCoeffArray(
+                            dsvec, stalta_vec, name, trigth, sta, det, MPcon,
+                            nc, sr, tstamp), sta))
+                        if len(rows) > FLUSH_ROWS:
+                            self._saveRows(rows, tableName)
+                            numdets += len(rows)
+                            rows = []
+        with _trace.span("rows"):
+            self._saveRows(rows, tableName)
         detex_torch.log(__name__, "%s on %s completed, %d potential "
                         "detection(s) recorded"
                         % ("Subspaces" if self.issubspace else "Singletons",
@@ -360,102 +377,34 @@ class _SSDetex(object):
         def dispatch(batch):
             if not batch:
                 return
-            # the trailing partial batch is padded with empty chunks,
-            # whose valid length masks everything out
-            B = self.batchSize
-            outs = []
-            for bank, th in zip(banks, thresholds_by_bank):
-                pad = bank["pad_len"]
-                if devicePrep:
-                    Lp = (pad // nc) * self.dpDec
-                    Xc = np.zeros((B, nc, Lp), np.float32)
-                    lens = []
-                    for bi, (payload, _, _) in enumerate(batch):
-                        ch = payload["chans"]
-                        L = min(ch.shape[1], Lp)
-                        Xc[bi, :, :L] = ch[:, :L]
-                        lens.append(L)
-                    lens.extend([0] * (B - len(batch)))
-                    hist, maxds, *_ = _pscan.scan_chunks_raw(
-                        Xc, lens, bank["H"], bank, th, nc, buff_samps=1,
-                        bins=bins, max_trig=1, dec=self.dpDec, mesh=mesh,
-                        calc_hist=self.calcHist, calc_triggers=False)
-                    outs.append((bank, hist, maxds, None, None))
-                    continue
-                X = np.zeros((B, pad), np.float32)
-                lens = []
-                for bi, (MPcon, _, _) in enumerate(batch):
-                    L = min(len(MPcon), pad)
-                    X[bi, :L] = MPcon[:L]
-                    lens.append(L)
-                lens.extend([0] * (B - len(batch)))
-                if mesh is not None:
-                    # no batch is kept on a mesh: triggered chunks upload
-                    # again to the engine's device for the re-verify
-                    hist, maxds, *_ = _pscan.scan_chunks(
-                        X, bank, th, nc, buff_samps=1, bins=bins,
-                        max_trig=1, valid_lens=lens, mesh=mesh,
-                        calc_hist=self.calcHist, calc_triggers=False)
-                    outs.append((bank, hist, maxds, None, None))
-                    continue
-                # the engine uploads the batch itself and keeps it until
-                # materialize: the dense re-verify gathers its triggered
-                # chunks from it instead of uploading them again
-                Xin = torch.from_numpy(X).to(self.device)
-                hist, maxds, *_ = _pscan.scan_chunks(
-                    Xin, bank, th, nc, buff_samps=1, bins=bins, max_trig=1,
-                    valid_lens=lens, calc_hist=self.calcHist,
-                    calc_triggers=False)
-                if X.nbytes <= KEEP_DEV_BATCH_BYTES:
-                    outs.append((bank, hist, maxds, Xin, lens))
-                    continue
-                if not ctx.get("keep_warned"):
-                    ctx["keep_warned"] = True
-                    detex_torch.log(__name__, "scan batch (%.0f MB) exceeds "
-                                    "the re-verify retention budget; "
-                                    "triggered chunks will upload again"
-                                    % (X.nbytes / 1e6))
-                outs.append((bank, hist, maxds, None, None))
+            bid = next(self._batch_ids)
+            with _trace.span("dispatch", batch=bid):
+                outs = [self._dispatchBank(bank, th, batch, nc, devicePrep,
+                                           bins, mesh, ctx)
+                        for bank, th in zip(banks, thresholds_by_bank)]
+            _trace.count("batches")
             ctx["open_batches"] += 1
-            self._inflight.append((ctx, outs, list(batch)))
+            self._inflight.append((ctx, outs, list(batch), bid))
             while len(self._inflight) > self._inflight_depth:
                 self._materializeOne()
 
         nmax = max(d["n"] for d in det.values())
-        for st, utc1, utc2 in datGen:
+        while True:
+            with _trace.span("fetch"):
+                item = next(datGen, None)
+            if item is None:
+                break
+            st, utc1, utc2 = item
             if st is None or len(st) < 1:
                 detex_torch.log(__name__, "could not get data on %s from %s "
                                 "to %s" % (sta, utc1, utc2), level="warning")
                 continue
-            try:
-                # devicePrep: merge and trim only on the host; the bandpass
-                # and the decimation run on the device
-                conSt = _applyFilter(
-                    st, None if devicePrep else self.filt,
-                    None if devicePrep else self.decimate, self.dtype,
-                    fillZeros=self.fillZeros)
-            except Exception:
-                detex_torch.log(__name__, "failed to filter chunk on %s"
-                                % sta, level="warning")
+            with _trace.span("prep"):
+                chunk = self._prepChunk(st, sta, nc, nmax, devicePrep)
+            if chunk is None:
                 continue
-            if len(conSt) < 1:
-                continue
-            sr = conSt[0].stats.sampling_rate
-            tstamp = conSt[0].stats.starttime.timestamp
-            if devicePrep:
-                sr = sr / self.dpDec  # DS runs at the decimated rate
-                conSt.sort()
-                L = min(len(tr.data) for tr in conSt)
-                if (L // self.dpDec) * nc <= nmax:
-                    continue
-                chans = np.stack([np.asarray(tr.data[:L], np.float32)
-                                  for tr in conSt])
-                pending.append((dict(chans=chans, st=conSt), sr, tstamp))
-            else:
-                MPcon = multiplex(conSt, nc)
-                if len(MPcon) <= nmax:
-                    continue
-                pending.append((MPcon, sr, tstamp))
+            _trace.count("chunks")
+            pending.append(chunk)
             if len(pending) >= self.batchSize:
                 dispatch(pending)
                 pending = []
@@ -467,96 +416,228 @@ class _SSDetex(object):
         # station's preparation or the final drain; histdic fills in place
         return histdic if self.calcHist else None
 
+    def _prepChunk(self, st, sta, nc, nmax, devicePrep):
+        """One chunk of the batched path as (payload, sr, tstamp): the
+        payload is the filtered, multiplexed chunk, or with devicePrep
+        {"chans": the merged and trimmed channels stacked as float32,
+        "st": their Stream}; None for a chunk that cannot be used."""
+        try:
+            # devicePrep: merge and trim only on the host; the bandpass
+            # and the decimation run on the device
+            conSt = _applyFilter(
+                st, None if devicePrep else self.filt,
+                None if devicePrep else self.decimate, self.dtype,
+                fillZeros=self.fillZeros)
+        except Exception:
+            detex_torch.log(__name__, "failed to filter chunk on %s" % sta,
+                            level="warning")
+            return None
+        if len(conSt) < 1:
+            return None
+        sr = conSt[0].stats.sampling_rate
+        tstamp = conSt[0].stats.starttime.timestamp
+        if devicePrep:
+            sr = sr / self.dpDec  # DS runs at the decimated rate
+            conSt.sort()
+            L = min(len(tr.data) for tr in conSt)
+            if (L // self.dpDec) * nc <= nmax:
+                return None
+            chans = np.stack([np.asarray(tr.data[:L], np.float32)
+                              for tr in conSt])
+            return dict(chans=chans, st=conSt), sr, tstamp
+        MPcon = multiplex(conSt, nc)
+        if len(MPcon) <= nmax:
+            return None
+        return MPcon, sr, tstamp
+
+    def _dispatchBank(self, bank, th, batch, nc, devicePrep, bins, mesh,
+                      ctx):
+        """Stack one batch for one bank, zero-padded to batchSize chunks
+        (the padding chunks' valid length masks everything out), and start
+        its summary-only scan: (bank, hist, maxds, the batch kept on the
+        device or None, its valid lengths)."""
+        pad = bank["pad_len"]
+        X, lens = self._stackBatch(batch, nc, pad, devicePrep)
+        if devicePrep:
+            with self._scanSpan(mesh):
+                hist, maxds, *_ = _pscan.scan_chunks_raw(
+                    X, lens, bank["H"], bank, th, nc, buff_samps=1,
+                    bins=bins, max_trig=1, dec=self.dpDec, mesh=mesh,
+                    calc_hist=self.calcHist, calc_triggers=False)
+            return bank, hist, maxds, None, None
+        if mesh is not None:
+            # no batch is kept on a mesh: triggered chunks upload again to
+            # the engine's device for the re-verify
+            hist, maxds, *_ = _pscan.scan_chunks(
+                X, bank, th, nc, buff_samps=1, bins=bins, max_trig=1,
+                valid_lens=lens, mesh=mesh, calc_hist=self.calcHist,
+                calc_triggers=False)
+            return bank, hist, maxds, None, None
+        # the engine uploads the batch itself and keeps it until
+        # materialize: the dense re-verify gathers its triggered chunks
+        # from it instead of uploading them again
+        Xin = _ds.to_device(X, self.device)
+        with _trace.span("scan"):
+            hist, maxds, *_ = _pscan.scan_chunks(
+                Xin, bank, th, nc, buff_samps=1, bins=bins, max_trig=1,
+                valid_lens=lens, calc_hist=self.calcHist,
+                calc_triggers=False)
+        if X.nbytes <= KEEP_DEV_BATCH_BYTES:
+            return bank, hist, maxds, Xin, lens
+        if not ctx.get("keep_warned"):
+            ctx["keep_warned"] = True
+            detex_torch.log(__name__, "scan batch (%.0f MB) exceeds the "
+                            "re-verify retention budget; triggered chunks "
+                            "will upload again" % (X.nbytes / 1e6))
+        return bank, hist, maxds, None, None
+
+    def _stackBatch(self, batch, nc, pad, devicePrep):
+        """One batch zero-padded to batchSize chunks for a bank of
+        ``pad_len`` ``pad``: with devicePrep the channels (B, nc, Lp),
+        else the multiplexed chunks (B, pad), as float32, and the valid
+        lengths (0 for a padding chunk)."""
+        B = self.batchSize
+        with _trace.span("batch"):
+            if devicePrep:
+                Lp = (pad // nc) * self.dpDec
+                X = np.zeros((B, nc, Lp), np.float32)
+                lens = []
+                for bi, (payload, _, _) in enumerate(batch):
+                    ch = payload["chans"]
+                    L = min(ch.shape[1], Lp)
+                    X[bi, :, :L] = ch[:, :L]
+                    lens.append(L)
+            else:
+                X = np.zeros((B, pad), np.float32)
+                lens = []
+                for bi, (MPcon, _, _) in enumerate(batch):
+                    L = min(len(MPcon), pad)
+                    X[bi, :L] = MPcon[:L]
+                    lens.append(L)
+            lens.extend([0] * (B - len(batch)))
+        return X, lens
+
+    @staticmethod
+    def _scanSpan(mesh):
+        """The engine's "scan" span; on a mesh each shard opens its own
+        (parallel/scan._run_shards), so none opens here."""
+        return _trace.span("scan") if mesh is None else nullcontext()
+
     def _materializeOne(self):
         """Materialize the oldest in-flight batch: gate on its maxima,
         re-verify the triggered chunks, accumulate the histograms and
         flush rows (reference detect.py:562-747)."""
-        ctx, outs, batch = self._inflight.popleft()
+        ctx, outs, batch, bid = self._inflight.popleft()
+        with _trace.span("materialize", batch=bid):
+            for out in outs:
+                self._materializeBank(ctx, batch, *out)
+            if len(ctx["rows"]) > FLUSH_ROWS:
+                with _trace.span("rows"):
+                    self._saveRows(ctx["rows"], ctx["tableName"])
+                ctx["numdets"] += len(ctx["rows"])
+                ctx["rows"] = []
+            ctx["open_batches"] -= 1
+            if ctx["station_done"] and ctx["open_batches"] == 0:
+                self._finalizeStation(ctx)
+
+    def _materializeBank(self, ctx, batch, bank, hist_dev, maxds_dev, Xd,
+                         xlens):
+        """One bank of a materializing batch: read its summaries back,
+        gate, re-verify the triggered chunks (on the device, gathered from
+        the kept batch ``Xd`` or uploaded again; in float64 on the host
+        for dtype="double") and append their rows to ctx["rows"]."""
         sta = ctx["sta"]
         det = ctx["det"]
         threshold = ctx["threshold"]
         nc = ctx["nc"]
-        histdic = ctx["histdic"]
         gate_eps = ctx["gate_eps"]
         use_sl = bool(not self.fillZeros and self.triggerLTATime)
-        for bank, hist_dev, maxds_dev, Xd, xlens in outs:
-            hist = hist_dev.cpu().numpy()
-            maxds = maxds_dev.cpu().numpy()
-            trig_bis, trig_rows, mpcons = [], [], []
-            for bi, (payload, sr, tstamp) in enumerate(batch):
+        hist = _ds.to_host(hist_dev)
+        maxds = _ds.to_host(maxds_dev)
+        with _trace.span("gate"):
+            trig_bis, trig_rows = [], []
+            for bi in range(len(batch)):
                 trig = [si for si, name in enumerate(bank["names"])
                         if maxds[bi, si] > threshold[name] - gate_eps]
-                if not trig:
-                    continue
+                if trig:
+                    trig_bis.append(bi)
+                    trig_rows.append(trig)
+        if trig_bis:
+            use_dev_trig = self.dtype != "double"
+            _trace.count("chunks_gated", len(trig_bis))
+            _trace.count("reverify_rows_gated", sum(map(len, trig_rows)))
+            _trace.count("reverify_rows_computed",
+                         len(trig_bis) * int(bank["sum_u"].shape[0])
+                         if use_dev_trig else sum(map(len, trig_rows)))
+            with _trace.span("reverify"):
                 if ctx["devicePrep"]:
                     # the exact host filter, for the triggered chunks only
-                    stf = _applyFilter(payload["st"].copy(), self.filt,
-                                       self.decimate, self.dtype,
-                                       fillZeros=self.fillZeros)
-                    MPcon = multiplex(stf, nc)
+                    with _trace.span("reverify.filter"):
+                        mpcons = [multiplex(_applyFilter(
+                            batch[bi][0]["st"].copy(), self.filt,
+                            self.decimate, self.dtype,
+                            fillZeros=self.fillZeros), nc)
+                            for bi in trig_bis]
                 else:
-                    MPcon = payload
-                trig_bis.append(bi)
-                trig_rows.append(trig)
-                mpcons.append(MPcon)
-            if not trig_bis:
-                self._addHist(histdic, bank, hist)
-                continue
-            use_dev_trig = self.dtype != "double"
-            _pscan._note_route("dense-reverify-device" if use_dev_trig
-                               else "dense-reverify-host")
-            if use_dev_trig:
-                thr_list = [[float(threshold[bank["names"][si]])
-                             for si in trig] for trig in trig_rows]
-                srs = [batch[bi][1] for bi in trig_bis]
-                x_dev = lens_dev = None
-                if Xd is not None:
-                    # the triggered chunks gathered from the kept batch
-                    # (devicePrep keeps none: its rows are host-filtered)
-                    x_dev = Xd[torch.as_tensor(trig_bis, device=Xd.device)]
-                    lens_dev = [xlens[bi] for bi in trig_bis]
-                trig_out = _ds.run_bank_triggers_batch(
-                    mpcons, bank, nc, trig_rows, thr_list, srs,
-                    self.triggerLTATime or 0.0, self.triggerSTATime or 0.0,
-                    use_sl, MAX_TRIGGERS, x_dev=x_dev, lens_dev=lens_dev)
-            for zi, (bi, trig, MPcon) in enumerate(
-                    zip(trig_bis, trig_rows, mpcons)):
-                _, sr, tstamp = batch[bi]
-                for si in trig:
-                    name = bank["names"][si]
-                    if use_dev_trig:
-                        idx, ds_at, sl_at = trig_out[zi][si]
-                        if len(idx) >= MAX_TRIGGERS:
-                            detex_torch.log(
-                                __name__, "over %d events found in single "
-                                "data block on %s for %s"
-                                % (MAX_TRIGGERS, sta, name), level="error")
-                        rl = self._coeffRowList(idx, ds_at, sl_at, name, sta,
-                                                det, MPcon, nc, sr, tstamp)
-                    else:
-                        # float64 on the host (dtype="double")
-                        dsvec = _ds.ds_numpy(np.asarray(MPcon, np.float64),
-                                             det[name]["U"], nc)
-                        if dsvec.max() > 1.1:
-                            dsvec = np.where(np.isfinite(dsvec), dsvec, 0.0)
-                        stalta_vec = None
-                        if use_sl:
-                            stalta_vec = self._dsStalta(
-                                dsvec, self.triggerLTATime * sr,
-                                self.triggerSTATime * sr)
-                        rl = self._createCoeffArray(
-                            dsvec, stalta_vec, name, threshold, sta, det,
-                            MPcon, nc, sr, tstamp)
-                    ctx["rows"].extend(self._checkedRows(rl, sta))
-            self._addHist(histdic, bank, hist)
-        if len(ctx["rows"]) > FLUSH_ROWS:
-            _util.saveSQLite(ctx["rows"], self.subspaceDB, ctx["tableName"],
-                             SAR_COLS)
-            ctx["numdets"] += len(ctx["rows"])
-            ctx["rows"] = []
-        ctx["open_batches"] -= 1
-        if ctx["station_done"] and ctx["open_batches"] == 0:
-            self._finalizeStation(ctx)
+                    mpcons = [batch[bi][0] for bi in trig_bis]
+                _pscan._note_route("dense-reverify-device" if use_dev_trig
+                                   else "dense-reverify-host")
+                if use_dev_trig:
+                    thr_list = [[float(threshold[bank["names"][si]])
+                                 for si in trig] for trig in trig_rows]
+                    srs = [batch[bi][1] for bi in trig_bis]
+                    x_dev = lens_dev = None
+                    if Xd is not None:
+                        # the triggered chunks gathered from the kept batch
+                        # (devicePrep keeps none: its rows are
+                        # host-filtered)
+                        x_dev = Xd[torch.as_tensor(trig_bis,
+                                                   device=Xd.device)]
+                        lens_dev = [xlens[bi] for bi in trig_bis]
+                    trig_out = _ds.run_bank_triggers_batch(
+                        mpcons, bank, nc, trig_rows, thr_list, srs,
+                        self.triggerLTATime or 0.0,
+                        self.triggerSTATime or 0.0, use_sl, MAX_TRIGGERS,
+                        x_dev=x_dev, lens_dev=lens_dev)
+            with _trace.span("rows"):
+                for zi, (bi, trig, MPcon) in enumerate(
+                        zip(trig_bis, trig_rows, mpcons)):
+                    _, sr, tstamp = batch[bi]
+                    for si in trig:
+                        name = bank["names"][si]
+                        if use_dev_trig:
+                            idx, ds_at, sl_at = trig_out[zi][si]
+                            if len(idx) >= MAX_TRIGGERS:
+                                detex_torch.log(
+                                    __name__, "over %d events found in "
+                                    "single data block on %s for %s"
+                                    % (MAX_TRIGGERS, sta, name),
+                                    level="error")
+                            rl = self._coeffRowList(idx, ds_at, sl_at, name,
+                                                    sta, det, MPcon, nc, sr,
+                                                    tstamp)
+                        else:
+                            rl = self._hostRows(MPcon, name, threshold, sta,
+                                                det, nc, sr, tstamp, use_sl)
+                        ctx["rows"].extend(self._checkedRows(rl, sta))
+        with _trace.span("hist"):
+            self._addHist(ctx["histdic"], bank, hist)
+
+    def _hostRows(self, MPcon, name, threshold, sta, det, nc, sr, tstamp,
+                  use_sl):
+        """The rows of detector ``name`` on one triggered chunk re-verified
+        in float64 on the host (dtype="double")."""
+        with _trace.span("reverify.host"):
+            dsvec = _ds.ds_numpy(np.asarray(MPcon, np.float64),
+                                 det[name]["U"], nc)
+            if dsvec.max() > 1.1:
+                dsvec = np.where(np.isfinite(dsvec), dsvec, 0.0)
+            stalta_vec = None
+            if use_sl:
+                stalta_vec = self._dsStalta(dsvec, self.triggerLTATime * sr,
+                                            self.triggerSTATime * sr)
+        return self._createCoeffArray(dsvec, stalta_vec, name, threshold,
+                                      sta, det, MPcon, nc, sr, tstamp)
 
     def _addHist(self, histdic, bank, hist):
         if self.calcHist:
@@ -580,13 +661,19 @@ class _SSDetex(object):
     def _finalizeStation(self, ctx):
         """The last flush and the completion log of one station, once all
         its batches have materialized."""
-        _util.saveSQLite(ctx["rows"], self.subspaceDB, ctx["tableName"],
-                         SAR_COLS)
+        with _trace.span("rows"):
+            self._saveRows(ctx["rows"], ctx["tableName"])
         detex_torch.log(__name__, "%s on %s completed, %d potential "
                         "detection(s) recorded"
                         % ("Subspaces" if self.issubspace else "Singletons",
                            ctx["sta"], len(ctx["rows"]) + ctx["numdets"]))
         ctx["rows"] = []
+
+    def _saveRows(self, rows, tableName):
+        """Append detection rows to ``tableName`` (util.saveSQLite)."""
+        with _trace.span("sqlite"):
+            _util.saveSQLite(rows, self.subspaceDB, tableName, SAR_COLS)
+        _trace.count("rows_written", len(rows))
 
     def _drainInflight(self):
         while self._inflight:
@@ -635,17 +722,18 @@ class _SSDetex(object):
         run every bank on one chunk (reference _getRA,
         detect.py:220-296): ({name: DS vector}, MPcon, sr, tstamp), or
         None for a chunk that cannot be used."""
-        try:
-            conSt = _applyFilter(st, self.filt, self.decimate, self.dtype,
-                                 fillZeros=self.fillZeros)
-        except Exception:
-            detex_torch.log(__name__, "failed to filter chunk on %s, skipping"
-                            % sta, level="warning")
-            return None
-        if len(conSt) < 1:
-            return None
-        sr = conSt[0].stats.sampling_rate
-        MPcon = multiplex(conSt, nc)
+        with _trace.span("prep"):
+            try:
+                conSt = _applyFilter(st, self.filt, self.decimate, self.dtype,
+                                     fillZeros=self.fillZeros)
+            except Exception:
+                detex_torch.log(__name__, "failed to filter chunk on %s, "
+                                "skipping" % sta, level="warning")
+                return None
+            if len(conSt) < 1:
+                return None
+            sr = conSt[0].stats.sampling_rate
+            MPcon = multiplex(conSt, nc)
         if tail_trim > 0:
             MPcon = MPcon[:max(len(MPcon) - int(tail_trim), 0)]
         tstamp = conSt[0].stats.starttime.timestamp
@@ -654,16 +742,18 @@ class _SSDetex(object):
                             "short, skipping" % (sta, utc1, utc2),
                             level="warning")
             return None
-        if self.dtype == "double":
-            x64 = np.asarray(MPcon, np.float64)
-            vec_of = {name: _ds.ds_numpy(x64, det[name]["U"], nc)
-                      for name in det}
-        else:
-            vec_of = {}
-            for bank in banks:
-                ds = _ds.run_bank(MPcon, bank, nc)
-                for i, name in enumerate(bank["names"]):
-                    vec_of[name] = ds[i]
+        _trace.count("chunks")
+        with _trace.span("scan"):
+            if self.dtype == "double":
+                x64 = np.asarray(MPcon, np.float64)
+                vec_of = {name: _ds.ds_numpy(x64, det[name]["U"], nc)
+                          for name in det}
+            else:
+                vec_of = {}
+                for bank in banks:
+                    ds = _ds.run_bank(MPcon, bank, nc)
+                    for i, name in enumerate(bank["names"]):
+                        vec_of[name] = ds[i]
         dsdict = {}
         for name, vec in vec_of.items():
             if len(vec) < 10:
@@ -681,7 +771,7 @@ class _SSDetex(object):
         if self.dtype == "double":
             return _stalta.ds_stalta_np(dsvec, lta_samps, sta_samps)
         c = torch.as_tensor(np.asarray(dsvec, np.float32), device=self.device)
-        return _stalta.ds_stalta(c, lta_samps, sta_samps).cpu().numpy()
+        return _ds.to_host(_stalta.ds_stalta(c, lta_samps, sta_samps))
 
     def _trigThresholds(self, threshold):
         """Per-detector trigger thresholds: the DS thresholds for trigCon
@@ -716,7 +806,7 @@ class _SSDetex(object):
                                 device=self.device)[None]
             idx, cnt = _triggers.extract_triggers(c, thr, buff_samps,
                                                   max_triggers=MAX_TRIGGERS)
-            idx = idx[0, :int(cnt[0])].cpu().numpy()
+            idx = _ds.to_host(idx[0, :int(cnt[0])])
         if len(idx) >= MAX_TRIGGERS:
             detex_torch.log(__name__, "over %d events found in single data "
                             "block on %s for %s" % (MAX_TRIGGERS, sta, name),
@@ -741,8 +831,10 @@ class _SSDetex(object):
             times = float(trigIndex) / sr + tstamp
             SLValue = 0.0 if slvals is None else float(slvals[k])
             if self.estimateMags:
-                peMag, stMag, SNR = self._estMag(int(trigIndex), info, MPcon,
-                                                 nc, coef, times, name, sta)
+                with _trace.span("mags"):
+                    peMag, stMag, SNR = self._estMag(int(trigIndex), info,
+                                                     MPcon, nc, coef, times,
+                                                     name, sta)
             else:
                 peMag, stMag, SNR = np.nan, np.nan, np.nan
             rows.append([coef, SLValue, times, name, sta, times - maxof,

@@ -27,21 +27,19 @@ Kernels, the TPU kernel each replaces, and sources:
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from detex_torch import trace as _trace
 from detex_torch.kernels import build as _build
 from detex_torch.ops import dft as _dft
 from detex_torch.ops import reference as _ref
 
-LAUNCHES = {"fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
-            "rfft_ct_fused": 0, "irfft_ct_fused": 0, "rfft_ct_half": 0,
-            "ds_finalize_os_scan": 0, "ds_finalize_os": 0,
-            "hist_uniform": 0, "ds_finalize": 0}
-
-
-_COUNT_LOCK = threading.Lock()
+# trace.counters() reports these as "launches.<kernel>"
+LAUNCHES = _trace.counter_group("launches", {
+    "fwd_prep_fold": 0, "spec_ds_fold": 0, "ds_finalize_os_fold": 0,
+    "rfft_ct_fused": 0, "irfft_ct_fused": 0, "rfft_ct_half": 0,
+    "ds_finalize_os_scan": 0, "ds_finalize_os": 0, "hist_uniform": 0,
+    "ds_finalize": 0})
 
 
 def reset_launches():
@@ -53,8 +51,7 @@ def reset_launches():
 def _count(kernel):
     """One launch of ``kernel``; sharded scans launch from several host
     threads, one a card."""
-    with _COUNT_LOCK:
-        LAUNCHES[kernel] += 1
+    _trace.count(kernel, counts=LAUNCHES)
 
 
 def _on_cuda(*tensors):

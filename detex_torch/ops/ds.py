@@ -51,6 +51,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from detex_torch import trace as _trace
 from detex_torch.ops import cuda_kernels as _ck
 from detex_torch.ops import dft as _dft
 from detex_torch.ops import triggers as _triggers
@@ -747,6 +748,26 @@ def _bank_batch_program(Xd, lens, bank, nc):
     return torch.stack([_ds_of_bank(x, bank, nc) for x in Xd]), list(lens)
 
 
+def to_device(x, dev):
+    """Chunks (numpy or a tensor) as float32 on ``dev``; a numpy array is
+    spanned as "upload" and its bytes counted in h2d_bytes."""
+    if not isinstance(x, np.ndarray):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    with _trace.span("upload"):
+        out = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    _trace.count("h2d_bytes", x.nbytes)
+    return out
+
+
+def to_host(t):
+    """A tensor read back as numpy, spanned as "wait" (the read waits for
+    the device's work behind it) and its bytes counted in d2h_bytes."""
+    with _trace.span("wait"):
+        out = t.cpu().numpy()
+    _trace.count("d2h_bytes", out.nbytes)
+    return out
+
+
 def _pad_chunk(x_np, bank, nc, pad_len=None):
     """One host chunk cut to ``pad_len`` (default the bank's) and
     zero-padded to it, as a float32 tensor on the bank's device, plus its
@@ -758,7 +779,7 @@ def _pad_chunk(x_np, bank, nc, pad_len=None):
     Lc = min(Lc, pad_len)
     xp = np.zeros(pad_len, np.float32)
     xp[:Lc] = x_np[:Lc]
-    return torch.from_numpy(xp).to(bank["sum_u"].device), Lc
+    return to_device(xp, bank["sum_u"].device), Lc
 
 
 def run_bank(x_np, bank, nc, pad_len=None):
@@ -768,7 +789,7 @@ def run_bank(x_np, bank, nc, pad_len=None):
     device-to-host copy)."""
     xp, Lc = _pad_chunk(x_np, bank, nc, pad_len)
     out = _ds_of_bank(xp, bank, nc)
-    return out[:, :max(_n_valid(Lc, bank, nc), 0)].cpu().numpy()
+    return to_host(out[:, :max(_n_valid(Lc, bank, nc), 0)])
 
 
 def run_bank_rows(x_np, bank, nc, rows):
@@ -781,7 +802,7 @@ def run_bank_rows(x_np, bank, nc, rows):
     xp, Lc = _pad_chunk(x_np, bank, nc)
     out = _ds_of_bank(xp, bank, nc)
     nv = max(_n_valid(Lc, bank, nc), 0)
-    sel = out[torch.as_tensor(rows, device=out.device), :nv].cpu().numpy()
+    sel = to_host(out[torch.as_tensor(rows, device=out.device), :nv])
     return dict(zip(rows, sel))
 
 
@@ -797,7 +818,7 @@ def _bank_batch_out(x_list, bank, nc):
         L = min(len(x), pad_len)
         X[i, :L] = np.asarray(x[:L], np.float32)
         lens.append(L)
-    Xd = torch.from_numpy(X).to(bank["sum_u"].device)
+    Xd = to_device(X, bank["sum_u"].device)
     return _bank_batch_program(Xd, lens, bank, nc)
 
 
@@ -811,7 +832,7 @@ def run_bank_batch(x_list, bank, nc):
     if not x_list:
         return []
     out, lens = _bank_batch_out(x_list, bank, nc)
-    out = out.cpu().numpy()
+    out = to_host(out)
     return [out[i, :, :max(_n_valid(L, bank, nc), 0)]
             for i, L in enumerate(lens)]
 
@@ -832,7 +853,7 @@ def run_bank_rows_batch(x_list, bank, nc, rows_list):
         dev = out.device
         sel = out[torch.as_tensor([j[0] for j in jobs], device=dev),
                   torch.as_tensor([j[1] for j in jobs], device=dev)]
-        got = dict(zip(jobs, sel.cpu().numpy()))
+        got = dict(zip(jobs, to_host(sel)))
     res = []
     for i, rows in enumerate(rows_list):
         nv = max(_n_valid(lens[i], bank, nc), 0)
@@ -900,8 +921,8 @@ def run_bank_triggers_batch(x_list, bank, nc, rows_list, thr_list, sr_list,
         # one copy: counts, indices and values side by side in float64
         # (indices < 2^53 and float32 values round-trip exactly)
         parts = [cnt[:, None], idx, dsv] + ([slv] if use_stalta else [])
-        packed = torch.cat([p.to(torch.float64) for p in parts],
-                           dim=1).cpu().numpy()
+        packed = to_host(torch.cat([p.to(torch.float64) for p in parts],
+                                   dim=1))
         k = idx.shape[1]
         for row, (ci, si, _) in zip(packed, jobs):
             nf = int(row[0])

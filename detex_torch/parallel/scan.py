@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 import detex_torch
+from detex_torch import trace as _trace
 from detex_torch.kernels import build as _build
 from detex_torch.ops import cuda_kernels as _ck
 from detex_torch.ops import ds as _ds
@@ -71,8 +72,9 @@ DEFAULT_BINS = np.linspace(0, 1, 401)
 TEMPLATE_BLOCK = 128
 
 # Kernel-route observability: every scan records the route it dispatched
-# in this counter and logs each new route once.
-ROUTE_COUNTS = Counter()
+# in this counter (trace.counters() reports it as "routes.<route>") and
+# logs each new route once.
+ROUTE_COUNTS = _trace.counter_group("routes", Counter())
 _ROUTES_LOGGED = set()
 
 
@@ -98,7 +100,7 @@ def _note_route(name, device_prep=False, sharded=False):
         name += "+sharded"
     if device_prep:
         name += "+devicePrep"
-    ROUTE_COUNTS[name] += 1
+    _trace.count(name, counts=ROUTE_COUNTS)
     if name not in _ROUTES_LOGGED:
         _ROUTES_LOGGED.add(name)
         detex_torch.log(__name__, "scan kernel route: %s" % name)
@@ -137,11 +139,6 @@ def _pad_batch(n_dev, X, nv):
     return Xp, nvp, B
 
 
-def _upload(x, dev):
-    """Rows of a chunk batch (numpy or a tensor) as float32 on ``dev``."""
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
-
 def _run_shards(mesh, B, body):
     """body(i, r0, r1) for every mesh entry i over its rows [r0, r1) of a
     batch of B chunks; the results in mesh order. The entries of one
@@ -159,14 +156,16 @@ def _run_shards(mesh, B, body):
         return [(i, body(i, *ranges[i])) for i in idx]
 
     if sum(d.type == "cuda" for d in groups) < 2:
-        pairs = run(range(len(mesh)))
+        with _trace.span("scan"):
+            pairs = run(range(len(mesh)))
     else:
         _build.load_library()        # built once, before the threads
         results = {}
 
         def work(key, idx):
             try:
-                results[key] = run(idx)
+                with _trace.span("scan"):
+                    results[key] = run(idx)
             except BaseException as e:   # re-raised in the calling thread
                 results[key] = e
 
@@ -606,7 +605,7 @@ def scan_chunks(X, bank, thresholds, nc, buff_samps, bins=None, max_trig=64,
         bins = DEFAULT_BINS
     st = _bank_statics(bank, nc)
     dev = bank["sum_u"].device
-    X = _upload(X, dev)
+    X = _ds.to_device(X, dev)
     nv = _valid_lens(bank, nc, X, valid_lens)
     unb = _uniform_nbin(bins)
     route, mode, arrs, th = _os_fold_route(
@@ -651,7 +650,8 @@ def scan_chunks_sharded(mesh, X, bank, thresholds, nc, buff_samps,
     def body(i, r0, r1):
         dev = mesh[i]
         route, mode, arrs, th = plans[i]
-        return _scan_rows(route, mode, arrs, th, _upload(X[r0:r1], dev),
+        return _scan_rows(route, mode, arrs, th,
+                          _ds.to_device(X[r0:r1], dev),
                           torch.as_tensor(nv[r0:r1], device=dev), st, bins,
                           buff_samps, max_trig, calc_hist, unb,
                           calc_triggers)
@@ -700,7 +700,7 @@ def scan_chunks_raw(Xc, lens, H, bank, thresholds, nc, buff_samps,
             max_trig=max_trig, dec=dec, calc_hist=calc_hist,
             calc_triggers=calc_triggers)
     dev = bank["sum_u"].device
-    Xc = _upload(Xc, dev)
+    Xc = _ds.to_device(Xc, dev)
     lens = [int(v) for v in lens]
     kind = _ds.bank_kind(bank)
     if kind == "os":
@@ -767,9 +767,9 @@ def scan_chunks_raw_sharded(mesh, Xc, lens, H, bank, thresholds, nc,
         def body(i, r0, r1):
             dev = mesh[i]
             return _raw_demux_rows(
-                reps[i], _upload(Xc[r0:r1], dev), lens[r0:r1].tolist(),
-                H.to(dev), thresholds, nc, buff_samps, bins, max_trig, dec,
-                calc_hist, calc_triggers)
+                reps[i], _ds.to_device(Xc[r0:r1], dev),
+                lens[r0:r1].tolist(), H.to(dev), thresholds, nc, buff_samps,
+                bins, max_trig, dec, calc_hist, calc_triggers)
 
         return _gather(mesh, _run_shards(mesh, int(Xc.shape[0]), body), B)
     st = _bank_statics(bank, nc)
@@ -786,8 +786,8 @@ def scan_chunks_raw_sharded(mesh, Xc, lens, H, bank, thresholds, nc,
         dev = mesh[i]
         route, mode, arrs, th = plans[i]
         X, lens_mux = _prep.prep_multiplex_batch(
-            _upload(Xc[r0:r1], dev), lens[r0:r1].tolist(), H.to(dev), nfftp,
-            dec, nc)
+            _ds.to_device(Xc[r0:r1], dev), lens[r0:r1].tolist(), H.to(dev),
+            nfftp, dec, nc)
         nv = np.maximum((np.asarray(lens_mux) - n) // nc + 1, 0)
         return _scan_rows(route, mode, arrs, th, X,
                           torch.as_tensor(nv.astype(np.int32), device=dev),
