@@ -15,9 +15,10 @@ and subsample matrices are square [m, m] numpy arrays, upper triangle
 filled. The all-pairs correlation of each station is one
 ops/xcorr.xcorr_all_pairs call on the caller's device, the single-linkage
 tree is scipy's on the host, and alignment is align.py's tree walk. The
-detection engine runs every chunk through _applyFilter and multiplex
-before its scan, and each triggered chunk of a devicePrep scan again
-before the re-verify.
+detection engine runs every chunk through prepChunk before its scan, and
+each triggered chunk of a devicePrep scan again before the re-verify:
+_applyFilter and multiplex, or one native pass with the same bits
+(host_prep.py) where the chunk allows it.
 """
 from __future__ import annotations
 
@@ -29,7 +30,11 @@ from scipy.cluster.hierarchy import linkage
 
 import detex_torch
 from detex_torch import align as _align
-from detex_torch.core.stream import Stream
+from detex_torch import host_prep as _host_prep
+from detex_torch import native as _native
+from detex_torch import trace as _trace
+from detex_torch.core import filters as _filters
+from detex_torch.core.stream import Stream, Trace
 from detex_torch.core.utc import UTCDateTime
 from detex_torch.data import fetcher as getdata
 from detex_torch.data.keys import readKey
@@ -66,7 +71,8 @@ def _applyFilter(st, filt, decimate=False, dtype="double", fillZeros=False):
     """Sort, merge, decimate, trim, split, detrend and bandpass a Stream in
     place (reference construct.py:990-1030); dtype "single" casts the
     traces to float32. Returns the filtered Stream, empty when the chunk
-    cannot be used."""
+    cannot be used. _fusedPass does these steps in one pass where they
+    reduce to trim, detrend and bandpass: change both together."""
     if st is None or len(st) < 1:
         detex_torch.log(__name__, "_applyFilter got a stream with 0 length",
                         level="warning")
@@ -96,6 +102,75 @@ def _applyFilter(st, filt, decimate=False, dtype="double", fillZeros=False):
         for tr in st:
             tr.data = tr.data.astype(np.float32)
     return st
+
+
+def prepChunk(st, nc, filt, decimate=False, dtype="double", fillZeros=False,
+              mux=True):
+    """The detection engine's preparation of one chunk: _applyFilter,
+    then multiplex (``mux``) or the [nc, n] stack of the sorted channels
+    cut to the shortest. Returns (out, the Stats that stamp the chunk with
+    its rate and start, the prepared Stream), or None where _applyFilter
+    leaves nothing; out is float32 for dtype "single", else float64. One
+    native pass (_fusedPass) does it all where the chunk allows, with the
+    same bits, and counts prep.fused; every other chunk takes _applyFilter
+    and multiplex and counts prep.fallback. ``st`` is sorted in place, and
+    filtered in place on the fallback."""
+    got = _fusedPass(st, nc, filt, decimate, dtype, mux)
+    _trace.count("prep.fallback" if got is None else "prep.fused")
+    if got is not None:
+        return got
+    conSt = _applyFilter(st, filt, decimate, dtype, fillZeros=fillZeros)
+    if len(conSt) < 1:
+        return None
+    stats = conSt[0].stats
+    if mux:
+        return multiplex(conSt, nc), stats, conSt
+    conSt.sort()
+    L = min(len(tr.data) for tr in conSt)
+    return np.stack([tr.data[:L] for tr in conSt]), stats, conSt
+
+
+def _fusedPass(st, nc, filt, decimate, dtype, mux):
+    """prepChunk's result in one call of host_prep.prep, where the chunk
+    shows that the call gives _applyFilter's bits: after st.sort(), ``nc``
+    channels of one trace each (nothing to merge), one sampling rate, one
+    type of host_prep.IN_TYPES, no decimation, one length of at least 2
+    samples after _applyFilter's trim (on views of the data), no NaN
+    (nothing to split; the call checks) and the native host library that
+    _applyFilter would filter with. None for every other chunk."""
+    if (st is None or len(st) != nc or decimate or
+            not (_native.available() and _host_prep.available())):
+        return None
+    st.sort()
+    if len(set(tr.stats.channel for tr in st)) != nc:
+        return None
+    sr = st[0].stats.sampling_rate
+    kind = st[0].data.dtype
+    if kind not in _host_prep.IN_TYPES or any(
+            tr.stats.sampling_rate != sr or tr.data.dtype != kind or
+            tr.data.ndim != 1 for tr in st):
+        return None
+    sos, zerophase = None, False
+    if isinstance(filt, (list, tuple)):
+        sos = _filters._bandpass_sos(filt[0], filt[1], sr, filt[2])
+        zerophase = filt[3]
+    # _applyFilter's trim (Trace.trim slices; a trace it empties is dropped)
+    startTrim = max(tr.stats.starttime.timestamp for tr in st)
+    endTrim = min(tr.stats.endtime.timestamp for tr in st)
+    cut = Stream([Trace(tr.data, tr.stats.copy()) for tr in st])
+    cut.trim(starttime=UTCDateTime(startTrim), endtime=UTCDateTime(endTrim))
+    n = len(cut[0].data) if len(cut) == nc else 0
+    if n < 2 or any(len(tr.data) != n for tr in cut):
+        return None
+    out = _host_prep.prep([np.ascontiguousarray(tr.data) for tr in cut],
+                          sos, zerophase,
+                          np.float32 if dtype == "single" else np.float64,
+                          mux)
+    if out is None:
+        return None
+    rows = out.reshape(n, nc).T if mux else out      # channel c's samples
+    stats = [tr.stats for tr in cut]
+    return out, stats[0], Stream([Trace(x, s) for x, s in zip(rows, stats)])
 
 
 def _mergeChannels(st):

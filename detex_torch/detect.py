@@ -9,8 +9,11 @@ sampling rate and detectors, and a callable giving its chunks as
 Per station the detectors are packed into banks by template length
 (ops/ds.build_bank with the pad_rows / pad_dims ladders, overlap-save
 banks) on the engine's device. Each chunk is filtered and multiplexed on
-the host (construct._applyFilter, multiplex), or, with ``devicePrep``,
-only merged and trimmed and filtered on the device (scan_chunks_raw).
+the host, or, with ``devicePrep``, only trimmed and detrended there and
+filtered on the device (scan_chunks_raw), by construct.prepChunk: one
+native pass (host_prep.cpp) where the chunk needs no merge, split or
+decimation, else construct._applyFilter and multiplex, with the same bits
+either way.
 ``batchSize`` chunks go through one summary-only scan per bank
 (parallel/scan.scan_chunks, calc_triggers=False: histograms and maxima
 only; the kernels fwd_prep_fold + spec_ds_fold, per block of 128 templates
@@ -45,7 +48,8 @@ the working directory; detections land in SQLite in these modes too.
 Every stage opens a span of detex_torch.trace (banks; fetch, prep,
 dispatch > batch, upload, scan; materialize > wait, gate, reverify, rows,
 hist) and counts chunks, batches, re-verified chunks and rows, rows
-written and bytes copied each way; README.md lists them.
+written, bytes copied each way and chunks prepared in one native pass or
+not (prep.fused, prep.fallback); README.md lists them.
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ import detex_torch
 from detex_torch import native as _native
 from detex_torch import trace as _trace
 from detex_torch import util as _util
-from detex_torch.construct import _applyFilter, multiplex
+from detex_torch.construct import prepChunk
 from detex_torch.core.utc import UTCDateTime
 from detex_torch.ops import ds as _ds
 from detex_torch.ops import prep as _prep
@@ -422,33 +426,30 @@ class _SSDetex(object):
         {"chans": the merged and trimmed channels stacked as float32,
         "st": their Stream}; None for a chunk that cannot be used."""
         try:
-            # devicePrep: merge and trim only on the host; the bandpass
+            # devicePrep: trim and detrend only on the host; the bandpass
             # and the decimation run on the device
-            conSt = _applyFilter(
-                st, None if devicePrep else self.filt,
+            prepped = prepChunk(
+                st, nc, None if devicePrep else self.filt,
                 None if devicePrep else self.decimate, self.dtype,
-                fillZeros=self.fillZeros)
+                fillZeros=self.fillZeros, mux=not devicePrep)
         except Exception:
             detex_torch.log(__name__, "failed to filter chunk on %s" % sta,
                             level="warning")
             return None
-        if len(conSt) < 1:
+        if prepped is None:
             return None
-        sr = conSt[0].stats.sampling_rate
-        tstamp = conSt[0].stats.starttime.timestamp
+        out, stats, conSt = prepped
+        sr = stats.sampling_rate
+        tstamp = stats.starttime.timestamp
         if devicePrep:
             sr = sr / self.dpDec  # DS runs at the decimated rate
-            conSt.sort()
-            L = min(len(tr.data) for tr in conSt)
-            if (L // self.dpDec) * nc <= nmax:
+            if (out.shape[1] // self.dpDec) * nc <= nmax:
                 return None
-            chans = np.stack([np.asarray(tr.data[:L], np.float32)
-                              for tr in conSt])
-            return dict(chans=chans, st=conSt), sr, tstamp
-        MPcon = multiplex(conSt, nc)
-        if len(MPcon) <= nmax:
+            return dict(chans=out.astype(np.float32, copy=False),
+                        st=conSt), sr, tstamp
+        if len(out) <= nmax:
             return None
-        return MPcon, sr, tstamp
+        return out, sr, tstamp
 
     def _dispatchBank(self, bank, th, batch, nc, devicePrep, bins, mesh,
                       ctx):
@@ -573,11 +574,8 @@ class _SSDetex(object):
                 if ctx["devicePrep"]:
                     # the exact host filter, for the triggered chunks only
                     with _trace.span("reverify.filter"):
-                        mpcons = [multiplex(_applyFilter(
-                            batch[bi][0]["st"].copy(), self.filt,
-                            self.decimate, self.dtype,
-                            fillZeros=self.fillZeros), nc)
-                            for bi in trig_bis]
+                        mpcons = [self._refilter(batch[bi][0]["st"], nc)
+                                  for bi in trig_bis]
                 else:
                     mpcons = [batch[bi][0] for bi in trig_bis]
                 _pscan._note_route("dense-reverify-device" if use_dev_trig
@@ -622,6 +620,13 @@ class _SSDetex(object):
                         ctx["rows"].extend(self._checkedRows(rl, sta))
         with _trace.span("hist"):
             self._addHist(ctx["histdic"], bank, hist)
+
+    def _refilter(self, st, nc):
+        """devicePrep's exact host filter of one triggered chunk, from the
+        payload's detrended traces ``st`` (left as they are): detrended
+        again in float64, band-passed and multiplexed."""
+        return prepChunk(st.copy(), nc, self.filt, self.decimate, self.dtype,
+                         fillZeros=self.fillZeros)[0]
 
     def _hostRows(self, MPcon, name, threshold, sta, det, nc, sr, tstamp,
                   use_sl):
@@ -724,19 +729,19 @@ class _SSDetex(object):
         None for a chunk that cannot be used."""
         with _trace.span("prep"):
             try:
-                conSt = _applyFilter(st, self.filt, self.decimate, self.dtype,
-                                     fillZeros=self.fillZeros)
+                prepped = prepChunk(st, nc, self.filt, self.decimate,
+                                    self.dtype, fillZeros=self.fillZeros)
             except Exception:
                 detex_torch.log(__name__, "failed to filter chunk on %s, "
                                 "skipping" % sta, level="warning")
                 return None
-            if len(conSt) < 1:
+            if prepped is None:
                 return None
-            sr = conSt[0].stats.sampling_rate
-            MPcon = multiplex(conSt, nc)
+            MPcon, stats, _ = prepped
+            sr = stats.sampling_rate
+            tstamp = stats.starttime.timestamp
         if tail_trim > 0:
             MPcon = MPcon[:max(len(MPcon) - int(tail_trim), 0)]
-        tstamp = conSt[0].stats.starttime.timestamp
         if len(MPcon) <= max(d["n"] for d in det.values()):
             detex_torch.log(__name__, "data block on %s from %s to %s is too "
                             "short, skipping" % (sta, utc1, utc2),

@@ -35,19 +35,20 @@ _LIB = None
 _TRIED = False
 
 
-def library_path():
-    """Where the library of this source and these flags is built."""
+def library_path(source=SOURCE, stem="libdetex_host"):
+    """Where the library of ``source`` (this module's by default) and these
+    flags is built."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / ("libdetex_host_%s.so" % h.hexdigest()[:16])
+    h.update(source.read_bytes())
+    return BUILD_DIR / ("%s_%s.so" % (stem, h.hexdigest()[:16]))
 
 
-def _build(so):
+def _build(so, source=SOURCE):
     """g++ into a name of this process, then an atomic rename."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name("%s.%d.tmp" % (so.stem, os.getpid()))
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+        subprocess.run(["g++", *CXX_FLAGS, str(source), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, so)
     finally:

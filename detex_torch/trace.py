@@ -16,7 +16,9 @@ one shared object that does nothing. Recorded spans stay in memory until
 Counters count whether tracing is on or off, under one lock (sharded
 scans count from a host thread a card): the engine's own (``count``;
 chunks, batches, chunks_gated, reverify_rows_computed,
-reverify_rows_gated, rows_written, h2d_bytes, d2h_bytes) and the groups
+reverify_rows_gated, rows_written, h2d_bytes, d2h_bytes; prep.fused and
+prep.fallback, one a chunk prepared or re-filtered on the host, in one
+native pass or by _applyFilter) and the groups
 registered under a prefix, ops/cuda_kernels.LAUNCHES ("launches") and
 parallel/scan.ROUTE_COUNTS ("routes"). ``reset()`` keeps the counters: a
 reader takes the difference of two snapshots. cuda_kernels.reset_launches()
