@@ -21,6 +21,12 @@ past 128), sharded across every CUDA device of the host when there are
 several (parallel/scan.engine_mesh; DETEX_TORCH_MESH=0 keeps one device),
 dispatched asynchronously and materialized one batch later, so the host
 prepares the next batch, or the next station, while the device scans.
+The chunks are drawn on the engine's thread and prepared one batch ahead,
+in draw order, on one worker thread a batched call (_prepWorker): the
+prep of the next batch overlaps the dispatch of this one and the
+materialize of the one before. Where the engine would wait for a chunk's
+prep (the start of a station, a worker behind), it materializes the
+batches in flight first, in their order.
 Chunks whose maximum passes a detector's threshold (less a gate margin)
 are re-verified densely on the engine's device
 (ops/ds.run_bank_triggers_batch on the kept device batch, or on the chunks
@@ -45,22 +51,26 @@ and writes them to ``UTCsaves.pkl`` once the run ends. Both tables are
 lists of row dicts with detex_tpu's columns (util.readRows), written in
 the working directory; detections land in SQLite in these modes too.
 
-Every stage opens a span of detex_torch.trace (banks; fetch, prep,
-dispatch > batch, upload, scan; materialize > wait, gate, reverify, rows,
-hist) and counts chunks, batches, re-verified chunks and rows, rows
-written, bytes copied each way and chunks prepared in one native pass or
-not (prep.fused, prep.fallback); README.md lists them.
+Every stage opens a span of detex_torch.trace (banks; fetch, prep (on the
+prep worker on the batched path), prep.wait; dispatch > batch, upload,
+scan; materialize > wait, gate, reverify, rows, hist) and counts chunks,
+batches, re-verified chunks and rows, rows written, bytes copied each way,
+chunks prepared in one native pass or not (prep.fused, prep.fallback) and
+chunks whose prep had ended when the engine took them or not (prep.ahead,
+prep.waited); README.md lists them.
 """
 from __future__ import annotations
 
 import itertools
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 import detex_torch
+from detex_torch import host_prep as _host_prep
 from detex_torch import native as _native
 from detex_torch import trace as _trace
 from detex_torch import util as _util
@@ -98,6 +108,12 @@ DEVICE_PREP_EPS = 0.005
 
 # rows kept in memory before a flush to SQLite
 FLUSH_ROWS = 500
+
+
+def _prepWorker():
+    """The one thread that prepares a batched call's chunks ahead of its
+    engine thread; shut down when the call ends."""
+    return ThreadPoolExecutor(max_workers=1, thread_name_prefix="detex-prep")
 
 
 class _SSDetex(object):
@@ -354,7 +370,8 @@ class _SSDetex(object):
                        histdic, tableName, devicePrep):
         """The batched scan path (reference detect.py:386-552): chunks are
         filtered and multiplexed on the host (or, with devicePrep, only
-        merged and trimmed), stacked ``batchSize`` at a time and scanned
+        merged and trimmed), ``batchSize`` chunks ahead of the engine on
+        the prep worker, stacked ``batchSize`` at a time and scanned
         summary-only per bank; a batch is materialized one dispatch later
         (_materializeOne). The station's devicePrep and gate margin ride
         with its batches, which may materialize during the next station's
@@ -393,25 +410,63 @@ class _SSDetex(object):
                 self._materializeOne()
 
         nmax = max(d["n"] for d in det.values())
-        while True:
-            with _trace.span("fetch"):
-                item = next(datGen, None)
-            if item is None:
-                break
-            st, utc1, utc2 = item
-            if st is None or len(st) < 1:
-                detex_torch.log(__name__, "could not get data on %s from %s "
-                                "to %s" % (sta, utc1, utc2), level="warning")
-                continue
+
+        def prep(st):
             with _trace.span("prep"):
-                chunk = self._prepChunk(st, sta, nc, nmax, devicePrep)
+                return self._prepChunk(st, sta, nc, nmax, devicePrep)
+
+        def resolve(fut):
+            # the oldest chunk in draw order; a usable one joins the batch.
+            # While its prep runs, the batches in flight (this station's or
+            # the one before's) materialize rather than the engine waiting:
+            # in the same order as after the next dispatch, so the rows are
+            # the same
+            while not fut.done() and self._inflight:
+                self._materializeOne()
+            if fut.done():
+                _trace.count("prep.ahead")
+                chunk = fut.result()
+            else:
+                _trace.count("prep.waited")
+                with _trace.span("prep.wait"):
+                    chunk = fut.result()
             if chunk is None:
-                continue
+                return
             _trace.count("chunks")
             pending.append(chunk)
             if len(pending) >= self.batchSize:
                 dispatch(pending)
-                pending = []
+                pending.clear()
+
+        # the chunks are drawn here, on the engine's thread, and prepared
+        # one batch ahead on a worker thread (numpy and the native
+        # libraries, which release the GIL; no torch call), so that the
+        # prep of the next batch overlaps this batch's dispatch and the
+        # previous batch's materialize; load the native libraries first,
+        # so that their lazy loaders never run on two threads at once
+        _native.available()
+        _host_prep.available()
+        ahead = deque()
+        worker = _prepWorker()
+        try:
+            while True:
+                with _trace.span("fetch"):
+                    item = next(datGen, None)
+                if item is None:
+                    break
+                st, utc1, utc2 = item
+                if st is None or len(st) < 1:
+                    detex_torch.log(__name__, "could not get data on %s from "
+                                    "%s to %s" % (sta, utc1, utc2),
+                                    level="warning")
+                    continue
+                ahead.append(worker.submit(prep, st))
+                if len(ahead) > self.batchSize:
+                    resolve(ahead.popleft())
+            while ahead:
+                resolve(ahead.popleft())
+        finally:
+            worker.shutdown(wait=True, cancel_futures=True)
         dispatch(pending)
         ctx["station_done"] = True
         if ctx["open_batches"] == 0:

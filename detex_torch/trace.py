@@ -2,8 +2,12 @@
 Spans and counters of the detection engine.
 
 A span is a named stretch of host time at one of the engine's layer
-boundaries (``fetch``, ``prep``, ``dispatch``, ``materialize`` and their
-children; README.md lists them). ``with span(name, batch=None):`` records
+boundaries (``fetch``, ``prep``, ``prep.wait``, ``dispatch``,
+``materialize`` and their children; README.md lists them). On the batched
+path ``prep`` opens on the engine's prep worker, the one thread each
+batched engine call starts for its chunks' preparation and joins before
+it returns; ``prep.wait`` is the engine's thread blocked on a chunk whose
+prep had not ended. ``with span(name, batch=None):`` records
 its name, start and end (``time.perf_counter_ns``), its parent (the span
 open around it on the same thread), the thread and an optional batch id,
 and opens ``torch.profiler.record_function("detex." + name)``, so that
@@ -18,7 +22,9 @@ scans count from a host thread a card): the engine's own (``count``;
 chunks, batches, chunks_gated, reverify_rows_computed,
 reverify_rows_gated, rows_written, h2d_bytes, d2h_bytes; prep.fused and
 prep.fallback, one a chunk prepared or re-filtered on the host, in one
-native pass or by _applyFilter) and the groups
+native pass or by _applyFilter; prep.ahead and prep.waited, one a chunk
+the batched path prepared, usable or not, as its prep had ended when the
+engine took it or the engine waited for it) and the groups
 registered under a prefix, ops/cuda_kernels.LAUNCHES ("launches") and
 parallel/scan.ROUTE_COUNTS ("routes"). ``reset()`` keeps the counters: a
 reader takes the difference of two snapshots. cuda_kernels.reset_launches()

@@ -55,7 +55,8 @@ SPANS = {
                          "sqlite", "hist"},
 }
 PARENTS = {
-    "banks": {None}, "fetch": {None}, "prep": {None}, "dispatch": {None},
+    "banks": {None}, "fetch": {None}, "prep": {None}, "prep.wait": {None},
+    "dispatch": {None},
     "materialize": {None}, "batch": {"dispatch"},
     "scan": {"dispatch", None}, "upload": {"dispatch", "scan", "reverify"},
     "wait": {"materialize", "reverify", "reverify.host", "scan", "rows",
@@ -142,9 +143,13 @@ def test_off_span_is_one_object_and_reads_no_clock(monkeypatch):
 
 
 def test_every_span_nested_on_its_thread(runs):
-    path, _, (_, _, snap, _) = runs
+    path, _, (_, _, snap, c) = runs
     spans = snap["spans"]
-    assert {s["name"] for s in spans} == SPANS[path]
+    # prep.wait: the engine blocked on a chunk's prep, once each time
+    # prep.waited counts; how often is timing (never on the per-chunk path)
+    assert {s["name"] for s in spans} - {"prep.wait"} == SPANS[path]
+    assert sum(s["name"] == "prep.wait" for s in spans) == \
+        c.get("prep.waited", 0)
     by_id = {s["id"]: s for s in spans}
     for s in spans:
         assert s["start_ns"] <= s["end_ns"]
@@ -234,7 +239,13 @@ def test_rows_and_histograms_same_on_and_off(runs):
             continue
         for name, counts in v.items():
             assert np.array_equal(counts, h_on[sta][name]), (sta, name)
-    assert c_on == c_off
+    # whether a chunk's prep had ended when the engine took it is timing:
+    # only the sum of prep.ahead and prep.waited is the run's own
+    timing = ("prep.ahead", "prep.waited")
+    assert {k: v for k, v in c_on.items() if k not in timing} == \
+        {k: v for k, v in c_off.items() if k not in timing}
+    assert sum(c_on.get(k, 0) for k in timing) == \
+        sum(c_off.get(k, 0) for k in timing)
 
 
 def test_launches_and_routes_are_the_registrys(tmp_path):
