@@ -228,19 +228,34 @@ class _SSDetex(object):
     def _prepareDetectors(self, dets, sta, channels, samplingRate):
         """Pack the detectors into banks by template length on the engine's
         device and gather the per-detector data of the magnitudes
-        (reference _loadMPSubSpace, detect.py:319-388). Returns (det, banks,
+        (reference _loadMPSubSpace, detect.py:319-388), with the terms of
+        _estMag that depend on the detector alone. Returns (det, banks,
         devicePrep): whether this station's chunks are filtered on the
         device, each bank then also carrying the filter response H."""
         Nc = len(channels)
+        ftype = np.float64 if self.dtype == "double" else np.float32
         det = {}
         for d in dets:
             U = np.asarray(d["U"])
             WFs = np.asarray(d["WFs"])
+            mags = np.asarray(d["mags"])
             # WFU = WFs (U^T U), associated as (WFs U^T) U
-            det[d["name"]] = dict(
-                U=U, WFs=WFs, n=U.shape[1], mags=np.asarray(d["mags"]),
-                events=list(d["events"]), offsets=d["offsets"],
-                WFU=np.dot(np.dot(WFs, U.T), U))
+            WFU = np.dot(np.dot(WFs, U.T), U)
+            info = det[d["name"]] = dict(
+                U=U, WFs=WFs, n=U.shape[1], mags=mags,
+                events=list(d["events"]), offsets=d["offsets"], WFU=WFU)
+            if self.issubspace:
+                # the training events normalised for single-lag
+                # correlations, in float64 on the dtype="double" path
+                W = np.asarray(WFs, ftype)
+                NT = (W - W.mean(axis=1, keepdims=True)) / \
+                    (W.std(axis=1, keepdims=True) * W.shape[1])
+                info.update(var_WFU=np.var(WFU, axis=1), NT=NT,
+                            NT_sum=NT.sum(axis=1),
+                            ewf_std=np.std(WFs, axis=1), touse=mags > -15)
+            else:
+                info.update(std_WFU0=np.std(WFU[0]),
+                            WFU0_sq=np.dot(WFU[0], WFU[0]))
         banks = []
         devicePrep = self.devicePrep
         by_n = {}
@@ -373,23 +388,34 @@ class _SSDetex(object):
         merged and trimmed), ``batchSize`` chunks ahead of the engine on
         the prep worker, stacked ``batchSize`` at a time and scanned
         summary-only per bank; a batch is materialized one dispatch later
-        (_materializeOne). The station's devicePrep and gate margin ride
-        with its batches, which may materialize during the next station's
+        (_materializeOne). The station's context (its devicePrep, a bank's
+        gate and histogram sums, the rows not yet flushed) rides with its
+        batches, which may materialize during the next station's
         preparation."""
-        pending = []  # (MPcon or {"chans", "st"}, sr, tstamp)
+        pending = []  # _prepChunk's (x, sr, tstamp, st)
+        thr64 = [np.asarray([threshold[nm] for nm in bank["names"]],
+                            np.float64) for bank in banks]
+        # the scan's thresholds, pad rows gated by +inf
         thresholds_by_bank = [
-            np.asarray([threshold[nm] for nm in bank["names"]] +
-                       [np.inf] * (int(bank["sum_u"].shape[0]) -
-                                   len(bank["names"])), np.float32)
-            for bank in banks]
+            np.pad(t, (0, int(bank["sum_u"].shape[0]) - len(t)),
+                   constant_values=np.inf).astype(np.float32)
+            for t, bank in zip(thr64, banks)]
         gate_eps = max(DEVICE_PREP_EPS if devicePrep else 0.0,
                        GATE_EPS_DOUBLE if self.dtype == "double"
                        else GATE_EPS_SINGLE)
+        # the gate of a bank's real rows: threshold less margin in float64,
+        # cast to the dtype in which a float32 maximum compares with a
+        # Python float (float32 under NEP 50), so that maxds > gate is
+        # maxds[bi, si] > threshold[name] - gate_eps row by row
+        dt = np.result_type(np.float32(0.0), 0.0)
+        bins = self.hist["Bins"] if self.calcHist else None
         ctx = dict(sta=sta, rows=[], numdets=0, histdic=histdic,
                    tableName=tableName, det=det, threshold=threshold, nc=nc,
-                   devicePrep=devicePrep, gate_eps=gate_eps, open_batches=0,
-                   station_done=False)
-        bins = self.hist["Bins"] if self.calcHist else None
+                   devicePrep=devicePrep, open_batches=0, station_done=False,
+                   keep_warned=False, banks=banks, thr64=thr64,
+                   gate=[np.asarray(t - gate_eps, dt) for t in thr64],
+                   hist=[np.zeros((len(t), len(bins) - 1))
+                         if self.calcHist else None for t in thr64])
         # with several CUDA devices the batches are sharded across all of
         # them (the sharded scan uploads each shard to its device itself);
         # the re-verify stays on the engine's device
@@ -476,10 +502,10 @@ class _SSDetex(object):
         return histdic if self.calcHist else None
 
     def _prepChunk(self, st, sta, nc, nmax, devicePrep):
-        """One chunk of the batched path as (payload, sr, tstamp): the
-        payload is the filtered, multiplexed chunk, or with devicePrep
-        {"chans": the merged and trimmed channels stacked as float32,
-        "st": their Stream}; None for a chunk that cannot be used."""
+        """One chunk of the batched path as (x, sr, tstamp, st): ``x`` the
+        filtered, multiplexed chunk, or with devicePrep the merged and
+        trimmed channels stacked as float32 [nc, L] and ``st`` their
+        Stream (else None); None for a chunk that cannot be used."""
         try:
             # devicePrep: trim and detrend only on the host; the bandpass
             # and the decimation run on the device
@@ -500,11 +526,10 @@ class _SSDetex(object):
             sr = sr / self.dpDec  # DS runs at the decimated rate
             if (out.shape[1] // self.dpDec) * nc <= nmax:
                 return None
-            return dict(chans=out.astype(np.float32, copy=False),
-                        st=conSt), sr, tstamp
+            return out.astype(np.float32, copy=False), sr, tstamp, conSt
         if len(out) <= nmax:
             return None
-        return out, sr, tstamp
+        return out, sr, tstamp, None
 
     def _dispatchBank(self, bank, th, batch, nc, devicePrep, bins, mesh,
                       ctx):
@@ -515,7 +540,9 @@ class _SSDetex(object):
         pad = bank["pad_len"]
         X, lens = self._stackBatch(batch, nc, pad, devicePrep)
         if devicePrep:
-            with self._scanSpan(mesh):
+            # on a mesh each shard opens its own "scan" span
+            # (parallel/scan._run_shards)
+            with _trace.span("scan") if mesh is None else nullcontext():
                 hist, maxds, *_ = _pscan.scan_chunks_raw(
                     X, lens, bank["H"], bank, th, nc, buff_samps=1,
                     bins=bins, max_trig=1, dec=self.dpDec, mesh=mesh,
@@ -540,7 +567,7 @@ class _SSDetex(object):
                 calc_triggers=False)
         if X.nbytes <= KEEP_DEV_BATCH_BYTES:
             return bank, hist, maxds, Xin, lens
-        if not ctx.get("keep_warned"):
+        if not ctx["keep_warned"]:
             ctx["keep_warned"] = True
             detex_torch.log(__name__, "scan batch (%.0f MB) exceeds the "
                             "re-verify retention budget; triggered chunks "
@@ -554,30 +581,13 @@ class _SSDetex(object):
         lengths (0 for a padding chunk)."""
         B = self.batchSize
         with _trace.span("batch"):
-            if devicePrep:
-                Lp = (pad // nc) * self.dpDec
-                X = np.zeros((B, nc, Lp), np.float32)
-                lens = []
-                for bi, (payload, _, _) in enumerate(batch):
-                    ch = payload["chans"]
-                    L = min(ch.shape[1], Lp)
-                    X[bi, :, :L] = ch[:, :L]
-                    lens.append(L)
-            else:
-                X = np.zeros((B, pad), np.float32)
-                lens = []
-                for bi, (MPcon, _, _) in enumerate(batch):
-                    L = min(len(MPcon), pad)
-                    X[bi, :L] = MPcon[:L]
-                    lens.append(L)
-            lens.extend([0] * (B - len(batch)))
+            X = np.zeros((B, nc, (pad // nc) * self.dpDec) if devicePrep
+                         else (B, pad), np.float32)
+            lens = [0] * B
+            for bi, (x, *_) in enumerate(batch):
+                L = lens[bi] = min(x.shape[-1], X.shape[-1])
+                X[bi, ..., :L] = x[..., :L]
         return X, lens
-
-    @staticmethod
-    def _scanSpan(mesh):
-        """The engine's "scan" span; on a mesh each shard opens its own
-        (parallel/scan._run_shards), so none opens here."""
-        return _trace.span("scan") if mesh is None else nullcontext()
 
     def _materializeOne(self):
         """Materialize the oldest in-flight batch: gate on its maxima,
@@ -585,8 +595,8 @@ class _SSDetex(object):
         flush rows (reference detect.py:562-747)."""
         ctx, outs, batch, bid = self._inflight.popleft()
         with _trace.span("materialize", batch=bid):
-            for out in outs:
-                self._materializeBank(ctx, batch, *out)
+            for k, out in enumerate(outs):
+                self._materializeBank(ctx, k, batch, *out)
             if len(ctx["rows"]) > FLUSH_ROWS:
                 with _trace.span("rows"):
                     self._saveRows(ctx["rows"], ctx["tableName"])
@@ -596,28 +606,25 @@ class _SSDetex(object):
             if ctx["station_done"] and ctx["open_batches"] == 0:
                 self._finalizeStation(ctx)
 
-    def _materializeBank(self, ctx, batch, bank, hist_dev, maxds_dev, Xd,
+    def _materializeBank(self, ctx, k, batch, bank, hist_dev, maxds_dev, Xd,
                          xlens):
-        """One bank of a materializing batch: read its summaries back,
+        """Bank ``k`` of a materializing batch: read its summaries back,
         gate, re-verify the triggered chunks (on the device, gathered from
         the kept batch ``Xd`` or uploaded again; in float64 on the host
-        for dtype="double") and append their rows to ctx["rows"]."""
+        for dtype="double"), append their rows to ctx["rows"] and add its
+        histograms to the station's."""
         sta = ctx["sta"]
         det = ctx["det"]
-        threshold = ctx["threshold"]
         nc = ctx["nc"]
-        gate_eps = ctx["gate_eps"]
         use_sl = bool(not self.fillZeros and self.triggerLTATime)
         hist = _ds.to_host(hist_dev)
         maxds = _ds.to_host(maxds_dev)
+        S = len(bank["names"])
         with _trace.span("gate"):
-            trig_bis, trig_rows = [], []
-            for bi in range(len(batch)):
-                trig = [si for si, name in enumerate(bank["names"])
-                        if maxds[bi, si] > threshold[name] - gate_eps]
-                if trig:
-                    trig_bis.append(bi)
-                    trig_rows.append(trig)
+            # triggered (chunk, row) pairs in row-major order
+            mask = maxds[:len(batch), :S] > ctx["gate"][k]
+            trig_bis = np.flatnonzero(mask.any(axis=1)).tolist()
+            trig_rows = [np.flatnonzero(mask[bi]).tolist() for bi in trig_bis]
         if trig_bis:
             use_dev_trig = self.dtype != "double"
             _trace.count("chunks_gated", len(trig_bis))
@@ -629,15 +636,15 @@ class _SSDetex(object):
                 if ctx["devicePrep"]:
                     # the exact host filter, for the triggered chunks only
                     with _trace.span("reverify.filter"):
-                        mpcons = [self._refilter(batch[bi][0]["st"], nc)
+                        mpcons = [self._refilter(batch[bi][3], nc)
                                   for bi in trig_bis]
                 else:
                     mpcons = [batch[bi][0] for bi in trig_bis]
                 _pscan._note_route("dense-reverify-device" if use_dev_trig
                                    else "dense-reverify-host")
                 if use_dev_trig:
-                    thr_list = [[float(threshold[bank["names"][si]])
-                                 for si in trig] for trig in trig_rows]
+                    thr_list = [ctx["thr64"][k][trig].tolist()
+                                for trig in trig_rows]
                     srs = [batch[bi][1] for bi in trig_bis]
                     x_dev = lens_dev = None
                     if Xd is not None:
@@ -655,7 +662,7 @@ class _SSDetex(object):
             with _trace.span("rows"):
                 for zi, (bi, trig, MPcon) in enumerate(
                         zip(trig_bis, trig_rows, mpcons)):
-                    _, sr, tstamp = batch[bi]
+                    sr, tstamp = batch[bi][1:3]
                     for si in trig:
                         name = bank["names"][si]
                         if use_dev_trig:
@@ -670,11 +677,13 @@ class _SSDetex(object):
                                                     sta, det, MPcon, nc, sr,
                                                     tstamp)
                         else:
-                            rl = self._hostRows(MPcon, name, threshold, sta,
-                                                det, nc, sr, tstamp, use_sl)
+                            rl = self._hostRows(MPcon, name,
+                                                ctx["threshold"], sta, det,
+                                                nc, sr, tstamp, use_sl)
                         ctx["rows"].extend(self._checkedRows(rl, sta))
         with _trace.span("hist"):
-            self._addHist(ctx["histdic"], bank, hist)
+            if self.calcHist:
+                ctx["hist"][k] += hist[:S]
 
     def _refilter(self, st, nc):
         """devicePrep's exact host filter of one triggered chunk, from the
@@ -699,11 +708,6 @@ class _SSDetex(object):
         return self._createCoeffArray(dsvec, stalta_vec, name, threshold,
                                       sta, det, MPcon, nc, sr, tstamp)
 
-    def _addHist(self, histdic, bank, hist):
-        if self.calcHist:
-            for si, name in enumerate(bank["names"]):
-                histdic[name] = histdic[name] + hist[si]
-
     @staticmethod
     def _checkedRows(rows, sta):
         """The 300-row warning and the drop of rows with DS above 1.05
@@ -719,8 +723,8 @@ class _SSDetex(object):
         return rows
 
     def _finalizeStation(self, ctx):
-        """The last flush and the completion log of one station, once all
-        its batches have materialized."""
+        """The last flush, the histograms and the completion log of one
+        station, once all its batches have materialized."""
         with _trace.span("rows"):
             self._saveRows(ctx["rows"], ctx["tableName"])
         detex_torch.log(__name__, "%s on %s completed, %d potential "
@@ -728,6 +732,10 @@ class _SSDetex(object):
                         % ("Subspaces" if self.issubspace else "Singletons",
                            ctx["sta"], len(ctx["rows"]) + ctx["numdets"]))
         ctx["rows"] = []
+        if self.calcHist:
+            for bank, acc in zip(ctx["banks"], ctx["hist"]):
+                for name, counts in zip(bank["names"], acc):
+                    ctx["histdic"][name] = counts.copy()
 
     def _saveRows(self, rows, tableName):
         """Append detection rows to ``tableName`` (util.saveSQLite)."""
@@ -904,19 +912,18 @@ class _SSDetex(object):
     def _estMag(self, trigIndex, info, MPcon, nc, coef, times, name, sta):
         """Projected-energy and std-ratio magnitudes, CC^2-weighted
         (reference _estMag detect.py:447-499, Chambers et al. 2015), and
-        the SNR, on the host in numpy."""
-        WFU = info["WFU"]
+        the SNR, on the host in numpy; the detector's own terms come from
+        _prepareDetectors."""
         U = info["U"]
-        ewf = info["WFs"]
         mags = info["mags"]
-        WFlen = WFU.shape[1]
+        WFlen = info["WFU"].shape[1]
         ConDat = MPcon[trigIndex * nc: trigIndex * nc + WFlen]
         if len(ConDat) < WFlen:
             return np.nan, np.nan, np.nan
         if self.issubspace:
             # (U^T U) ConDat associated as U^T (U ConDat)
             ssCon = U.T @ (U @ ConDat)
-            proEn = np.var(ssCon) / np.var(WFU, axis=1)
+            proEn = np.var(ssCon) / info["var_WFU"]
         # pre-event noise level for the SNR
         if trigIndex * nc > 5 * WFlen:
             pe = MPcon[trigIndex * nc - 5 * WFlen: trigIndex * nc]
@@ -925,30 +932,26 @@ class _SSDetex(object):
         rollingstd = _native.rolling_std(pe, WFlen)
         baseNoise = np.median(rollingstd) if len(rollingstd) else np.nan
         SNR = np.std(ConDat) / baseNoise if baseNoise else np.nan
-        touse = mags > -15
         if self.issubspace:
+            touse = info["touse"]
             if not np.any(touse):
                 detex_torch.log(__name__, "No magnitudes above -15 usable for "
                                 "detection at %s on station %s and %s"
                                 % (times, sta, name), level="warning")
                 return np.nan, np.nan, SNR
-            # single-lag normalized correlations with the training events:
-            # float64 on the dtype="double" path, float32 otherwise
-            ftype = np.float64 if self.dtype == "double" else np.float32
-            W = np.asarray(ewf, ftype)
-            cd = np.asarray(ConDat, ftype)
-            NT = (W - W.mean(axis=1, keepdims=True)) / \
-                (W.std(axis=1, keepdims=True) * W.shape[1])
-            eventCors = (NT @ cd - NT.sum(axis=1) * cd.mean()) / cd.std()
+            # single-lag normalized correlations with the training events,
+            # in NT's dtype
+            NT = info["NT"]
+            cd = np.asarray(ConDat, NT.dtype)
+            eventCors = (NT @ cd - info["NT_sum"] * cd.mean()) / cd.std()
             peMag = _estPEMag(mags, proEn, eventCors, touse)
-            stMag = _estSTDMag(mags, ConDat, ewf, eventCors, touse)
+            stMag = _estSTDMag(mags, ConDat, info["ewf_std"], eventCors,
+                               touse)
         else:
             if np.isnan(mags[0]) or mags[0] < -15:
                 return np.nan, np.nan, SNR
-            d1 = np.dot(ConDat, WFU[0])
-            d2 = np.dot(WFU[0], WFU[0])
-            peMag = mags[0] + d1 / d2
-            stMag = mags[0] + np.log10(np.std(ConDat) / np.std(WFU[0]))
+            peMag = mags[0] + np.dot(ConDat, info["WFU"][0]) / info["WFU0_sq"]
+            stMag = mags[0] + np.log10(np.std(ConDat) / info["std_WFU0"])
         return peMag, stMag, SNR
 
 
@@ -984,17 +987,16 @@ def _estPEMag(mags, proEn, eventCors, touse):
     (reference detect.py:637-649): each usable training event estimates
     mag_i + log10(sqrt(proEn_i)), averaged with squared-correlation
     weights."""
-    w = np.square(np.asarray(eventCors))[touse]
-    est = np.asarray(mags)[touse] + np.log10(np.sqrt(
-        np.asarray(proEn)[touse]))
+    w = np.square(eventCors)[touse]
+    est = mags[touse] + np.log10(np.sqrt(proEn[touse]))
     return float(np.sum(est * w) / np.sum(w))
 
 
-def _estSTDMag(mags, ConDat, ewf, eventCors, touse):
-    """CC^2-weighted std-ratio magnitude (reference detect.py:652-664)."""
-    w = np.square(np.asarray(eventCors))[touse]
-    ratio = np.std(ConDat) / np.std(np.asarray(ewf), axis=1)[touse]
-    est = np.asarray(mags)[touse] + np.log10(ratio)
+def _estSTDMag(mags, ConDat, ewf_std, eventCors, touse):
+    """CC^2-weighted std-ratio magnitude (reference detect.py:652-664), on
+    the training events' standard deviations ``ewf_std``."""
+    w = np.square(eventCors)[touse]
+    est = mags[touse] + np.log10(np.std(ConDat) / ewf_std[touse])
     return float(np.sum(est * w) / np.sum(w))
 
 

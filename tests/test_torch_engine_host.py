@@ -3,7 +3,9 @@ detex_tpu namesakes on the same inputs: the chunk preprocessing
 (construct._applyFilter + multiplex on core.Stream), the float64 STA/LTA
 (stalta.ds_stalta_np), the SNR's rolling standard deviation
 (rolling.rolling_std) and the SQLite rows (util.saveSQLite /
-loadSQLite).
+loadSQLite). The batched engine's gate and histogram sums, and the
+magnitudes, are held bit for bit against their row-by-row forms, kept
+here as the reference.
 
 Both packages filter with the native C++ library (each its own build of
 native/detex_host.cpp) when it is built and with scipy otherwise. The
@@ -24,7 +26,10 @@ from detex_tpu.core import Stream as JStream
 from detex_tpu.core import Trace as JTrace
 from detex_tpu.detect import SAR_COLS as JSAR_COLS
 from detex_tpu.ops import stalta as jstalta
+import torch
+
 from detex_torch import construct as tcons
+from detex_torch import detect as tdetect
 from detex_torch import native as tnative
 from detex_torch import util as tutil
 from detex_torch.core import Stream as TStream
@@ -196,3 +201,215 @@ def test_sqlite_rows_match_jax(tmp_path):
         recs[0]["Mag"])
     assert tutil.loadSQLite(str(tmp_path / "none.db"), "ss_df") is None
     assert tutil.loadSQLite(dbs["t"], "sg_df") is None
+
+
+# the gate: one station of five detectors (threshold 0.3 as in Case1, and
+# others) over five chunks in batches of two, every scan's maxima made by
+# hand at the float32 neighbours of threshold - margin
+GATE_THR = [0.3, 0.1, 0.45, 0.3000001, 0.7]
+GATE_MARGINS = {"single": ("single", False), "double": ("double", False),
+                "devicePrep": ("single", True)}
+GATE_SR, GATE_L, GATE_N, GATE_B = 25.0, 400, 5, 2
+
+
+def _gate_maxima(rng, B, S_pad, n_real, eps):
+    """[B, S_pad] float32 maxima: each real row of each real chunk one of
+    the two float32 values below, at or two above float32(thr - eps), the
+    first chunk's rows all below; pad rows and chunks 1.0."""
+    m = np.ones((B, S_pad), np.float32)
+    for si, thr in enumerate(GATE_THR):
+        c = np.float32(thr - eps)
+        nb = [np.nextafter(np.nextafter(c, np.float32(0)), np.float32(0)),
+              np.nextafter(c, np.float32(0)), c,
+              np.nextafter(c, np.float32(2)),
+              np.nextafter(np.nextafter(c, np.float32(2)), np.float32(2))]
+        m[:n_real, si] = rng.choice(nb, n_real)
+    return m
+
+
+@pytest.mark.parametrize("margin", sorted(GATE_MARGINS))
+def test_gate_and_histograms_match_row_loop(monkeypatch, tmp_path, margin):
+    """The batched engine's gate against the row-by-row comparison
+    maxds[bi, si] > threshold[name] - gate_eps on the same maxima: the same
+    (chunk, detector) pairs in the same order, each re-verified with its
+    threshold as a Python float; the histograms the per-batch sums, name
+    by name, as float64."""
+    dtype, devicePrep = GATE_MARGINS[margin]
+    gate_eps = max(tdetect.DEVICE_PREP_EPS if devicePrep else 0.0,
+                   tdetect.GATE_EPS_DOUBLE if dtype == "double"
+                   else tdetect.GATE_EPS_SINGLE)
+    rng = np.random.default_rng(11)
+    names = ["d%d" % k for k in range(len(GATE_THR))]
+    dets = []
+    for nm, thr in zip(names, GATE_THR):
+        u = rng.standard_normal(60)
+        U = (u / np.linalg.norm(u))[None]
+        dets.append(dict(name=nm, U=U, WFs=3.0 * U, mags=[1.0],
+                         events=["e"], offsets=[0.0], threshold=thr))
+    X = rng.standard_normal((GATE_N, 3, GATE_L))
+    scans, stacked, gated, thr_lists = [], [], [], []
+
+    def chunks(sta):
+        for b in range(GATE_N):
+            yield TStream([TTrace(X[b, c].copy(), dict(
+                network="XX", station="S1", channel=CHANS[c],
+                sampling_rate=GATE_SR, starttime=T0 + 16.0 * b))
+                for c in range(3)]), None, None
+
+    def scan(X, *a, **kw):
+        B, S_pad = X.shape[0], len(a[3] if devicePrep else a[1])
+        n_real = sum(1 for L in (a[0] if devicePrep else kw["valid_lens"])
+                     if L > 0)
+        m = _gate_maxima(rng, B, S_pad, n_real, gate_eps)
+        h = rng.integers(0, 50, (S_pad, 400)).astype(np.int32)
+        scans.append((m, h))
+        return torch.as_tensor(h), torch.as_tensor(m), None, None, None
+
+    real_stack = tdetect._SSDetex._stackBatch
+
+    def stack(self, batch, *a):
+        stacked.append([c[2] for c in batch])
+        return real_stack(self, batch, *a)
+
+    def triggers(x_list, bank, nc, rows_list, thr_list, *a, **kw):
+        thr_lists.append(thr_list)
+        z = np.zeros(0, np.float32)
+        return [{si: (np.zeros(0, np.int64), z, None) for si in rows}
+                for rows in rows_list]
+
+    def coeff_rows(self, idx, coefs, slvals, name, sta, det, MPcon, nc, sr,
+                   tstamp):
+        gated.append((tstamp, name))
+        return []
+
+    def host_rows(self, MPcon, name, threshold, sta, det, nc, sr, tstamp,
+                  use_sl):
+        gated.append((tstamp, name))
+        return []
+
+    monkeypatch.setattr(tdetect._pscan, "scan_chunks_raw" if devicePrep
+                        else "scan_chunks", scan)
+    monkeypatch.setattr(tdetect._SSDetex, "_stackBatch", stack)
+    monkeypatch.setattr(tdetect._ds, "run_bank_triggers_batch", triggers)
+    monkeypatch.setattr(tdetect._SSDetex, "_coeffRowList", coeff_rows)
+    monkeypatch.setattr(tdetect._SSDetex, "_hostRows", host_rows)
+    hist = tdetect.detex(
+        {"XX.S1": dict(channels=list(CHANS), sr=GATE_SR, detectors=dets)},
+        chunks, str(tmp_path / "g.db"), conDatDuration=14.0, conBuff=2.0,
+        filt=[1, 8, 2, True], dtype=dtype, devicePrep=devicePrep,
+        batchSize=GATE_B, device="cpu")
+
+    # the row-by-row gate and histogram sums
+    threshold = {d["name"]: float(d["threshold"]) for d in dets}
+    assert len(scans) == len(stacked) == -(-GATE_N // GATE_B)
+    want, want_thr = [], []
+    want_hist = {nm: np.zeros(400) for nm in names}
+    for (maxds, h), tstamps in zip(scans, stacked):
+        trig_rows = []
+        for bi in range(len(tstamps)):
+            trig = [si for si, name in enumerate(names)
+                    if maxds[bi, si] > threshold[name] - gate_eps]
+            want += [(tstamps[bi], names[si]) for si in trig]
+            if trig:
+                trig_rows.append([threshold[names[si]] for si in trig])
+        if trig_rows:
+            want_thr.append(trig_rows)
+        for si, name in enumerate(names):
+            want_hist[name] = want_hist[name] + h[si]
+    assert 0 < len(want) < len(names) * GATE_N
+    assert gated == want
+    if dtype == "single":
+        assert thr_lists == want_thr
+        assert all(type(t) is float for b in thr_lists for r in b for t in r)
+    assert sorted(hist["XX.S1"]) == names
+    for name in names:
+        got = hist["XX.S1"][name]
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, want_hist[name])
+
+
+# the magnitudes: trigger sample -> a case; "early" lies within five
+# template lengths of the chunk start (the SNR's noise after the trigger)
+MAG_N, MAG_SR, MAG_LEN = 300, 25.0, 6000
+MAG_CASES = {"late": (1200, False), "early": (100, False),
+             "unusable": (1200, True)}
+
+
+def _ref_estMag(issubspace, dtype, trigIndex, info, MPcon, nc):
+    """_estMag with every term computed on the row: (peMag, stMag,
+    SNR)."""
+    WFU = info["WFU"]
+    U = info["U"]
+    ewf = info["WFs"]
+    mags = info["mags"]
+    WFlen = WFU.shape[1]
+    ConDat = MPcon[trigIndex * nc: trigIndex * nc + WFlen]
+    if len(ConDat) < WFlen:
+        return np.nan, np.nan, np.nan
+    if issubspace:
+        ssCon = U.T @ (U @ ConDat)
+        proEn = np.var(ssCon) / np.var(WFU, axis=1)
+    if trigIndex * nc > 5 * WFlen:
+        pe = MPcon[trigIndex * nc - 5 * WFlen: trigIndex * nc]
+    else:
+        pe = MPcon[trigIndex * nc: trigIndex * nc + WFlen + 6 * WFlen]
+    rollingstd = tnative.rolling_std(pe, WFlen)
+    baseNoise = np.median(rollingstd) if len(rollingstd) else np.nan
+    SNR = np.std(ConDat) / baseNoise if baseNoise else np.nan
+    touse = mags > -15
+    if issubspace:
+        if not np.any(touse):
+            return np.nan, np.nan, SNR
+        ftype = np.float64 if dtype == "double" else np.float32
+        W = np.asarray(ewf, ftype)
+        cd = np.asarray(ConDat, ftype)
+        NT = (W - W.mean(axis=1, keepdims=True)) / \
+            (W.std(axis=1, keepdims=True) * W.shape[1])
+        eventCors = (NT @ cd - NT.sum(axis=1) * cd.mean()) / cd.std()
+        w = np.square(np.asarray(eventCors))[touse]
+        est = np.asarray(mags)[touse] + np.log10(np.sqrt(
+            np.asarray(proEn)[touse]))
+        peMag = float(np.sum(est * w) / np.sum(w))
+        ratio = np.std(ConDat) / np.std(np.asarray(ewf), axis=1)[touse]
+        est = np.asarray(mags)[touse] + np.log10(ratio)
+        stMag = float(np.sum(est * w) / np.sum(w))
+    else:
+        if np.isnan(mags[0]) or mags[0] < -15:
+            return np.nan, np.nan, SNR
+        peMag = mags[0] + np.dot(ConDat, WFU[0]) / np.dot(WFU[0], WFU[0])
+        stMag = mags[0] + np.log10(np.std(ConDat) / np.std(WFU[0]))
+    return peMag, stMag, SNR
+
+
+@pytest.mark.parametrize("case", sorted(MAG_CASES))
+@pytest.mark.parametrize("dtype", ["single", "double"])
+@pytest.mark.parametrize("issubspace", [True, False])
+def test_est_mag_matches_row_expressions(issubspace, dtype, case):
+    """_estMag on the detector terms _prepareDetectors builds once against
+    every term computed on the row: the same values, bit for bit, and
+    types; subspace and single detectors, float32 and float64 chunks, a
+    detector with no magnitude above -15, and a trigger within five
+    template lengths of the chunk start."""
+    trig, unusable = MAG_CASES[case]
+    rng = np.random.default_rng(7)
+    D, E = (2, 4) if issubspace else (1, 1)
+    U = np.linalg.qr(rng.standard_normal((MAG_N, D)))[0].T
+    WFs = np.stack([U[0] * rng.uniform(2, 4) + U[-1] * rng.standard_normal()
+                    + 0.1 * rng.standard_normal(MAG_N) for _ in range(E)])
+    mags = ([-20.0, -30.0, -16.0, -15.5] if unusable
+            else [1.0, 1.3, -20.0, 0.7])[:E]
+    d = dict(name="d0", U=U, WFs=WFs, mags=mags, events=["e"] * E,
+             offsets=[0.0] * E, threshold=0.3)
+    eng = object.__new__(tdetect._SSDetex)
+    eng.issubspace, eng.dtype, eng.devicePrep = issubspace, dtype, False
+    eng.device, eng.dataLength = torch.device("cpu"), MAG_LEN / MAG_SR / 3
+    info = eng._prepareDetectors([d], "XX.S1", list(CHANS), MAG_SR)[0]["d0"]
+    x = rng.standard_normal(MAG_LEN)
+    x[3 * trig:3 * trig + MAG_N] += 20.0 * U[0]
+    MPcon = x.astype(np.float64 if dtype == "double" else np.float32)
+    got = eng._estMag(trig, info, MPcon, 3, 0.5, T0, "d0", "XX.S1")
+    want = _ref_estMag(issubspace, dtype, trig, info, MPcon, 3)
+    assert [type(v) for v in got] == [type(v) for v in want]
+    np.testing.assert_array_equal(np.asarray(got, np.float64),
+                                  np.asarray(want, np.float64))
+    assert np.isnan(got[0]) == unusable and np.isfinite(got[2])

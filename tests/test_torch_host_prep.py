@@ -86,21 +86,21 @@ def _counts():
 
 
 def _same_payload(got, want, devicePrep):
-    (pg, srg, tg), (pw, srw, tw) = got, want
+    (xg, srg, tg, stg), (xw, srw, tw, stw) = got, want
     assert srg == srw and tg == tw
+    assert xg.dtype == xw.dtype and xg.shape == xw.shape
+    assert np.array_equal(xg, xw)
     if devicePrep:
-        assert pg["chans"].dtype == pw["chans"].dtype == np.float32
-        assert np.array_equal(pg["chans"], pw["chans"])
-        assert len(pg["st"]) == len(pw["st"])
-        for a, b in zip(pg["st"], pw["st"]):
+        assert xg.dtype == np.float32 and xg.ndim == 2
+        assert len(stg) == len(stw)
+        for a, b in zip(stg, stw):
             assert a.stats.channel == b.stats.channel
             assert a.stats.starttime.timestamp == b.stats.starttime.timestamp
             assert a.stats.npts == b.stats.npts
             assert a.data.dtype == b.data.dtype
             assert np.array_equal(a.data, b.data)
     else:
-        assert pg.dtype == pw.dtype and pg.shape == pw.shape
-        assert np.array_equal(pg, pw)
+        assert xg.ndim == 1 and stg is None and stw is None
 
 
 @pytest.mark.parametrize("nc", [1, 3])
@@ -156,19 +156,19 @@ def test_refilter_from_device_prep_payload(monkeypatch, dtype, filt):
     traces (detrended again in float64, band-passed, multiplexed): the old
     path's bits, the payload left as it was, one count a chunk."""
     eng = _engine(FILTS[filt], dtype)
-    payload = eng._prepChunk(_stream("int32"), "XX.S1", 3, 0, True)[0]
-    before = [tr.data.copy() for tr in payload["st"]]
+    traces = eng._prepChunk(_stream("int32"), "XX.S1", 3, 0, True)[3]
+    before = [tr.data.copy() for tr in traces]
     f0, b0 = _counts()
-    got = eng._refilter(payload["st"], 3)
+    got = eng._refilter(traces, 3)
     assert _counts() == (f0 + 1, b0)
     assert all(np.array_equal(a, tr.data)
-               for a, tr in zip(before, payload["st"]))
+               for a, tr in zip(before, traces))
     _refuse(monkeypatch)
-    want = eng._refilter(payload["st"], 3)
+    want = eng._refilter(traces, 3)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     # and what the reverify computed before: the payload copied, filtered
     old = tcons.multiplex(tcons._applyFilter(
-        payload["st"].copy(), FILTS[filt], None, dtype), 3)
+        traces.copy(), FILTS[filt], None, dtype), 3)
     assert np.array_equal(got, old)
 
 
@@ -316,8 +316,7 @@ def test_unbuildable_library_falls_back(monkeypatch, tmp_path, devicePrep):
     old = tcons._applyFilter(_stream("int32"), None if devicePrep else
                              FILTS["zerophase"], None, "single")
     if devicePrep:
-        assert np.array_equal(got[0]["chans"],
-                              np.stack([tr.data for tr in old]))
+        assert np.array_equal(got[0], np.stack([tr.data for tr in old]))
     else:
         assert np.array_equal(got[0], tcons.multiplex(old, 3))
 
